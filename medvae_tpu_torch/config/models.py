@@ -1,0 +1,98 @@
+"""Model configs and construction (counterpart of medvae_tpu/train/trainer.py:53-89).
+
+`FLAGSHIP` equals configs/model/disentangled_conditional_vae.yaml as a Python
+dict, so that nothing on the serving path needs PyYAML.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import torch
+
+from medvae_tpu_torch.core.precision import compute_dtype_for, configure_backends
+from medvae_tpu_torch.models import DisentangledConditionalVAE
+from medvae_tpu_torch.nn.blocks import Conv2d
+
+FLAGSHIP: Dict[str, Any] = {
+    "_target_": "medvae_tpu.models.DisentangledConditionalVAE",
+    "latent_dim": 128,
+    "shared_latent_dim": 64,
+    "modality_latent_dim": 64,
+    "hidden_channels": 128,
+    "ch_mult": [1, 2, 4, 8],
+    "num_res_blocks": 2,
+    "attn_resolutions": [28, 56],
+    "dropout": 0.0,
+    "resolution": 224,
+    "use_linear_attn": False,
+    "attn_type": "vanilla",
+    "double_z": True,
+    "num_modalities": 5,
+    "modality_separation_weight": 0.1,
+    "contrastive_weight": 0.05,
+}
+
+_ARCH_KEYS = (
+    "num_modalities", "shared_latent_dim", "modality_latent_dim", "hidden_channels",
+    "ch_mult", "num_res_blocks", "attn_resolutions", "resolution", "double_z",
+)
+# the loss weights are training's; the flagship's latent is shared + modality,
+# whatever `latent_dim` says (the JAX model ignores it too)
+_UNUSED_KEYS = ("_target_", "latent_dim", "modality_separation_weight", "contrastive_weight")
+
+
+def build_model(
+    model_cfg: Mapping[str, Any], precision: str = "bf16", device: Any = "cuda"
+) -> DisentangledConditionalVAE:
+    """Instantiate the model of `model_cfg` on `device` in eval mode, with the
+    precision applied: params are made in fp32, then conv weights are
+    stored in the compute dtype (rounding them once here equals flax's cast at
+    every call); norm and projector params stay fp32. Inference needs no
+    remat."""
+    cfg = dict(model_cfg)
+    target = str(cfg.get("_target_", "DisentangledConditionalVAE"))
+    if not target.endswith("DisentangledConditionalVAE"):
+        raise NotImplementedError(f"model {target} is not ported yet")
+    if cfg.get("use_linear_attn") or cfg.get("attn_type", "vanilla") != "vanilla":
+        raise NotImplementedError("linear attention is not ported yet")
+    if float(cfg.get("dropout", 0.0)) != 0.0:
+        raise NotImplementedError("dropout is a training feature, not ported yet")
+    unknown = set(cfg) - set(_ARCH_KEYS) - set(_UNUSED_KEYS) - {
+        "use_linear_attn", "attn_type", "dropout",
+    }
+    if unknown:
+        raise ValueError(f"unknown model config keys: {sorted(unknown)}")
+    compute_dtype = compute_dtype_for(precision)
+    configure_backends(compute_dtype)
+    with torch.device(device):
+        model = DisentangledConditionalVAE(**{k: cfg[k] for k in _ARCH_KEYS if k in cfg})
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            m.to(compute_dtype)
+    return model.eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Random weights from a seeded CPU torch.Generator, so that every device
+    gets the same ones: kernels ~ N(0, 1/fan_in) (flax's lecun-normal scale),
+    norm scales 1, biases 0."""
+    gen = torch.Generator().manual_seed(int(seed))
+
+    def normal(p: torch.Tensor, fan_in: int) -> None:
+        p.copy_(torch.randn(p.shape, generator=gen) * fan_in**-0.5)
+
+    for module in model.modules():
+        if isinstance(module, torch.nn.GroupNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+        elif isinstance(module, torch.nn.Conv2d):
+            normal(module.weight, module.weight[0].numel())
+            module.bias.zero_()
+    for p in model.parameters(recurse=False):  # projector (in, out) kernels, biases
+        if p.dim() == 2:
+            normal(p, p.shape[0])
+        else:
+            p.zero_()
+    return model

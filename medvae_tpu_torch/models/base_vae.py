@@ -1,0 +1,87 @@
+"""Base VAE (counterpart of medvae_tpu/models/base_vae.py:35-156).
+
+Public methods take and return NHWC tensors, as the JAX package's do, so the
+two are compared like with like; the codec runs NCHW inside.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class BaseVAE(nn.Module):
+    def __init__(
+        self,
+        input_channels: int = 1,
+        latent_dim: int = 128,
+        hidden_channels: int = 128,
+        ch_mult: Sequence[int] = (1, 2, 4, 8),
+        num_res_blocks: int = 2,
+        attn_resolutions: Sequence[int] = (16,),
+        resolution: int = 224,
+        double_z: bool = True,
+    ):
+        super().__init__()
+        self.input_channels = int(input_channels)
+        self.latent_dim = int(latent_dim)
+        self.ch_mult = tuple(ch_mult)
+        self.resolution = int(resolution)
+        self.encoder = Encoder(
+            ch=hidden_channels,
+            num_res_blocks=num_res_blocks,
+            attn_resolutions=tuple(attn_resolutions),
+            in_channels=self.input_channels,
+            resolution=self.resolution,
+            z_channels=self.latent_dim,
+            ch_mult=self.ch_mult,
+            double_z=double_z,
+        )
+        self.decoder = Decoder(
+            ch=hidden_channels,
+            out_ch=self.input_channels,
+            num_res_blocks=num_res_blocks,
+            attn_resolutions=tuple(attn_resolutions),
+            resolution=self.resolution,
+            z_channels=self.latent_dim,
+            ch_mult=self.ch_mult,
+        )
+
+    @property
+    def encoder_out_res(self) -> int:
+        return self.resolution // (2 ** (len(self.ch_mult) - 1))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: the dtype the conv weights are stored in."""
+        return self.encoder.conv_in.weight.dtype
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """NHWC image -> (mean, logvar), each NHWC, split on channels."""
+        h = to_nhwc(self.encoder(to_nchw(x)))
+        mean, logvar = torch.chunk(h, 2, dim=-1)
+        return mean, logvar
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return to_nhwc(self.decoder(to_nchw(z)))
+
+    @staticmethod
+    def reparameterize(
+        mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor
+    ) -> torch.Tensor:
+        """mean + noise·exp(½ logvar), with the caller's standard-normal draw
+        (so that tests can feed both packages the same one)."""
+        std = torch.exp(0.5 * logvar)
+        return mean + noise.to(std.dtype) * std

@@ -1,0 +1,140 @@
+"""VAE Encoder / Decoder (counterpart of medvae_tpu/nn/encoder_decoder.py:65-271).
+
+NCHW in and out. Modules are laid out as the reference torch codec is
+(`down.{i}.block.{j}`, `down.{i}.attn.{j}`, `down.{i}.downsample`,
+`mid.block_1/attn_1/block_2`, `up.{i}.…`, `conv_in/out`, `norm_out`), so a
+state_dict key names the same tensor in both. An attention block follows every
+res block whose resolution is in `attn_resolutions`. FiLM, temb, dropout and
+remat are training features of the JAX codec and come with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from medvae_tpu_torch.nn.blocks import (
+    AttnBlock,
+    Conv2d,
+    Downsample,
+    GroupNorm,
+    ResnetBlock,
+    Upsample,
+    norm_swish,
+)
+
+
+def _mid(channels: int) -> nn.Module:
+    mid = nn.Module()
+    mid.block_1 = ResnetBlock(channels, channels)
+    mid.attn_1 = AttnBlock(channels)
+    mid.block_2 = ResnetBlock(channels, channels)
+    return mid
+
+
+def _run_mid(mid: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    return mid.block_2(mid.attn_1(mid.block_1(h)))
+
+
+class Encoder(nn.Module):
+    def __init__(
+        self,
+        *,
+        ch: int,
+        num_res_blocks: int,
+        attn_resolutions: Sequence[int],
+        in_channels: int,
+        resolution: int,
+        z_channels: int,
+        ch_mult: Sequence[int] = (1, 2, 4, 8),
+        double_z: bool = True,
+    ):
+        super().__init__()
+        self.num_res_blocks = num_res_blocks
+        self.conv_in = Conv2d(in_channels, ch, 3, padding=1)
+        in_ch_mult = (1,) + tuple(ch_mult)
+        curr_res = resolution
+        self.down = nn.ModuleList()
+        for i_level, mult in enumerate(ch_mult):
+            level = nn.Module()
+            level.block = nn.ModuleList()
+            level.attn = nn.ModuleList()
+            block_in = ch * in_ch_mult[i_level]
+            block_out = ch * mult
+            for _ in range(num_res_blocks):
+                level.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if curr_res in attn_resolutions:
+                    level.attn.append(AttnBlock(block_in))
+            if i_level != len(ch_mult) - 1:
+                level.downsample = Downsample(block_in)
+                curr_res //= 2
+            self.down.append(level)
+        self.mid = _mid(block_in)
+        self.norm_out = GroupNorm(block_in)
+        out_channels = 2 * z_channels if double_z else z_channels
+        self.conv_out = Conv2d(block_in, out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for level in self.down:
+            for j, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[j](h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = _run_mid(self.mid, h)
+        return self.conv_out(norm_swish(self.norm_out, h))
+
+
+class Decoder(nn.Module):
+    def __init__(
+        self,
+        *,
+        ch: int,
+        out_ch: int,
+        num_res_blocks: int,
+        attn_resolutions: Sequence[int],
+        resolution: int,
+        z_channels: int,
+        ch_mult: Sequence[int] = (1, 2, 4, 8),
+    ):
+        super().__init__()
+        num_levels = len(ch_mult)
+        block_in = ch * ch_mult[-1]
+        curr_res = resolution // 2 ** (num_levels - 1)
+        self.conv_in = Conv2d(z_channels, block_in, 3, padding=1)
+        self.mid = _mid(block_in)
+        levels = {}
+        for i_level in reversed(range(num_levels)):
+            level = nn.Module()
+            level.block = nn.ModuleList()
+            level.attn = nn.ModuleList()
+            block_out = ch * ch_mult[i_level]
+            for _ in range(num_res_blocks + 1):
+                level.block.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if curr_res in attn_resolutions:
+                    level.attn.append(AttnBlock(block_in))
+            if i_level != 0:
+                level.upsample = Upsample(block_in)
+                curr_res *= 2
+            levels[i_level] = level
+        # indexed by level, as the reference's `up` list is
+        self.up = nn.ModuleList(levels[i] for i in range(num_levels))
+        self.norm_out = GroupNorm(block_in)
+        self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = _run_mid(self.mid, self.conv_in(z))
+        for level in reversed(self.up):
+            for j, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[j](h)
+            if hasattr(level, "upsample"):
+                h = level.upsample(h)
+        return self.conv_out(norm_swish(self.norm_out, h))
