@@ -4,12 +4,21 @@
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   env      torch, CUDA, nvcc, and the card's name and power limit;
-  build    compiles the kernel of medvae_tpu_torch/ops/csrc (timed);
-  kernel   the flash-attention forward kernel against its plain PyTorch
+  build    compiles the kernels of medvae_tpu_torch/ops/csrc, one nvcc per
+           source, all started together (timed);
+  kernel   the flash-attention forward kernel B1 against its plain PyTorch
            version on the card (bf16: max abs 4e-3 and relative L2 1e-2 at
            (32,3136,512), (2,784,1024), (2,1000,512); fp32: max abs and relative L2
            1e-4 at (2,3136,512)), and its time beside its bound, the plain version's
-           and scaled_dot_product_attention's;
+           and scaled_dot_product_attention's; then B1's lse (max abs 1e-4) and the
+           backward kernels B2 (dK, dV) and B3 (dQ) against their plain versions at
+           the same shapes (bf16: relative L2 1e-2 and max abs 15 % of the
+           gradient's std; fp32: 1e-4 for both), the autograd Function against
+           autograd through the plain forward, and their times at (32,3136,512)
+           bf16 beside their bounds and the plain versions'; the library
+           yardsticks are the efficient-attention forward asked for its lse
+           (B1 with lse) and the backward of scaled_dot_product_attention, which
+           computes dq, dk and dv at once and so stands against B2 + B3;
   serve    the full-width 224² flagship DisentangledConditionalVAE (random
            weights from a seed, bf16) behind InferenceEngine(buckets 1/8/32):
            reconstruct/encode/decode/sample requests with mixed modalities,
@@ -19,20 +28,37 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            against card fp32;
   http     one /reconstruct, /encode and /sample through cli/serve.py;
   profile  device time by kernel and by layer for one bs-32 reconstruct
-           (torch.profiler), and the card's idle share during it.
+           (torch.profiler), and the card's idle share during it;
+  train    the full-width 224² flagship's training step (fp32 params, bf16
+           compute, the full-scale experiment's loss with fp32 LPIPS and
+           CLIP-ViT towers from fixed seeds, adamw lr 1e-4 constant, clip 1.0,
+           bench.py's synthetic bs-32 batch, augment on): 2 warmup and 10 timed
+           steps, each with its loss terms, grad norm and B1/B2/B3 launches
+           (5/5/5 or it raises), then ms per step, img/s, peak memory and a
+           torch.profiler breakdown of one step;
+  train_parity  one fp32 step of the same model on the card against the CPU
+           (bs 2, same weights, batch and noise, augment off: loss relative
+           1e-4, gradient global relative L2 1e-3, and relative L2 ATTN_GRAD_REL
+           for each q/k/v/proj_out weight of the five 3136x512 attention
+           blocks), with two controls beside it (the card's step repeated as
+           it was, and with the noise nudged by 1e-6), and the bf16 loss
+           against the fp32 one on the card (relative 5e-2).
 Then the card line from nvidia-smi, the kernels line, and
 {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,6 +70,9 @@ try:
     from medvae_tpu_torch.ops import flash_attention as fa
     from medvae_tpu_torch.ops.attention import reference_attention
     from medvae_tpu_torch.serve.engine import InferenceEngine
+    from medvae_tpu_torch.train.optim import build_optimizer
+    from medvae_tpu_torch.train.state import create_train_state
+    from medvae_tpu_torch.train.step import build_loss_and_grads, build_train_step, make_frozen
 except ImportError as e:
     print(f"chip_smoke: the medvae_tpu_torch package is missing here ({e})", file=sys.stderr)
     raise SystemExit(3)
@@ -56,6 +85,14 @@ REPS = 20
 # output there (|o| ~ 0.03 at n = 3136), so a kernel that drops a key tile
 # fails it.
 TOLERANCE = {torch.bfloat16: (4e-3, 1e-2), torch.float32: (1e-4, 1e-4)}
+# backward kernels vs plain versions, scaled to each gradient: relative L2,
+# and max abs as a fraction of the gradient's std (bf16) or absolute (fp32)
+GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+GRAD_ABS_OF_STD = {torch.bfloat16: 0.15, torch.float32: None}
+LSE_TOLERANCE = 1e-4
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+CHECK_SHAPES = [((32, 3136, 512), torch.bfloat16), ((2, 784, 1024), torch.bfloat16),
+                ((2, 1000, 512), torch.bfloat16), ((2, 3136, 512), torch.float32)]
 
 
 def emit(obj) -> None:
@@ -122,10 +159,12 @@ def phase_env() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    path = _build.build("flash_fwd")
-    _build.load("flash_fwd")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, in parallel
+        paths = list(pool.map(_build.build, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        _build.load(name)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": path.name})
+          "libraries": [p.name for p in paths]})
 
 
 def phase_kernel() -> dict:
@@ -134,10 +173,8 @@ def phase_kernel() -> dict:
     def qkv(b, n, c, dtype):
         return [torch.randn((b, n, c), generator=gen, device="cuda").to(dtype) for _ in range(3)]
 
-    checks = [((32, 3136, 512), torch.bfloat16), ((2, 784, 1024), torch.bfloat16),
-              ((2, 1000, 512), torch.bfloat16), ((2, 3136, 512), torch.float32)]
     errs = {}
-    for shape, dtype in checks:
+    for shape, dtype in CHECK_SHAPES:
         tol_abs, tol_rel = TOLERANCE[dtype]
         q, k, v = qkv(*shape, dtype)
         got = fa.flash_attention(q, k, v)
@@ -187,6 +224,149 @@ def phase_kernel() -> dict:
     return row
 
 
+def grad_check(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> dict:
+    """One gradient against its plain version, with the bars of GRAD_REL and
+    GRAD_ABS_OF_STD."""
+    err = (got.double() - want.double()).abs().max().item()
+    rel = torch_rel_l2(got, want)
+    std = want.double().std().item()
+    frac = GRAD_ABS_OF_STD[dtype]
+    bar = frac * std if frac else 1e-4
+    finite = bool(torch.isfinite(got).all())
+    return {"name": name, "max_abs_err": err, "max_abs_bar": bar, "rel_l2": rel,
+            "rel_l2_bar": GRAD_REL[dtype], "std": std, "finite": finite,
+            "ok": finite and err <= bar and rel <= GRAD_REL[dtype]}
+
+
+def sdpa_backward_ms(q, k, v, g):
+    """The library yardstick of B2 and B3: the backward of one
+    scaled_dot_product_attention call (dq, dk and dv together) at the same
+    inputs, with the first backend that takes head dim c backward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in (q, k, v))
+    g4 = g[:, None]
+    refused = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+                ms = cuda_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g4, retain_graph=True))
+            return ms, backend.name, refused
+        except RuntimeError as e:
+            refused.append(f"{backend.name}: {str(e).splitlines()[0][:120]}")
+    return None, "none", refused
+
+
+def efficient_lse_ms(q, k, v, lse):
+    """The library yardstick of B1 with lse: the efficient-attention forward
+    asked for its log-sum-exp, at the same inputs. Returns (ms, max abs
+    difference of its lse from B1's), or (None, why) if it refuses."""
+    q4, k4, v4 = (t[:, None] for t in (q, k, v))
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(q4, k4, v4, None, True)
+
+    try:
+        lib_lse = call()[1][:, 0, : q.shape[1]]
+        return cuda_ms(call), (lib_lse.float() - lse).abs().max().item()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:120]
+
+
+def phase_backward() -> dict:
+    """B1's lse, B2 and B3 against their plain versions, the autograd
+    Function against autograd through the plain forward, and their times."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(shape, dtype, count):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(count)]
+
+    worst = {"flash_fwd_lse": 0.0, "flash_dkv": 0.0, "flash_dq": 0.0}
+    for shape, dtype in CHECK_SHAPES:
+        q, k, v, g = randn(shape, dtype, 4)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        _, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+        lse_err = (lse - lse_ref).abs().max().item()
+        delta = (g.float() * o.float()).sum(-1)
+        dk, dv = fa.flash_dkv(q, k, v, g, lse, delta)
+        dq = fa.flash_dq(q, k, v, g, lse, delta)
+        torch.cuda.synchronize()
+        ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, g, lse, delta)
+        ref_dq = fa.flash_dq_plain(q, k, v, g, lse, delta)
+        rows = [grad_check("dq", dq, ref_dq, dtype), grad_check("dk", dk, ref_dk, dtype),
+                grad_check("dv", dv, ref_dv, dtype)]
+        emit({"phase": "kernel", "kernels": "flash_fwd lse, flash_dkv, flash_dq",
+              "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+              "lse_max_abs_err": lse_err, "lse_bar": LSE_TOLERANCE, "grads": rows})
+        if not lse_err <= LSE_TOLERANCE or not all(r["ok"] for r in rows):
+            raise AssertionError(f"backward kernels {shape} {dtype}: lse {lse_err}, {rows}")
+        if shape == (32, 3136, 512):
+            worst = {"flash_fwd_lse": lse_err, "flash_dkv": max(rows[1]["max_abs_err"], rows[2]["max_abs_err"]),
+                     "flash_dq": rows[0]["max_abs_err"]}
+        del q, k, v, g, o, lse, dk, dv, dq, ref_dk, ref_dv, ref_dq
+        torch.cuda.empty_cache()
+
+    for shape, dtype in (((4, 3136, 512), torch.bfloat16), ((2, 1000, 512), torch.float32)):
+        q, k, v, w = randn(shape, dtype, 4)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(fa.FlashAttention.apply(*leaves), leaves, w)
+        want = torch.autograd.grad(fa.flash_attention_fwd_plain(*ref_leaves)[0], ref_leaves, w)
+        rows = [grad_check("d" + n, a, b, dtype) for n, a, b in zip("qkv", got, want)]
+        emit({"phase": "kernel", "kernels": "FlashAttention autograd vs autograd of the plain forward",
+              "shape": list(shape), "dtype": str(dtype).split(".")[-1], "grads": rows})
+        if not all(r["ok"] for r in rows):
+            raise AssertionError(f"FlashAttention grads {shape} {dtype}: {rows}")
+
+    b, n, c = 32, 3136, 512
+    q, k, v, g = randn((b, n, c), torch.bfloat16, 4)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (g.float() * o.float()).sum(-1)
+    library_ms, backend, refused = sdpa_backward_ms(q, k, v, g)
+    lse_library_ms, lse_library_check = efficient_lse_ms(q, k, v, lse)
+    el = q.element_size()
+    work = {  # operations; bytes with each input read once and each output written once
+        "flash_fwd_lse": (4.0 * b * n * n * c, 4.0 * b * n * c * el + 4.0 * b * n),
+        "flash_dkv": (8.0 * b * n * n * c, 6.0 * b * n * c * el + 8.0 * b * n),
+        "flash_dq": (6.0 * b * n * n * c, 5.0 * b * n * c * el + 8.0 * b * n),
+    }
+    calls = {
+        "flash_fwd_lse": (lambda: fa.flash_attention_fwd(q, k, v),
+                          lambda: fa.flash_attention_fwd_plain(q, k, v)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, g, lse, delta),
+                      lambda: fa.flash_dkv_plain(q, k, v, g, lse, delta)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, g, lse, delta),
+                     lambda: fa.flash_dq_plain(q, k, v, g, lse, delta)),
+    }
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = work[name]
+        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        ms = cuda_ms(kernel)
+        rows[name] = {
+            "shape": [b, n, c], "dtype": "bfloat16", "ms": ms, "plain_ms": cuda_ms(plain),
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "tflops_per_s": flops / ms / 1e9,
+            "max_abs_err": worst[name],
+        }
+    rows["flash_fwd_lse"].update(
+        library_ms=lse_library_ms, library="aten._scaled_dot_product_efficient_attention, lse on",
+        library_lse_max_abs_diff_or_refusal=lse_library_check)
+    # one SDPA backward computes dq, dk and dv: it stands against B2 + B3
+    backward_ms = rows["flash_dkv"]["ms"] + rows["flash_dq"]["ms"]
+    for name in ("flash_dkv", "flash_dq"):
+        rows[name].update(library_ms=library_ms, library_covers="dq, dk and dv: compare backward_ms",
+                          backward_ms=backward_ms)
+    for name, row in rows.items():
+        emit({"phase": "kernel", "kernel": name, **row,
+              **({} if name == "flash_fwd_lse" else {"library": "scaled_dot_product_attention backward",
+                                                    "library_backend": backend,
+                                                    "library_refused": refused})})
+    return rows
+
+
 def build_engines():
     cpu_model = build_model(FLAGSHIP, "fp32", "cpu")
     init_weights(cpu_model, seed=0)
@@ -225,11 +405,11 @@ def phase_serve(engine) -> int:
         ("decode", 8, lambda: engine.decode(z8, modality=mods[8])),
         ("sample", 8, lambda: engine.sample(8, modality=mods[8], seed=1)),
     ]
-    fa.launches = 0  # the main path starts here
+    fa.reset_launches()  # the main path starts here
     for method, n, fn in requests:
-        before = fa.launches
+        before = fa.launches["flash_fwd"]
         out = fn()
-        got = fa.launches - before
+        got = fa.launches["flash_fwd"] - before
         chunks = len(list(engine._chunks(n)))
         arrays = out if isinstance(out, tuple) else (out,)
         want_shape = (n, r, r, zdim) if method == "encode" else (n, res, res, c)
@@ -242,7 +422,9 @@ def phase_serve(engine) -> int:
             raise AssertionError(
                 f"{method}({n}): {got} flash launches, want {PER_CHUNK[method]} x {chunks}"
             )
-    main_path_launches = fa.launches  # the main path ends here
+    main_path_launches = dict(fa.launches)  # the main path ends here
+    if main_path_launches["flash_dkv"] or main_path_launches["flash_dq"]:
+        raise AssertionError(f"serving launched backward kernels: {main_path_launches}")
 
     for b in engine.buckets:
         x, m = rs.randint(0, 256, (b, res, res, c), np.uint8), (np.arange(b) % 5).astype(np.int32)
@@ -252,7 +434,7 @@ def phase_serve(engine) -> int:
         emit({"phase": "serve", "method": "reconstruct", "bucket": b,
               "ms_per_batch": ms, "images_per_sec": b / ms * 1e3,
               "min_ms": min(times), "max_ms": max(times), "samples_ms": times})
-    return main_path_launches
+    return main_path_launches["flash_fwd"]
 
 
 def phase_parity(bf16_engine, fp32_engine, cpu_engine) -> None:
@@ -309,6 +491,8 @@ def phase_http(engine) -> None:
 # kernel-name fragments -> the layer a kernel belongs to, for the breakdown
 _CATEGORIES = (
     ("flash_fwd", "flash_fwd (B1)"),
+    ("flash_dkv", "flash_dkv (B2)"),
+    ("flash_dq", "flash_dq (B3)"),
     ("Nhwc", "cudnn layout transforms"),
     ("Nchw", "cudnn layout transforms"),
     ("fprop", "convolution"),
@@ -327,18 +511,15 @@ def _category(name: str) -> str:
     return "elementwise / copy / other"
 
 
-def phase_profile(engine) -> None:
-    """Device time by kernel over one bs-32 reconstruct (torch.profiler),
-    beside the same call's unprofiled wall time."""
+def device_breakdown(fn, wall_ms: float) -> dict:
+    """Device time by kernel and by layer over one call of `fn`
+    (torch.profiler), beside the same call's unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    res, c = int(engine.model.resolution), int(engine.model.max_channels)
-    x = np.random.RandomState(3).randint(0, 256, (32, res, res, c), np.uint8)
-    m = (np.arange(32) % 5).astype(np.int32)
-    wall_ms = statistics.median(host_samples_ms(lambda: engine.reconstruct(x, modality=m), reps=3))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.reconstruct(x, modality=m)
+        fn()
+        torch.cuda.synchronize()
     kernels = [(e.self_device_time_total / 1e3, e.key, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -347,11 +528,180 @@ def phase_profile(engine) -> None:
     by_cat = {}
     for ms, name, _ in kernels:
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
-    emit({"phase": "profile", "bucket": 32, "wall_ms": wall_ms,
-          "device_busy_ms": busy if kernels else "not measured",
-          "idle_share": 1.0 - busy / wall_ms if kernels else "not measured",
-          "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-          "top": [{"kernel": k[:80], "ms": ms, "calls": n} for ms, k, n in kernels[:10]]})
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if kernels else "not measured",
+            "idle_share": 1.0 - busy / wall_ms if kernels else "not measured",
+            "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+            "top": [{"kernel": k[:80], "ms": ms, "calls": n} for ms, k, n in kernels[:12]]}
+
+
+def phase_profile(engine) -> None:
+    """Device time by kernel over one bs-32 reconstruct."""
+    res, c = int(engine.model.resolution), int(engine.model.max_channels)
+    x = np.random.RandomState(3).randint(0, 256, (32, res, res, c), np.uint8)
+    m = (np.arange(32) % 5).astype(np.int32)
+    wall_ms = statistics.median(host_samples_ms(lambda: engine.reconstruct(x, modality=m), reps=3))
+    emit({"phase": "profile", "bucket": 32,
+          **device_breakdown(lambda: engine.reconstruct(x, modality=m), wall_ms)})
+
+
+# configs/experiment/disentangled_multi_modal_cvae_full.yaml, training.loss,
+# with the fp32 towers (medvae_tpu/train/step.py:147-158)
+FLAGSHIP_LOSS = {
+    "type": "disentangled_vae", "recon_loss_type": "mse", "kl_weight": 1.0, "recon_weight": 1.0,
+    "separation_weight": 0.1, "contrastive_weight": 0.2, "perceptual_weight": 0.1,
+    "biomedclip_weight": 0.1, "clip_encoder": "vit",
+}
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 32, 2, 10
+# per-leaf bar of train_parity's attention weights, card vs CPU: 1.75x the
+# worst reading on the H100 (5.7e-4, a q weight); each leaf's gap is 0.55-0.6 of
+# what a 1e-6 nudge of the noise moves it by, and a bf16-grade error in the fp32
+# kernels would be ~3e-3
+ATTN_GRAD_REL = 1e-3
+CARD = "cuda"  # the train phases' device
+PER_TRAIN_STEP = {"flash_fwd": 5, "flash_dkv": 5, "flash_dq": 5}  # the five 56² blocks
+
+
+def bench_optimizer():
+    """bench.py's flagship full224 optimizer (bench.py:217-222)."""
+    return build_optimizer({"type": "adamw", "lr": 1e-4}, {"type": "constant"},
+                           gradient_clip_val=1.0)
+
+
+def synthetic_batch(batch_size: int, size: int, device) -> dict:
+    """bench.py's _synthetic_batch (bench.py:132-142): five modalities round
+    robin, channels [1, 3, 3, 1, 3], uint8 images from seed 0."""
+    rs = np.random.RandomState(0)
+    midx = np.arange(batch_size) % 5
+    return {
+        "image_u8": torch.from_numpy(rs.randint(0, 255, (batch_size, size, size, 3), np.uint8)).to(device),
+        "modality_idx": torch.from_numpy(midx).to(device),
+        "channels": torch.tensor([1, 3, 3, 1, 3])[midx].to(device),
+    }
+
+
+def train_model(state_dict, precision: str, device, frozen_from=None):
+    """The flagship built for training (fp32 params, `precision` compute)
+    with `state_dict` loaded, and its frozen towers (seeded, or copies of
+    `frozen_from`'s)."""
+    model = build_model(FLAGSHIP, precision, device, train=True)
+    model.load_state_dict(state_dict)
+    if frozen_from is None:
+        frozen = make_frozen(FLAGSHIP_LOSS, device, seed=0)
+    else:
+        frozen = {k: copy.deepcopy(v).to(device) for k, v in frozen_from.items()}
+    return model, frozen
+
+
+def phase_train(state_dict) -> dict:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, frozen = train_model(state_dict, "bf16", CARD)
+    tx = bench_optimizer()
+    state = create_train_state(model, tx, frozen)
+    step = build_train_step(model, FLAGSHIP_LOSS, tx, augment=True, max_channels=3)
+    batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    totals = dict.fromkeys(PER_TRAIN_STEP, 0)
+    times = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        fa.reset_launches()  # each step is a run of the main path
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(fa.launches)  # read just after the step
+        values = {k.split("/", 1)[1]: float(v) for k, v in metrics.items()}
+        emit({"phase": "train", "step": i, "warmup": i < WARMUP_STEPS, "ms": ms, **values,
+              "launches": counts})
+        if not all(np.isfinite(list(values.values()))):
+            raise AssertionError(f"train step {i}: non-finite metrics {values}")
+        if counts != PER_TRAIN_STEP:
+            raise AssertionError(f"train step {i}: launches {counts}, want {PER_TRAIN_STEP}")
+        for name in totals:
+            totals[name] += counts[name]
+        if i >= WARMUP_STEPS:
+            times.append(ms)
+    median = statistics.median(times)
+    emit({"phase": "train", "batch": TRAIN_BATCH, "resolution": int(model.resolution),
+          "ms_per_step_median": median, "ms_per_step_min": min(times),
+          "ms_per_step_max": max(times), "samples_ms": times,
+          "images_per_sec": TRAIN_BATCH / median * 1e3,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "params": sum(p.numel() for p in state.params.values())})
+    emit({"phase": "train", "profile": "one step",
+          **device_breakdown(lambda: step(state, batch, gen), median)})
+    del model, frozen, state, step, batch
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_train_parity(state_dict) -> None:
+    """One fp32 step's loss and gradients, card against CPU, at bs 2 with the
+    same weights, batch and noise, augment off; and the card's bf16 loss
+    against its fp32 loss."""
+    res = FLAGSHIP["resolution"]
+    r = res // 2 ** (len(FLAGSHIP["ch_mult"]) - 1)
+    zdim = FLAGSHIP["shared_latent_dim"] + FLAGSHIP["modality_latent_dim"]
+    batch = synthetic_batch(2, res, "cpu")
+    batch["noise"] = torch.from_numpy(np.random.RandomState(5).randn(2, r, r, zdim).astype(np.float32))
+    frozen_cpu = make_frozen(FLAGSHIP_LOSS, "cpu", seed=0)
+
+    def loss_and_grads(precision, device, noise_jitter=0.0):
+        model, frozen = train_model(state_dict, precision, device, frozen_from=frozen_cpu)
+        state = create_train_state(model, bench_optimizer(), frozen)
+        fn = build_loss_and_grads(model, FLAGSHIP_LOSS, augment=False, max_channels=3)
+        run = {k: v.to(device) for k, v in batch.items()}
+        run["noise"] = run["noise"] * (1.0 + noise_jitter * jitter.to(device))
+        t0 = time.perf_counter()
+        losses, grads = fn(state, run)
+        seconds = time.perf_counter() - t0
+        names = list(state.params)
+        return {k: float(v) for k, v in losses.items()}, [g.float().cpu() for g in grads], seconds, names
+
+    def grad_rel(a_grads, b_grads):
+        diff = torch.sqrt(sum(((a - b).double() ** 2).sum() for a, b in zip(a_grads, b_grads)))
+        return float(diff / torch.sqrt(sum((b.double() ** 2).sum() for b in b_grads)))
+
+    jitter = torch.from_numpy(np.random.RandomState(6).randn(*batch["noise"].shape).astype(np.float32))
+    card, card_grads, card_s, names = loss_and_grads("fp32", CARD)
+    cpu, cpu_grads, cpu_s, _ = loss_and_grads("fp32", "cpu")
+    half, _, _, _ = loss_and_grads("bf16", CARD)
+    # two controls: the card's fp32 step repeated as it was (its run-to-run
+    # nondeterminism) and with the latent noise moved by 1e-6 relative (the
+    # step's conditioning)
+    _, repeat_grads, _, _ = loss_and_grads("fp32", CARD)
+    _, jittered_grads, _, _ = loss_and_grads("fp32", CARD, noise_jitter=1e-6)
+    share = sorted(((float(((a - b).double() ** 2).sum()), n)
+                    for a, b, n in zip(card_grads, cpu_grads, names)), reverse=True)
+    total = sum(v for v, _ in share) or 1.0
+    # the q/k/v/proj_out weights of the five 3136x512 blocks, the ones the
+    # kernels' fp32 instances differentiate
+    attn = [i for i, n in enumerate(names)
+            if re.search(r"\.attn\.\d+\.(q|k|v|proj_out)\.weight$", n) and card_grads[i].shape[0] == 512]
+    if len(attn) != 20:
+        raise AssertionError(f"want the 20 attention weights of the five 56x56 blocks, got {len(attn)}")
+    attn_rows = [{"param": names[i], "card_vs_cpu": torch_rel_l2(card_grads[i], cpu_grads[i]),
+                  "card_repeat": torch_rel_l2(repeat_grads[i], card_grads[i]),
+                  "card_noise_jitter_1e-6": torch_rel_l2(jittered_grads[i], card_grads[i])}
+                 for i in attn]
+    worst_attn = max(r["card_vs_cpu"] for r in attn_rows)
+    row = {"phase": "train_parity", "batch": 2, "fp32_card_losses": card, "fp32_cpu_losses": cpu,
+           "bf16_card_losses": half,
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss_bar": 1e-4,
+           "grad_global_rel_l2": grad_rel(card_grads, cpu_grads), "grad_bar": 1e-3,
+           "grad_rel_l2_card_repeat": grad_rel(repeat_grads, card_grads),
+           "grad_rel_l2_card_noise_jitter_1e-6": grad_rel(jittered_grads, card_grads),
+           "attn_grad_rel_l2_max": worst_attn, "attn_grad_bar": ATTN_GRAD_REL,
+           "attn_grads": attn_rows,
+           "grad_diff_share_top": [{"param": n, "share": v / total} for v, n in share[:5]],
+           "bf16_vs_fp32_loss_rel": abs(half["loss"] - card["loss"]) / abs(card["loss"]),
+           "bf16_bar": 5e-2, "card_seconds": card_s, "cpu_seconds": cpu_s}
+    emit(row)
+    if not (row["loss_rel"] <= 1e-4 and row["grad_global_rel_l2"] <= 1e-3
+            and worst_attn <= ATTN_GRAD_REL and row["bf16_vs_fp32_loss_rel"] <= 5e-2):
+        raise AssertionError(f"train parity out of bars: {row}")
 
 
 def main() -> int:
@@ -361,20 +711,41 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     kernel = phase_kernel()
+    backward = phase_backward()
     bf16_engine, fp32_engine, cpu_engine = build_engines()
-    launches = phase_serve(bf16_engine)
+    state_dict = cpu_engine.model.state_dict()
+    serve_launches = phase_serve(bf16_engine)
     phase_parity(bf16_engine, fp32_engine, cpu_engine)
     phase_http(bf16_engine)
     phase_profile(bf16_engine)
+    del bf16_engine, fp32_engine, cpu_engine
+    train_launches = phase_train(state_dict)
+    phase_train_parity(state_dict)
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "medvae_tpu/ops/flash_attention.py:208",
-        "launches": launches, "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"],
-    }]})
+    source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
+              "flash_dkv": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
+              "flash_dq": "medvae_tpu_torch/ops/csrc/flash_bwd.cu"}
+    replaces = {"flash_fwd": "medvae_tpu/ops/flash_attention.py:208",
+                "flash_dkv": "medvae_tpu/ops/flash_attention.py:279",
+                "flash_dq": "medvae_tpu/ops/flash_attention.py:341"}
+    fwd = {k: kernel[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+    fwd.update(launches=serve_launches + train_launches["flash_fwd"],
+               launches_serve=serve_launches, launches_train=train_launches["flash_fwd"],
+               ms_with_lse=backward["flash_fwd_lse"]["ms"],
+               plain_ms_with_lse=backward["flash_fwd_lse"]["plain_ms"],
+               bound_ms_with_lse=backward["flash_fwd_lse"]["bound_ms"],
+               library_ms_with_lse=backward["flash_fwd_lse"]["library_ms"],
+               max_abs_err_lse=backward["flash_fwd_lse"]["max_abs_err"])
+    rows = [{"name": "flash_fwd", **fwd}]
+    for name in ("flash_dkv", "flash_dq"):
+        r = backward[name]
+        rows.append({"name": name, "launches": train_launches[name],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "library_covers", "backward_ms")}})
+    emit({"kernels": [{"name": r["name"], "route": "cuda", "source": source[r["name"]],
+                       "replaces": replaces[r["name"]], **{k: v for k, v in r.items() if k != "name"}}
+                      for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,19 +1,27 @@
-"""Load the JAX package's parameters into the port.
+"""Load the JAX package's parameters (and gradients) into the port.
 
-`from_jax_params(params, model)` takes the JAX model's param tree (the
-`params` collection, as nested dicts of numpy arrays — no JAX needed) and
-returns a state_dict for `model`:
+`from_jax_params(params, model)` takes a JAX param tree (the `params`
+collection, as nested dicts of numpy arrays — no JAX needed) and returns a
+state_dict for `model`: the VAE, or a frozen loss tower (LPIPSNet,
+SimpleCLIPEncoder, CLIPViT, whose module names are the JAX package's):
 
   * conv kernels HWIO -> OIHW (the grouped `heads_conv2` kernel (3,3,C,M·C)
-    becomes (M·C, C, 3, 3), the same transpose);
-  * norm `scale` -> `weight`, `bias` -> `bias`;
+    becomes (M·C, C, 3, 3), the same transpose; CLIP's `patch_embed` has no
+    bias);
+  * Dense kernels (in, out) -> Linear weights (out, in);
+  * norm and LayerNorm `scale` -> `weight`, `bias` -> `bias`;
   * codec module names -> the reference torch layout, the inverse of
     medvae_tpu/compat/torch_import.py:46-62: `down_{i}_block_{j}` ->
     `down.{i}.block.{j}`, `down_{i}_attn_{j}` -> `down.{i}.attn.{j}`,
     `down_{i}_downsample` -> `down.{i}.downsample`, `mid_block_1` ->
     `mid.block_1`, `mid_attn_1` -> `mid.attn_1`; `up_…` alike;
-  * the fused heads (`heads_conv1/2`) and the projector params
-    (`in_proj_kernel_{m}`, …) keep the JAX package's names and layout.
+  * top-level params keep the JAX package's names and layout: the VAE's
+    projectors (`in_proj_kernel_{m}`, …), LPIPS's `lin{i}`, CLIP's
+    `class_embedding`, `positional_embedding` and `proj` (a plain (in, out)
+    matrix used as x @ proj in both).
+
+`from_jax_grads(grads, model)` maps a JAX gradient tree, which has the
+params' structure, onto the model's parameter names the same way.
 
 Every JAX leaf is mapped exactly once and shape-checked against the model;
 an unmapped leaf, a target the model lacks, a shape mismatch or a model
@@ -23,7 +31,7 @@ tensor left uncovered raises.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,56 +62,73 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (str(k),), v
 
 
-def _target(path: Tuple[str, ...], ndim: int) -> Tuple[str, bool]:
-    """(torch name, whether the value is an HWIO kernel to transpose)."""
+# how a JAX leaf's value becomes the torch tensor
+_AXES = {"conv": (3, 2, 0, 1), "dense": (1, 0), None: None}
+
+
+def _target(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[str]]:
+    """(torch name, transform: "conv", "dense" or None)."""
     *mods, leaf = path
-    if not mods:  # top-level projector params keep their names
-        return leaf, False
+    if not mods:  # top-level params keep their names
+        return leaf, None
     if mods[0] in ("encoder", "decoder") and len(mods) > 1:
         mods = [mods[0], *_codec_module(mods[1]), *mods[2:]]
-    if leaf == "kernel" and ndim == 4:
-        return ".".join([*mods, "weight"]), True
+    if leaf == "kernel" and ndim in (2, 4):
+        return ".".join([*mods, "weight"]), "conv" if ndim == 4 else "dense"
     if leaf == "scale":
-        return ".".join([*mods, "weight"]), False
+        return ".".join([*mods, "weight"]), None
     if leaf == "bias":
-        return ".".join([*mods, "bias"]), False
+        return ".".join([*mods, "bias"]), None
     raise KeyError(f"JAX param {'/'.join(path)} has no rule in the port")
+
+
+def _permute(shape: Tuple[int, ...], transform: Optional[str]) -> Tuple[int, ...]:
+    axes = _AXES[transform]
+    return shape if axes is None else tuple(shape[a] for a in axes)
 
 
 def plan_jax_params(
     params: Mapping[str, Any], expected: Mapping[str, Tuple[int, ...]]
-) -> List[Tuple[Tuple[str, ...], str, bool]]:
+) -> List[Tuple[Tuple[str, ...], str, Optional[str]]]:
     """Map every leaf of `params` (anything with `.shape`) onto the torch
     names of `expected` ({name: shape}); returns (jax path, torch name,
-    transpose) triples after checking names, shapes and coverage."""
+    transform) triples after checking names, shapes and coverage."""
     plan, seen = [], {}
     for path, leaf in _flatten(params):
         shape = tuple(leaf.shape)
-        name, transpose = _target(path, len(shape))
+        name, transform = _target(path, len(shape))
         if name in seen:
             raise KeyError(f"{'/'.join(path)} and {'/'.join(seen[name])} both map to {name}")
         seen[name] = path
         if name not in expected:
             raise KeyError(f"JAX param {'/'.join(path)} -> {name}: no such tensor in the port")
         want = tuple(expected[name])
-        got = (shape[3], shape[2], shape[0], shape[1]) if transpose else shape
+        got = _permute(shape, transform)
         if got != want:
             raise ValueError(f"{'/'.join(path)} -> {name}: shape {got} vs port {want}")
-        plan.append((path, name, transpose))
+        plan.append((path, name, transform))
     left = sorted(set(expected) - set(seen))
     if left:
         raise KeyError(f"port tensors with no JAX param: {left[:8]}{' …' if len(left) > 8 else ''}")
     return plan
 
 
+def _convert(tree: Mapping[str, Any], expected: Mapping[str, Tuple[int, ...]]):
+    flat = dict(_flatten(tree))
+    out = {}
+    for path, name, transform in plan_jax_params(tree, expected):
+        value = np.asarray(flat[path], np.float32)
+        axes = _AXES[transform]
+        out[name] = torch.tensor(value if axes is None else value.transpose(axes))
+    return out
+
+
 def from_jax_params(params: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """state_dict (fp32 CPU tensors) for `model` from the JAX param tree."""
-    expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    flat = dict(_flatten(params))
-    out = {}
-    for path, name, transpose in plan_jax_params(params, expected):
-        value = np.asarray(flat[path], np.float32)
-        if transpose:
-            value = value.transpose(3, 2, 0, 1)
-        out[name] = torch.tensor(value)
-    return out
+    return _convert(params, {k: tuple(v.shape) for k, v in model.state_dict().items()})
+
+
+def from_jax_grads(grads: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """{parameter name: fp32 CPU tensor} from a JAX gradient tree of the
+    model's params, laid out as the port's parameters are."""
+    return _convert(grads, {k: tuple(v.shape) for k, v in model.named_parameters()})

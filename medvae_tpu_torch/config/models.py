@@ -12,7 +12,7 @@ import torch
 
 from medvae_tpu_torch.core.precision import compute_dtype_for, configure_backends
 from medvae_tpu_torch.models import DisentangledConditionalVAE
-from medvae_tpu_torch.nn.blocks import Conv2d
+from medvae_tpu_torch.nn.blocks import Conv2d, set_compute_dtype
 
 FLAGSHIP: Dict[str, Any] = {
     "_target_": "medvae_tpu.models.DisentangledConditionalVAE",
@@ -43,13 +43,21 @@ _UNUSED_KEYS = ("_target_", "latent_dim", "modality_separation_weight", "contras
 
 
 def build_model(
-    model_cfg: Mapping[str, Any], precision: str = "bf16", device: Any = "cuda"
+    model_cfg: Mapping[str, Any],
+    precision: str = "bf16",
+    device: Any = "cuda",
+    train: bool = False,
 ) -> DisentangledConditionalVAE:
-    """Instantiate the model of `model_cfg` on `device` in eval mode, with the
-    precision applied: params are made in fp32, then conv weights are
-    stored in the compute dtype (rounding them once here equals flax's cast at
-    every call); norm and projector params stay fp32. Inference needs no
-    remat."""
+    """Instantiate the model of `model_cfg` on `device` with the precision
+    applied. Params are made in fp32.
+
+    Serving (`train=False`): eval mode, no grads, conv weights stored in the
+    compute dtype (rounding them once here equals flax's cast at every call).
+    Training (`train=True`): train mode with grads, every param kept in fp32
+    and each conv casting weight, bias and input to the compute dtype at every
+    call, as flax's `dtype=` does; so the optimizer state is fp32 too. Norm
+    and projector params are fp32 in both. Neither needs remat at 224², bs 32
+    on an 80 GB card."""
     cfg = dict(model_cfg)
     target = str(cfg.get("_target_", "DisentangledConditionalVAE"))
     if not target.endswith("DisentangledConditionalVAE"):
@@ -64,9 +72,12 @@ def build_model(
     if unknown:
         raise ValueError(f"unknown model config keys: {sorted(unknown)}")
     compute_dtype = compute_dtype_for(precision)
-    configure_backends(compute_dtype)
+    configure_backends()
     with torch.device(device):
         model = DisentangledConditionalVAE(**{k: cfg[k] for k in _ARCH_KEYS if k in cfg})
+    if train:
+        set_compute_dtype(model, compute_dtype)
+        return model.train().requires_grad_(True)
     for m in model.modules():
         if isinstance(m, Conv2d):
             m.to(compute_dtype)

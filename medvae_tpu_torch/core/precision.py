@@ -19,14 +19,16 @@ def compute_dtype_for(precision: str) -> torch.dtype:
     raise ValueError(f"unknown precision {precision!r}: expected bf16 or fp32")
 
 
-def configure_backends(compute_dtype: torch.dtype) -> None:
-    """Make fp32 compute exact fp32 on the card.
+def configure_backends() -> None:
+    """Make fp32 math exact fp32 on the card.
 
-    The JAX fp32 path is exact fp32 math, but PyTorch runs fp32 convolutions
-    through cuDNN in TF32 by default (about three decimal digits). So fp32
-    compute turns TF32 off for cuDNN and keeps matmuls at "highest". These are
-    process-wide flags; bf16 compute does not read them."""
-    if compute_dtype == torch.float32:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+    The JAX fp32 math is exact, but PyTorch runs fp32 convolutions through
+    cuDNN in TF32 by default (about three decimal digits). The port's fp32
+    math is the fp32 compute path and the loss towers, which compute in fp32
+    under bf16 compute too. So every model and tower build turns TF32 off for
+    cuDNN and keeps fp32 matmuls at "highest". The flags are process-wide;
+    setting them the same way on every build keeps a process's numerics
+    independent of what it built before. bf16 math does not read them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

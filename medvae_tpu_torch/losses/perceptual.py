@@ -1,0 +1,227 @@
+"""Frozen perceptual towers (counterpart of medvae_tpu/losses/perceptual.py:36-288).
+
+  * `LPIPSNet` / `LPIPSLoss`: AlexNet conv trunk, five taps unit-normalized
+    over channels (eps outside the sqrt), squared difference, |lin| 1×1
+    heads, spatial mean, sum over taps; inputs rescaled to [−1, 1], gray
+    repeated to RGB, and below 64 px bilinearly upsampled to 64 first.
+  * `SimpleCLIPEncoder`, and `BiomedCLIPLoss` on it or on `CLIPViT`:
+    clamp((x + 1)/2, 0, 1), gray→RGB, a cubic resize to 224 when the size
+    differs, CLIP normalization, then the squared feature distance summed over
+    features and averaged over the batch.
+
+A loss object holds the configuration; the tower itself is an nn.Module that
+the train state keeps in `frozen` (the JAX package's frozen param trees), made
+by `init(seed)` with requires_grad off. The gradient still flows through the
+tower into the reconstruction. The towers compute in fp32 (the JAX package's
+default `tower_dtype`) whatever the dtype of the images they are given. Module
+and parameter names are the JAX package's (`alex.conv1`, `lin0`, `Conv_0`,
+`Dense_1`, …). NHWC in.
+
+The resizes are built by hand as jax.image.resize builds them (a weight matrix
+per spatial axis from the triangle or Keys cubic kernel with a = −0.5,
+half-pixel centres, weights normalized over the taps inside the image):
+F.interpolate's bicubic uses a = −0.75 and gives other numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from medvae_tpu_torch.core.precision import configure_backends
+from medvae_tpu_torch.losses.clip_vit import CLIPViT
+
+_LPIPS_SHIFT = (-0.030, -0.088, -0.188)
+_LPIPS_SCALE = (0.458, 0.448, 0.450)
+_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def _to_rgb(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 1) → (B, H, W, 3) by channel repeat."""
+    return x.repeat(1, 1, 1, 3) if x.shape[-1] == 1 else x
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0), np.float32(1) - np.abs(x))
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
+    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x
+                   + np.float32(2.0), out)
+    return np.where(x >= 2.0, np.float32(0), out).astype(np.float32)
+
+
+def resize_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
+    """(n_in, n_out) fp32 weights of jax.image.resize along one axis
+    (compute_weight_mat, antialias on, no translation)."""
+    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample_f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = kernel(x.astype(np.float32))
+    total = w.sum(axis=0, keepdims=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = np.where(np.abs(total) > eps, w / np.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def resize(x: torch.Tensor, size: int, method: str) -> torch.Tensor:
+    """jax.image.resize of NHWC x to (size, size) on the spatial axes."""
+    _, h, w, _ = x.shape
+    if h != size:
+        m = torch.from_numpy(resize_matrix(h, size, method)).to(x.device, x.dtype)
+        x = torch.einsum("bhwc,hH->bHwc", x, m)
+    if w != size:
+        m = torch.from_numpy(resize_matrix(w, size, method)).to(x.device, x.dtype)
+        x = torch.einsum("bhwc,wW->bhWc", x, m)
+    return x
+
+
+@torch.no_grad()
+def init_tower(module: nn.Module, seed: int) -> nn.Module:
+    """Random frozen weights from a seeded CPU generator, with the JAX
+    initializers' scales: conv and dense kernels ~ N(0, 1/fan_in), biases 0,
+    LayerNorm 1 and 0, the tower's own params by its `init_own`. The tower
+    will compute in exact fp32 (`configure_backends`)."""
+    configure_backends()
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * m.weight[0].numel() ** -0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    if hasattr(module, "init_own"):
+        module.init_own(gen)
+    return module.eval().requires_grad_(False)
+
+
+class AlexNetFeatures(nn.Module):
+    """AlexNet conv trunk emitting the five LPIPS taps (relu1..relu5); NCHW."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 11, stride=4, padding=2)
+        self.conv2 = nn.Conv2d(64, 192, 5, padding=2)
+        self.conv3 = nn.Conv2d(192, 384, 3, padding=1)
+        self.conv4 = nn.Conv2d(384, 256, 3, padding=1)
+        self.conv5 = nn.Conv2d(256, 256, 3, padding=1)
+
+    def forward(self, x: torch.Tensor):
+        t1 = F.relu(self.conv1(x))
+        t2 = F.relu(self.conv2(F.max_pool2d(t1, 3, 2)))
+        t3 = F.relu(self.conv3(F.max_pool2d(t2, 3, 2)))
+        t4 = F.relu(self.conv4(t3))
+        t5 = F.relu(self.conv5(t4))
+        return t1, t2, t3, t4, t5
+
+
+class LPIPSNet(nn.Module):
+    """Scaling layer → trunk taps → unit-normalize → squared diff → |lin|
+    heads → spatial mean → sum over taps; (B,) out."""
+
+    channels = (64, 192, 384, 256, 256)
+
+    def __init__(self):
+        super().__init__()
+        self.alex = AlexNetFeatures()
+        for i, c in enumerate(self.channels):
+            self.register_parameter(f"lin{i}", nn.Parameter(torch.full((c,), 1.0 / c)))
+
+    @torch.no_grad()
+    def init_own(self, gen: torch.Generator) -> None:
+        for i, c in enumerate(self.channels):  # the JAX init: constant 1/C
+            getattr(self, f"lin{i}").fill_(1.0 / c)
+
+    @staticmethod
+    def _unit_normalize(x: torch.Tensor) -> torch.Tensor:
+        return x / (torch.sqrt(x.square().sum(dim=1, keepdim=True)) + 1e-10)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        shift = torch.tensor(_LPIPS_SHIFT, device=a.device)
+        scale = torch.tensor(_LPIPS_SCALE, device=a.device)
+        fa = self.alex(_nchw((a - shift) / scale))
+        fb = self.alex(_nchw((b - shift) / scale))
+        total = torch.zeros((a.shape[0],), dtype=torch.float32, device=a.device)
+        for i, (xa, xb) in enumerate(zip(fa, fb)):
+            diff = (self._unit_normalize(xa) - self._unit_normalize(xb)).square()
+            d = torch.einsum("bchw,c->bhw", diff, getattr(self, f"lin{i}").abs())
+            total = total + d.mean(dim=(1, 2))
+        return total
+
+
+class LPIPSLoss:
+    """Batch-mean LPIPS between inputs and reconstructions in model space."""
+
+    MIN_SIZE = 64  # AlexNet's stride/pool chain needs 64 px
+
+    def init(self, seed: int, device="cpu") -> LPIPSNet:
+        return init_tower(LPIPSNet().to(device), seed)
+
+    def __call__(self, net: LPIPSNet, inputs: torch.Tensor, recons: torch.Tensor) -> torch.Tensor:
+        a = _to_rgb(inputs) * 2.0 - 1.0
+        b = _to_rgb(recons) * 2.0 - 1.0
+        if a.shape[1] < self.MIN_SIZE or a.shape[2] < self.MIN_SIZE:
+            a = resize(a, self.MIN_SIZE, "linear")
+            b = resize(b, self.MIN_SIZE, "linear")
+        return net(a, b).mean()
+
+
+class SimpleCLIPEncoder(nn.Module):
+    """The reference's CLIP-fallback CNN: 7×7/2 conv → pool → 3×3/2 conv →
+    pool → 3×3/2 conv → global mean → MLP(512); NHWC in."""
+
+    def __init__(self, embed_dim: int = 512):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        self.Conv_1 = nn.Conv2d(64, 128, 3, stride=2, padding=1)
+        self.Conv_2 = nn.Conv2d(128, 256, 3, stride=2, padding=1)
+        self.Dense_0 = nn.Linear(256, embed_dim)
+        self.Dense_1 = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.max_pool2d(F.relu(self.Conv_0(_nchw(x.float()))), 2, 2)
+        h = F.max_pool2d(F.relu(self.Conv_1(h)), 2, 2)
+        h = F.relu(self.Conv_2(h)).mean(dim=(2, 3))
+        return self.Dense_1(F.relu(self.Dense_0(h)))
+
+
+class BiomedCLIPLoss:
+    """Squared feature distance between the embeddings of the input and of the
+    reconstruction. (The JAX class's latent term, `compute_lat_loss`, is set
+    by no caller and is not ported.)"""
+
+    def __init__(self, encoder: str = "simple"):
+        if encoder not in ("vit", "simple"):
+            raise ValueError(f"Unknown clip encoder: {encoder}")
+        self.encoder = encoder
+
+    def init(self, seed: int, device="cpu") -> nn.Module:
+        cls = CLIPViT if self.encoder == "vit" else SimpleCLIPEncoder
+        return init_tower(cls().to(device), seed)
+
+    @staticmethod
+    def _preprocess(img: torch.Tensor) -> torch.Tensor:
+        img = _to_rgb(torch.clamp((img + 1.0) / 2.0, 0.0, 1.0))
+        if img.shape[1:3] != (224, 224):
+            img = resize(img, 224, "cubic")
+        mean = torch.tensor(_CLIP_MEAN, dtype=img.dtype, device=img.device)
+        std = torch.tensor(_CLIP_STD, dtype=img.dtype, device=img.device)
+        return (img - mean) / std
+
+    def __call__(self, net: nn.Module, img: torch.Tensor, rec: torch.Tensor) -> torch.Tensor:
+        img_features = net(self._preprocess(img))
+        rec_features = net(self._preprocess(rec))
+        return (img_features - rec_features).square().sum(dim=1).mean()

@@ -6,7 +6,7 @@ two are compared like with like; the codec runs NCHW inside.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -65,8 +65,10 @@ class BaseVAE(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype: the dtype the conv weights are stored in."""
-        return self.encoder.conv_in.weight.dtype
+        """The compute dtype: the convs' `compute_dtype` when set (fp32
+        params for training), else the dtype their weights are stored in."""
+        conv = self.encoder.conv_in
+        return conv.compute_dtype or conv.weight.dtype
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC image -> (mean, logvar), each NHWC, split on channels."""
@@ -79,9 +81,18 @@ class BaseVAE(nn.Module):
 
     @staticmethod
     def reparameterize(
-        mean: torch.Tensor, logvar: torch.Tensor, noise: torch.Tensor
+        mean: torch.Tensor,
+        logvar: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """mean + noise·exp(½ logvar), with the caller's standard-normal draw
-        (so that tests can feed both packages the same one)."""
+        """mean + noise·exp(½ logvar) (medvae_tpu/models/base_vae.py:113-129).
+        `noise` is the caller's standard-normal draw (so that tests can feed
+        both packages the same one); without it, one is drawn from
+        `generator` (a torch.Generator on mean's device, or the default)."""
         std = torch.exp(0.5 * logvar)
+        if noise is None:
+            noise = torch.randn(
+                std.shape, generator=generator, dtype=torch.float32, device=std.device
+            )
         return mean + noise.to(std.dtype) * std

@@ -9,8 +9,10 @@ Batched modality routing, as in the JAX package:
     ReLU, then `heads_conv2` grouped with groups=M, so that channel g·C + c
     belongs to head g; each sample's head is selected with a one-hot einsum.
 Parameter names of the projectors and heads are the JAX package's
-(`in_proj_kernel_{m}`, `heads_conv1`, …). The separation and contrastive
-losses are training and come with the training slice.
+(`in_proj_kernel_{m}`, `heads_conv1`, …). `forward` is the training pass
+(medvae_tpu/models/disentangled_conditional_vae.py:355-388): encode, the ±10
+clamps, reparameterize, routed decode, and the batch-global separation and
+contrastive losses.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ MODALITY_CHANNEL_MAP: Dict[int, int] = {
 
 
 class DisentangledConditionalVAE(BaseVAE):
+    contrastive_temperature = 0.1  # the JAX model's default (:68)
+
     def __init__(
         self,
         num_modalities: int = 5,
@@ -165,6 +169,84 @@ class DisentangledConditionalVAE(BaseVAE):
         pad = z_shared.new_zeros((b, full - used))
         z = torch.cat([z_shared, z_modality, pad], dim=1)
         return z.reshape(b, self.total_latent_dim, r, r).permute(0, 2, 3, 1)
+
+    # ------------------------------------------------------------------ #
+    # disentanglement losses and the training forward                    #
+    # ------------------------------------------------------------------ #
+
+    def modality_separation_loss(
+        self, z: torch.Tensor, modality_indices: torch.Tensor
+    ) -> torch.Tensor:
+        """−mean pairwise distance between the per-modality centroids of
+        z_modality over the modalities present in the batch, 0 when fewer
+        than two are (JAX :304-327). sqrt(sq + 1e-12), not torch.cdist, keeps
+        the gradient finite and equal to JAX's at coincident centroids."""
+        _, z_mod = self.partition_latent(z)
+        z_mod = z_mod.float()
+        m = self.num_modalities
+        # an index outside [0, M) gives a zero row, as jax.nn.one_hot does
+        arange = torch.arange(m, device=z.device)
+        onehot = (modality_indices.long()[:, None] == arange[None, :]).float()  # (B, M)
+        counts = onehot.sum(dim=0)
+        centroids = (onehot.T @ z_mod) / torch.clamp(counts, min=1.0)[:, None]
+        present = counts > 0
+        diff = centroids[:, None, :] - centroids[None, :, :]
+        dist = torch.sqrt((diff * diff).sum(dim=-1) + 1e-12)
+        upper = torch.ones((m, m), dtype=torch.bool, device=z.device).triu(diagonal=1)
+        pair_mask = upper & present[:, None] & present[None, :]
+        n_pairs = pair_mask.sum()
+        mean_dist = torch.where(pair_mask, dist, 0.0).sum() / torch.clamp(n_pairs, min=1)
+        return torch.where(n_pairs > 0, -mean_dist, 0.0)
+
+    def contrastive_loss(
+        self, z: torch.Tensor, modality_indices: torch.Tensor
+    ) -> torch.Tensor:
+        """InfoNCE over L2-normalized z_modality with same-modality
+        positives, temperature 0.1, norm clamped at 1e-12, the +1e-8 log
+        guard, averaged over the rows that have a positive (JAX :329-349)."""
+        _, z_mod = self.partition_latent(z)
+        z_mod = z_mod.float()
+        b = z_mod.shape[0]
+        norm = torch.linalg.vector_norm(z_mod, dim=1, keepdim=True)
+        z_n = z_mod / torch.clamp(norm, min=1e-12)
+        sim = (z_n @ z_n.T) / self.contrastive_temperature
+        eye = torch.eye(b, dtype=torch.bool, device=z.device)
+        same = (modality_indices[:, None] == modality_indices[None, :]) & ~eye
+        exp_sim = torch.exp(sim)
+        pos = torch.where(same, exp_sim, 0.0).sum(dim=1)
+        all_sim = exp_sim.sum(dim=1) - torch.diagonal(exp_sim)
+        per_sample = -torch.log(pos / torch.clamp(all_sim, min=1e-12) + 1e-8)
+        valid = pos > 0
+        n_valid = valid.sum()
+        loss = torch.where(valid, per_sample, 0.0).sum() / torch.clamp(n_valid, min=1)
+        return torch.where(n_valid > 0, loss, 0.0)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        modality_indices: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The training pass on NHWC x: the JAX model's __call__ output dict.
+        `noise` (the reparameterization draw, NHWC) replaces the draw from
+        `generator`."""
+        if modality_indices is None:
+            modality_indices = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+        mu, logvar = self.encode(x, modality_indices)
+        logvar = torch.clamp(logvar, -10.0, 10.0)
+        mu = torch.clamp(mu, -10.0, 10.0)
+        z = self.reparameterize(mu, logvar, noise=noise, generator=generator)
+        reconstruction = self.decode(z, modality_indices)
+        return {
+            "reconstruction": reconstruction,
+            "mean": mu,
+            "logvar": logvar,
+            "mu": mu,
+            "z": z,
+            "separation_loss": self.modality_separation_loss(z, modality_indices),
+            "contrastive_loss": self.contrastive_loss(z, modality_indices),
+        }
 
     def sample_conditional(
         self,

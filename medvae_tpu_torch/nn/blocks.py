@@ -4,9 +4,12 @@ NCHW inside, as PyTorch's convolutions want. Module and parameter names follow
 the reference torch layout (norm1/conv1/norm2/conv2/nin_shortcut, norm/q/k/v/
 proj_out) so that state_dicts line up with it.
 
-Numerics follow the JAX blocks: a conv casts its input to the dtype its weight
-is stored in (the compute dtype); GroupNorm(min(32, C), eps 1e-6) computes in
-fp32 with fp32 affine params and is cast back to the activation dtype.
+Numerics follow the JAX blocks: a conv casts its input, weight and bias to the
+compute dtype, like a flax Conv with `dtype=` set; GroupNorm(min(32, C), eps
+1e-6) computes in fp32 with fp32 affine params and is cast back to the
+activation dtype. The compute dtype is a conv's `compute_dtype` attribute
+when set (training: fp32 params cast at every call, as flax does) and else
+the dtype its weight is stored in (serving: weights pre-cast once).
 """
 
 from __future__ import annotations
@@ -23,11 +26,26 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d that runs in its weight's dtype, like a flax Conv with
-    `dtype=` set: the input is cast, then convolved."""
+    """nn.Conv2d in its compute dtype, like a flax Conv with `dtype=` set:
+    input, weight and bias are cast at every call."""
+
+    compute_dtype: torch.dtype | None = None  # None: the weight's storage dtype
+
+    def cast_params(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self.weight.to(dt), bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        weight, bias = self.cast_params()
+        return self._conv_forward(x.to(weight.dtype), weight, bias)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Every Conv2d under `module` computes in `dtype`."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
 
 
 class GroupNorm(nn.GroupNorm):
@@ -89,8 +107,8 @@ class AttnBlock(nn.Module):
 
     @staticmethod
     def _linear(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
-        w = conv.weight
-        return F.linear(x.to(w.dtype), w.view(w.shape[0], w.shape[1]), conv.bias)
+        w, b = conv.cast_params()
+        return F.linear(x.to(w.dtype), w.view(w.shape[0], w.shape[1]), b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape

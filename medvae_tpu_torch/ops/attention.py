@@ -4,11 +4,13 @@ Counterpart of medvae_tpu/ops/attention.py (`reference_attention`, and the
 routing of `fused_attention_or_none` → `flash_attention_or_none` in
 medvae_tpu/ops/flash_attention.py:47-57,118-142).
 
-`attention(q, k, v)` sends a (b, n, c) problem to the flash kernel exactly
+`attention(q, k, v)` sends a (b, n, c) problem to the flash kernels exactly
 where the JAX package does on a TPU, and everything else to
-`reference_attention`. The gate is kept for routing parity — the same blocks
-take the same path in both packages — until an H100 measurement in PERF.md
-sets the port's own. The whole-sequence Pallas kernel of the JAX package
+`reference_attention`. Under autograd the flash route is `FlashAttention`
+(B1 with lse, then B2 and B3 backward); without it, the lse-free serving
+launch of B1. `reference_attention` differentiates through autograd. The
+gate is kept for routing parity — the same blocks take the same path in both
+packages — until an H100 measurement in PERF.md sets the port's own. The whole-sequence Pallas kernel of the JAX package
 (`_attention_fwd_kernel`) is reached by no shipped config and is not ported
 yet (ROADMAP queue B).
 """
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from medvae_tpu_torch.ops.flash_attention import flash_attention
+from medvae_tpu_torch.ops.flash_attention import FlashAttention, flash_attention
 
 # The JAX package's routing constants (medvae_tpu/ops/attention.py:21,42-43
 # and medvae_tpu/ops/flash_attention.py:41-44).
@@ -27,7 +29,7 @@ _FUSED_VMEM_BUDGET = 10 * 1024 * 1024
 _MAX_BLOCK = 512
 _MIN_BLOCK = 256
 _LANES = 128
-_KERNEL_MAX_CHANNELS = 1024  # csrc/flash_fwd.cu takes c <= 1024
+_KERNEL_MAX_CHANNELS = 1024  # csrc/flash_fwd.cu and flash_bwd.cu take c <= 1024
 
 
 def _pick_block(n: int, max_block: int = _MAX_BLOCK) -> int | None:
@@ -73,6 +75,8 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(b, n, c) single-head attention, routed like the JAX package's TPU path."""
     _, n, c = q.shape
-    if uses_flash(n, c):
-        return flash_attention(q, k, v)
-    return reference_attention(q, k, v)
+    if not uses_flash(n, c):
+        return reference_attention(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v)
+    return flash_attention(q, k, v)

@@ -1,11 +1,14 @@
 // Single-head flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel medvae_tpu/ops/flash_attention.py:
-// _flash_fwd_kernel (want_lse=False, the serving path). It computes
+// _flash_fwd_kernel. It computes
 //   O = softmax(Q K^T c^-1/2) V     for q, k, v, o of shape (b, n, c), contiguous,
 // with fp32 logits, a running row max and row sum in fp32, P cast to the input
 // type before P V, an fp32 O accumulator, and O / l cast to the output type at
-// the end: the TPU kernel's arithmetic, step for step.
+// the end: the TPU kernel's arithmetic, step for step. When `lse` is not null
+// (the training forward, want_lse=True there) it also writes the (b, n) fp32
+// row logsumexp m + log l of the scaled logits, which the backward kernels of
+// flash_bwd.cu read; serving passes null and stores nothing more.
 //
 // Bound: 4 b n^2 c operations (two products of n x n x c per batch element)
 // against 4 b n c elements moved, i.e. n/2 operations per byte in bf16. At the
@@ -36,9 +39,10 @@
 //  * Any n: the ragged last K tile is masked to -inf before the softmax, the
 //    ragged last Q tile is zero-filled and not stored.
 //
-// C interface (bound with ctypes; returns cudaGetLastError() after the launch):
-//   int medvae_flash_fwd_bf16(q, k, v, o, b, n, c, scale, stream)
-//   int medvae_flash_fwd_f32 (q, k, v, o, b, n, c, scale, stream)
+// C interface (bound with ctypes; returns cudaGetLastError() after the launch;
+// lse may be null):
+//   int medvae_flash_fwd_bf16(q, k, v, o, lse, b, n, c, scale, stream)
+//   int medvae_flash_fwd_f32 (q, k, v, o, lse, b, n, c, scale, stream)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,6 +125,18 @@ __device__ __forceinline__ void softmax_step(const float* S, int lds, T* P, int 
   }
 }
 
+// lse[r] = m + log l for the first `rows` rows of the tile, when lse is not
+// null. Reads the final m_s / l_s, which the last softmax step wrote before a
+// __syncthreads.
+template <int TILE>
+__device__ __forceinline__ void store_lse(float* lse, const float* m_s, const float* l_s,
+                                          size_t row0, int rows) {
+  if (lse == nullptr) return;
+  for (int r = threadIdx.x; r < TILE && r < rows; r += blockDim.x) {
+    lse[row0 + r] = m_s[r] + logf(l_s[r]);
+  }
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -153,8 +169,8 @@ size_t bf16_smem_bytes(int c) {
 template <int TILE>
 __global__ void __launch_bounds__(bf16_threads<TILE>(), 1)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int n, int c,
-                      float scale) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int n, int c, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int MT = TILE / 16;  // 16-row mma tiles in a TILE-row block
   constexpr int LDS = TILE + 4;  // fp32 logits row stride
@@ -261,6 +277,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // O / l, cast, store the rows that exist.
+  store_lse<TILE>(lse, m_s, l_s, (size_t)blockIdx.y * n + q0, n - q0);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int r0 = mt * 16 + g;
@@ -295,8 +312,8 @@ size_t f32_smem_bytes(int c) {
 
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int n, int c,
-                     float scale) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int n, int c, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int TILE = kF32Tile;
   constexpr int LDS = TILE + 1;
@@ -365,6 +382,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
+  store_lse<TILE>(lse, m_s, l_s, (size_t)blockIdx.y * n + q0, n - q0);
 #pragma unroll
   for (int i = 0; i < kF32MaxPer; ++i) {
     if (i < per) {
@@ -381,8 +399,8 @@ bool bad_shape(int b, int n, int c) {
 }
 
 template <int TILE>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int n, int c,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                int n, int c, float scale, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes<TILE>(c);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<TILE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -392,22 +410,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int
   const dim3 block((c / 64) * 32);
   flash_fwd_bf16_kernel<TILE><<<grid, block, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), n, c, scale);
+      static_cast<bf16*>(o), lse, n, c, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int medvae_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                     int b, int n, int c, float scale, void* stream) {
+                                     void* lse, int b, int n, int c, float scale,
+                                     void* stream) {
   if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return c <= 512 ? launch_bf16<64>(q, k, v, o, b, n, c, scale, s)
-                  : launch_bf16<32>(q, k, v, o, b, n, c, scale, s);
+  float* l = static_cast<float*>(lse);
+  return c <= 512 ? launch_bf16<64>(q, k, v, o, l, b, n, c, scale, s)
+                  : launch_bf16<32>(q, k, v, o, l, b, n, c, scale, s);
 }
 
 extern "C" int medvae_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                                    int b, int n, int c, float scale, void* stream) {
+                                    void* lse, int b, int n, int c, float scale,
+                                    void* stream) {
   if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
   const size_t smem = f32_smem_bytes(c);
   cudaError_t err = cudaFuncSetAttribute(
@@ -416,6 +437,7 @@ extern "C" int medvae_flash_fwd_f32(const void* q, const void* k, const void* v,
   const dim3 grid((n + kF32Tile - 1) / kF32Tile, b);
   flash_fwd_f32_kernel<<<grid, kF32Threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), n, c, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), n, c,
+      scale);
   return (int)cudaGetLastError();
 }

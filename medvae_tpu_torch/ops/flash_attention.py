@@ -1,72 +1,101 @@
-"""Single-head flash-attention forward: the CUDA kernel and its plain version.
+"""Single-head flash attention: the CUDA kernels B1-B3, their plain versions,
+and the autograd Function that trains through them.
 
-Counterpart of medvae_tpu/ops/flash_attention.py:_flash_fwd_kernel with
-want_lse=False, the path serving takes (no gradient is traced there, so this
-module has no backward and no autograd.Function; the backward kernels come
-with the training slice). The kernel is csrc/flash_fwd.cu, built by
-ops/_build.py at first use.
+Counterparts of medvae_tpu/ops/flash_attention.py:
+  * B1 `_flash_fwd_kernel` -> csrc/flash_fwd.cu: O, and with `want_lse` the
+    (b, n) fp32 row logsumexp the backward reads (the TPU's lane-replicated
+    (b, n, 128) carrier is not copied);
+  * B2 `_flash_dkv_kernel` -> csrc/flash_bwd.cu: dK, dV;
+  * B3 `_flash_dq_kernel`  -> csrc/flash_bwd.cu: dQ;
+  * the `jax.custom_vjp` around them -> `FlashAttention`: forward B1 with lse,
+    backward delta = rowsum(dO * O) in plain PyTorch, then B2, then B3.
+The kernels are built by ops/_build.py at first use.
 
-`flash_attention(q, k, v)` takes (b, n, c) tensors. On CUDA tensors it
-launches the kernel (bf16 or fp32) or raises; it uses the plain PyTorch
-version only for tensors on the CPU.
+Every wrapper takes (b, n, c) tensors. On CUDA tensors it launches its kernel
+(bf16 or fp32) or raises; it uses the plain PyTorch version only for tensors on
+the CPU. Each launch adds one to that kernel's count in `launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional, Tuple
 
 import torch
 
-launches = 0  # kernel launches; the serving path's phases read and reset it
+# kernel launches by kernel; chip_smoke.py resets and reads them around the
+# main path
+launches = {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
 _count_lock = threading.Lock()
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
+# kernel -> (csrc library, C symbol prefix, number of pointer arguments)
+_KERNELS = {
+    "flash_fwd": ("flash_fwd", "medvae_flash_fwd", 5),
+    "flash_dkv": ("flash_bwd", "medvae_flash_dkv", 8),
+    "flash_dq": ("flash_bwd", "medvae_flash_dq", 7),
+}
 _fns = {}
 
 
-def _kernel(dtype: torch.dtype):
-    fn = _fns.get(dtype)
+def reset_launches() -> None:
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _kernel(name: str, dtype: torch.dtype):
+    fn = _fns.get((name, dtype))
     if fn is None:
         from medvae_tpu_torch.ops import _build
 
-        lib = _build.load("flash_fwd")
-        fn = getattr(
-            lib,
-            "medvae_flash_fwd_bf16" if dtype == torch.bfloat16 else "medvae_flash_fwd_f32",
-        )
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        lib_name, symbol, n_ptrs = _KERNELS[name]
+        fn = getattr(_build.load(lib_name), symbol + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+        _fns[(name, dtype)] = fn
     return fn
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in PyTorch: fp32 logits, softmax numerator
-    exp(s - max) cast to the input dtype before P·V with fp32 accumulation,
-    divided by the fp32 row sum at the end."""
-    c = q.shape[-1]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (float(c) ** -0.5)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(q.dtype).float(), v.float()) / l
-    return o.to(q.dtype)
+def _launch(name: str, tensors, q: torch.Tensor) -> None:
+    """Launch kernel `name` on q's device and current stream with the data
+    pointers of `tensors` (None passes a null pointer)."""
+    b, n, c = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel(name, q.dtype)(
+            *(None if t is None else t.data_ptr() for t in tensors),
+            b, n, c, float(c) ** -0.5, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        launches[name] += 1
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
+    """What the kernels take: (b, n, c) operands of one shape, dtype (bf16 or
+    fp32) and device, c a multiple of 64 up to 1024, contiguous and 16-byte
+    aligned. `more` are further operands of the same kind (dO)."""
+    ops = (q, k, v, *more)
+    if q.dim() != 3 or any(t.shape != q.shape for t in ops):
         raise ValueError(
             f"flash_attention expects q, k, v of one shape (b, n, c); got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"{[tuple(t.shape) for t in ops]}"
         )
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SUPPORTED:
+    if any(t.dtype != q.dtype for t in ops) or q.dtype not in _SUPPORTED:
         raise TypeError(
             f"flash_attention takes bf16 or fp32 q, k, v of one dtype; got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
+            f"{[t.dtype for t in ops]}"
         )
-    if not (q.device == k.device == v.device):
+    if any(t.device != q.device for t in ops):
         raise ValueError("flash_attention: q, k, v lie on different devices")
     _, n, c = q.shape
     if n < 1 or c < 64 or c > 1024 or c % 64:
@@ -74,29 +103,142 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             f"flash_attention kernel takes c a multiple of 64 up to 1024 and "
             f"n >= 1; got n={n}, c={c}"
         )
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in zip(("q", "k", "v", "dO"), ops):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q·kᵀ·c^-½)·v for (b, n, c) q, k, v, through the CUDA kernel."""
-    global launches
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    _check(q, k, v)
+def _check_rows(q: torch.Tensor, **rows: torch.Tensor) -> None:
+    """Row statistics (lse, delta): contiguous (b, n) fp32 on q's device."""
+    for name, t in rows.items():
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(
+                f"flash attention backward: {name} must be (b, n) fp32 on {q.device}; "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"flash attention backward: {name} must be contiguous")
+
+
+def _cuda_only(q: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    b, n, c = q.shape
+
+
+# ------------------------------------------------------------------ B1 ---- #
+
+
+def flash_attention_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's function in PyTorch: fp32 logits, softmax numerator exp(s - max)
+    cast to the input dtype before P·V with fp32 accumulation, divided by the
+    fp32 row sum at the end; and the (b, n) fp32 lse = max + log(sum)."""
+    c = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (float(c) ** -0.5)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(q.dtype).float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """B1's function without the lse (the serving path's plain version)."""
+    return flash_attention_fwd_plain(q, k, v)[0]
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, want_lse: bool = True
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(O, lse) through kernel B1; lse is None unless `want_lse`."""
+    if _on_cpu(q, k, v):
+        o, lse = flash_attention_fwd_plain(q, k, v)
+        return o, (lse if want_lse else None)
+    _check(q, k, v)
+    _cuda_only(q)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel(q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, n, c, float(c) ** -0.5, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    with _count_lock:
-        launches += 1
-    return out
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device) if want_lse else None
+    _launch("flash_fwd", (q, k, v, out, lse), q)
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q·kᵀ·c^-½)·v for (b, n, c) q, k, v through kernel B1, with no
+    lse (the serving launch) and no gradient."""
+    return flash_attention_fwd(q, k, v, want_lse=False)[0]
+
+
+# ------------------------------------------------------------- B2, B3 ---- #
+
+
+def _p_ds_plain(q, k, v, g, lse, delta):
+    """fp32 P = exp(S - lse) and dS = P (dP - delta) scale, as B2 and B3 form them."""
+    scale = float(q.shape[-1]) ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_dkv_plain(q, k, v, g, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2's function in PyTorch: dK = dSᵀ·Q and dV = Pᵀ·dO, with P and dS
+    cast to the input dtype before the products, fp32 accumulation, outputs
+    in the input dtype."""
+    p, ds = _p_ds_plain(q, k, v, g, lse, delta)
+    dt = q.dtype
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g.float())
+    dk = torch.matmul(ds.to(dt).float().transpose(-1, -2), q.float())
+    return dk.to(dt), dv.to(dt)
+
+
+def flash_dq_plain(q, k, v, g, lse, delta) -> torch.Tensor:
+    """B3's function in PyTorch: dQ = dS·K, dS cast to the input dtype first."""
+    _, ds = _p_ds_plain(q, k, v, g, lse, delta)
+    return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_dkv(q, k, v, g, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) through kernel B2; g is dO, lse from B1, delta = rowsum(dO·O)."""
+    if _on_cpu(q, k, v, g, lse, delta):
+        return flash_dkv_plain(q, k, v, g, lse, delta)
+    _check(q, k, v, g)
+    _check_rows(q, lse=lse, delta=delta)
+    _cuda_only(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_dkv", (q, k, v, g, lse, delta, dk, dv), q)
+    return dk, dv
+
+
+def flash_dq(q, k, v, g, lse, delta) -> torch.Tensor:
+    """dQ through kernel B3."""
+    if _on_cpu(q, k, v, g, lse, delta):
+        return flash_dq_plain(q, k, v, g, lse, delta)
+    _check(q, k, v, g)
+    _check_rows(q, lse=lse, delta=delta)
+    _cuda_only(q)
+    dq = torch.empty_like(q)
+    _launch("flash_dq", (q, k, v, g, lse, delta, dq), q)
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q·kᵀ·c^-½)·v with a flash backward: the port of the JAX
+    package's custom_vjp (medvae_tpu/ops/flash_attention.py:145-170)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_fwd(q, k, v, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # the grad that comes back through proj_out and the token transpose
+        # need not be contiguous; the kernels take contiguous operands
+        do = do.to(q.dtype).contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta)
+        dq = flash_dq(q, k, v, do, lse, delta)
+        return dq, dk, dv

@@ -25,25 +25,83 @@ def gen():
 # (max abs, relative L2) by dtype, as in chip_smoke.py: the bf16 bar is a
 # fraction of a typical output, so a kernel that drops a key tile fails it
 TOLERANCE = {torch.bfloat16: (4e-3, 1e-2), torch.float32: (1e-4, 1e-4)}
+# the backward kernels' bars, as in chip_smoke.py: bf16 relative L2 1e-2 and
+# max abs 15 % of the gradient's std; fp32 1e-4 for both
+GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+GRAD_ABS_OF_STD = {torch.bfloat16: 0.15, torch.float32: None}
+
+SHAPES = [((2, 1000, 512), torch.bfloat16), ((2, 784, 1024), torch.bfloat16),
+          ((1, 200, 64), torch.bfloat16), ((1, 300, 512), torch.float32),
+          ((1, 100, 1024), torch.float32)]
 
 
-@pytest.mark.parametrize(
-    "shape, dtype",
-    [((2, 1000, 512), torch.bfloat16), ((2, 784, 1024), torch.bfloat16),
-     ((1, 200, 64), torch.bfloat16), ((1, 300, 512), torch.float32),
-     ((1, 100, 1024), torch.float32)],
-)
+def _qkv(gen, shape, dtype, count=3):
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(count)]
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+
+
+def _assert_grad_close(got, want, dtype, what):
+    err = (got.double() - want.double()).abs().max().item()
+    rel = _rel(got, want)
+    frac = GRAD_ABS_OF_STD[dtype]
+    bar = frac * want.double().std().item() if frac else 1e-4
+    assert torch.isfinite(got).all(), what
+    assert err <= bar and rel <= GRAD_REL[dtype], (what, err, bar, rel)
+
+
+@pytest.mark.parametrize("shape, dtype", SHAPES)
 def test_flash_kernel_matches_plain_version(gen, shape, dtype):
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
-    before = fa.launches
+    q, k, v = _qkv(gen, shape, dtype)
+    before = fa.launches["flash_fwd"]
     got = fa.flash_attention(q, k, v).double()
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches["flash_fwd"] == before + 1
     want = fa.flash_attention_plain(q, k, v).double()
     tol_abs, tol_rel = TOLERANCE[dtype]
     err = (got - want).abs().max().item()
     rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
     assert err <= tol_abs and rel <= tol_rel, (err, rel)
+
+
+@pytest.mark.parametrize("shape, dtype", SHAPES)
+def test_flash_lse_and_backward_kernels_match_plain_versions(gen, shape, dtype):
+    q, k, v, g = _qkv(gen, shape, dtype, 4)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    tol_abs, tol_rel = TOLERANCE[dtype]
+    assert (o.double() - o_ref.double()).abs().max().item() <= tol_abs
+    delta = (g.float() * o.float()).sum(-1)
+    before = dict(fa.launches)
+    dk, dv = fa.flash_dkv(q, k, v, g, lse, delta)
+    dq = fa.flash_dq(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_dkv"] == before["flash_dkv"] + 1
+    assert fa.launches["flash_dq"] == before["flash_dq"] + 1
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse, delta)
+    dq_ref = fa.flash_dq_plain(q, k, v, g, lse, delta)
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert got.dtype == dtype
+        _assert_grad_close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("shape, dtype", [((2, 300, 128), torch.float32),
+                                          ((2, 520, 512), torch.bfloat16)])
+def test_flash_function_grads_match_autograd_of_plain_forward(gen, shape, dtype):
+    q, k, v, w = _qkv(gen, shape, dtype, 4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    # a non-contiguous incoming gradient, as AttnBlock's transpose gives
+    out = fa.FlashAttention.apply(*leaves).transpose(1, 2)
+    (out.float() * w.transpose(1, 2).float()).sum().backward()
+    ref = fa.flash_attention_fwd_plain(*ref_leaves)[0].transpose(1, 2)
+    (ref.float() * w.transpose(1, 2).float()).sum().backward()
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        _assert_grad_close(a.grad, b.grad, dtype, "d" + name)
 
 
 def test_flash_wrapper_raises_on_the_card_instead_of_falling_back(gen):
@@ -55,3 +113,20 @@ def test_flash_wrapper_raises_on_the_card_instead_of_falling_back(gen):
     t = q.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(t, t, t)
+
+
+def test_backward_wrappers_raise_on_the_card_instead_of_falling_back(gen):
+    q = torch.randn((1, 64, 128), generator=gen, device="cuda")
+    rows = torch.zeros((1, 64), device="cuda")
+    before = dict(fa.launches)
+    for fn in (fa.flash_dkv, fa.flash_dq):
+        with pytest.raises(TypeError):
+            fn(q, q, q, q.bfloat16(), rows, rows)
+        with pytest.raises(ValueError, match="fp32"):
+            fn(q, q, q, q, rows.double(), rows)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2), rows, rows)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            wide = torch.zeros((1, 64, 96), device="cuda")
+            fn(wide, wide, wide, wide, rows, rows)
+    assert fa.launches == before

@@ -67,7 +67,7 @@ def test_reference_attention_matches_jax(n):
 
 def test_wrapper_uses_plain_version_on_cpu_and_counts_nothing():
     q, k, v = map(torch.from_numpy, _qkv(3, 1, 40, 64))
-    before = tfa.launches
+    before = dict(tfa.launches)
     out = tfa.flash_attention(q, k, v)
     assert torch.equal(out, tfa.flash_attention_plain(q, k, v))
     assert tfa.launches == before  # only kernel launches count
