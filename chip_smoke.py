@@ -29,28 +29,56 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   http     one /reconstruct, /encode and /sample through cli/serve.py;
   profile  device time by kernel and by layer for one bs-32 reconstruct
            (torch.profiler), and the card's idle share during it;
+  gn kernel the fused GroupNorm+SiLU kernels B6 (forward) and B7 (backward)
+           against their plain versions at GN_SHAPES (B6: fp32 relative L2 1e-5
+           and max abs 1e-4, bf16 one rounding apart elementwise and relative L2
+           2e-3; B7: fp32 relative L2 1e-4 for dx, dgamma, dbeta; bf16 dx by
+           GRAD_REL and GRAD_ABS_OF_STD, dgamma/dbeta relative L2 1e-3), the
+           autograd Function against autograd through the plain forward, and
+           their times at GN_TIMED beside bound, plain and F.group_norm +
+           F.silu (two calls; for B7 their autograd backward);
+  flagship_fused_gn  the flagship's bucket-32 reconstruct with
+           MEDVAE_FUSED_GN=1 (50 B6 launches a chunk, derived from the model,
+           beside B1's 5) and then off on the same engine, and after the train
+           phase 2 warmup and 5 timed train steps with it on (50/50 B6/B7 and
+           5/5/5 B1/B2/B3 a step): ms, img/s, peak memory, a profile;
   train    the full-width 224² flagship's training step (fp32 params, bf16
            compute, the full-scale experiment's loss with fp32 LPIPS and
            CLIP-ViT towers from fixed seeds, adamw lr 1e-4 constant, clip 1.0,
-           bench.py's synthetic bs-32 batch, augment on): 2 warmup and 10 timed
-           steps, each with its loss terms, grad norm and B1/B2/B3 launches
-           (5/5/5 or it raises), then ms per step, img/s, peak memory and a
-           torch.profiler breakdown of one step;
+           bench.py's synthetic bs-32 batch, augment on, switch off): 2 warmup
+           and 10 timed steps, each with its loss terms, grad norm and B1/B2/B3
+           launches (5/5/5 or it raises), then ms per step, img/s, peak memory
+           and a torch.profiler breakdown of one step;
   train_parity  one fp32 step of the same model on the card against the CPU
            (bs 2, same weights, batch and noise, augment off: loss relative
            1e-4, gradient global relative L2 1e-3, and relative L2 ATTN_GRAD_REL
            for each q/k/v/proj_out weight of the five 3136x512 attention
            blocks), with two controls beside it (the card's step repeated as
            it was, and with the noise nudged by 1e-6), and the bf16 loss
-           against the fp32 one on the card (relative 5e-2).
+           against the fp32 one on the card (relative 5e-2);
+  cvae28_train  bench.py's default step through medvae_tpu_torch.bench's
+           builder: the 28² ConditionalVAE, fp32 params, bf16 compute, bs 4096,
+           adam 1e-3, with MEDVAE_FUSED_GN=1 (B6/B7 at each of the 28
+           GroupNorm+SiLU sites, derived from the model): 2 warmup and 10 timed
+           steps with their losses and launches, ms, img/s, flops per step and
+           mfu, peak memory, a profile; then the same with the switch off;
+  cvae28_parity  one fp32 step of it at bs 8 with the switch on, card against
+           CPU (loss relative 1e-4, gradient global relative L2 1e-3, each
+           GroupNorm weight and bias gradient relative L2 1e-3 beside a repeat),
+           and bf16 against fp32 (5e-2);
+  cvae28_serve  the CVAE behind InferenceEngine(buckets 1/8/32) with the switch
+           on: requests by modality name and index, B6 launches a chunk,
+           latency per bucket, card fp32 against CPU fp32 (1e-3).
 Then the card line from nvidia-smi, the kernels line, and
 {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -64,10 +92,14 @@ import numpy as np
 import torch
 
 try:
+    from medvae_tpu_torch import bench
     from medvae_tpu_torch.cli.serve import _b64_to_np, _np_to_b64, serve
-    from medvae_tpu_torch.config.models import FLAGSHIP, build_model, init_weights
+    from medvae_tpu_torch.config.models import CVAE_BENCH, FLAGSHIP, build_model, init_weights
+    from medvae_tpu_torch.nn.blocks import ResnetBlock
+    from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder
     from medvae_tpu_torch.ops import _build
     from medvae_tpu_torch.ops import flash_attention as fa
+    from medvae_tpu_torch.ops import groupnorm_swish as gs
     from medvae_tpu_torch.ops.attention import reference_attention
     from medvae_tpu_torch.serve.engine import InferenceEngine
     from medvae_tpu_torch.train.optim import build_optimizer
@@ -78,6 +110,7 @@ except ImportError as e:
     raise SystemExit(3)
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, same data sheet
 H100_BYTES_PER_S = 3.35e12
 REPS = 20
 # kernel vs plain version: (max abs, relative L2) by dtype. The bf16 bar is
@@ -90,13 +123,44 @@ TOLERANCE = {torch.bfloat16: (4e-3, 1e-2), torch.float32: (1e-4, 1e-4)}
 GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 GRAD_ABS_OF_STD = {torch.bfloat16: 0.15, torch.float32: None}
 LSE_TOLERANCE = 1e-4
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "groupnorm_swish")
 CHECK_SHAPES = [((32, 3136, 512), torch.bfloat16), ((2, 784, 1024), torch.bfloat16),
                 ((2, 1000, 512), torch.bfloat16), ((2, 3136, 512), torch.float32)]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_launches() -> None:
+    fa.reset_launches()
+    gs.reset_launches()
+
+
+def launches() -> dict:
+    """Every kernel's count: B1-B3, then B6 and B7."""
+    return {**fa.launches, **gs.launches}
+
+
+@contextlib.contextmanager
+def fused_gn(on: bool = True):
+    """MEDVAE_FUSED_GN set for the block (the gate reads it at every call);
+    every other phase runs with it off, as the port's default is."""
+    before = os.environ.get("MEDVAE_FUSED_GN")
+    os.environ["MEDVAE_FUSED_GN"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        os.environ["MEDVAE_FUSED_GN"] = before if before is not None else "0"
+
+
+def gn_swish_sites(module) -> int:
+    """GroupNorm+SiLU sites one forward of `module` runs, each one B6 launch
+    with the switch on (and one B7 in the backward): two in every ResnetBlock
+    and each codec's norm_out. AttnBlock's GroupNorm has no SiLU."""
+    mods = list(module.modules())
+    return (2 * sum(isinstance(m, ResnetBlock) for m in mods)
+            + sum(isinstance(m, (Encoder, Decoder)) for m in mods))
 
 
 def nvidia_smi_line() -> str:
@@ -367,6 +431,143 @@ def phase_backward() -> dict:
     return rows
 
 
+# B6/B7 against their plain versions: the 28² CVAE's bs-4096 levels (cg = 1;
+# h·w = 49, not a multiple of the vector width), the flagship's widest level
+# at bs 32 and at bs 1 (the split reduction), an fp32 flagship level, and a
+# ragged fp32 shape with cg = 3
+GN_SHAPES = [((4096, 32, 28, 28), torch.bfloat16), ((4096, 128, 7, 7), torch.bfloat16),
+             ((32, 128, 224, 224), torch.bfloat16), ((1, 128, 224, 224), torch.bfloat16),
+             ((2, 1024, 28, 28), torch.float32), ((3, 96, 9, 9), torch.float32)]
+GN_TIMED = [(4096, 32, 28, 28), (32, 128, 224, 224)]  # bf16; the first is the main path's
+# B6: fp32 relative L2 and max abs; bf16 one rounding apart elementwise
+# (2^-7 |p| + 1e-6) and relative L2. B7: fp32 relative L2 for dx, dgamma and
+# dbeta; bf16 dx by GRAD_REL and GRAD_ABS_OF_STD, dgamma/dbeta relative L2.
+GN_FWD_BARS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, None)}
+GN_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+GN_OPS_PER_ELEMENT = {"gn_swish_fwd": 11, "gn_swish_bwd": 32}  # fp32, counted from the source
+
+
+def gn_inputs(gen, shape, dtype):
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+    w = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return x, w, b, g, min(32, c)
+
+
+def gn_library(x, w, b, groups):
+    """The library yardstick: F.group_norm then F.silu, two calls, in x's
+    dtype (group_norm takes weight and bias of x's dtype)."""
+    return torch.nn.functional.silu(
+        torch.nn.functional.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype), 1e-6))
+
+
+def phase_gn_kernel() -> dict:
+    """B6 and B7 against their plain versions at GN_SHAPES, the autograd
+    Function against autograd through the plain forward, and their times at
+    GN_TIMED beside bound, plain and the two-call library version."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"gn_swish_fwd": 0.0, "gn_swish_bwd": 0.0}
+    for shape, dtype in GN_SHAPES:
+        x, w, b, g, groups = gn_inputs(gen, shape, dtype)
+        y, mean, rstd = gs.group_norm_swish_fwd(x, w, b, groups, 1e-6)
+        dx, dw, db = gs.group_norm_swish_bwd(x, w, b, g, mean, rstd)
+        torch.cuda.synchronize()
+        y_ref, mean_ref, rstd_ref = gs.group_norm_swish_fwd_plain(x, w, b, groups, 1e-6)
+        dx_ref, dw_ref, db_ref = gs.group_norm_swish_bwd_plain(x, w, b, g, mean, rstd)
+        fwd_err = (y.double() - y_ref.double()).abs()
+        fwd_rel = torch_rel_l2(y, y_ref)
+        rel_bar, abs_bar = GN_FWD_BARS[dtype]
+        if dtype == torch.float32:
+            fwd_ok = fwd_rel <= rel_bar and fwd_err.max().item() <= abs_bar
+            one_rounding = None
+        else:
+            one_rounding = bool((fwd_err <= 2.0**-7 * y_ref.double().abs() + 1e-6).all())
+            fwd_ok = one_rounding and fwd_rel <= rel_bar
+        fwd_ok = fwd_ok and bool(torch.isfinite(y).all())
+        stats_rel = max(torch_rel_l2(mean, mean_ref), torch_rel_l2(rstd, rstd_ref))
+        if dtype == torch.float32:
+            rows = [{"name": n, "rel_l2": torch_rel_l2(a, r), "rel_l2_bar": GN_BWD_REL[dtype],
+                     "max_abs_err": (a.double() - r.double()).abs().max().item(),
+                     "ok": torch_rel_l2(a, r) <= GN_BWD_REL[dtype] and bool(torch.isfinite(a).all())}
+                    for n, a, r in (("dx", dx, dx_ref), ("dgamma", dw, dw_ref), ("dbeta", db, db_ref))]
+        else:
+            rows = [grad_check("dx", dx, dx_ref, dtype)] + [
+                {"name": n, "rel_l2": torch_rel_l2(a, r), "rel_l2_bar": GN_BWD_REL[dtype],
+                 "max_abs_err": (a.double() - r.double()).abs().max().item(),
+                 "ok": torch_rel_l2(a, r) <= GN_BWD_REL[dtype] and bool(torch.isfinite(a).all())}
+                for n, a, r in (("dgamma", dw, dw_ref), ("dbeta", db, db_ref))]
+        emit({"phase": "kernel", "kernels": "gn_swish_fwd (B6), gn_swish_bwd (B7)",
+              "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+              "fwd_max_abs_err": fwd_err.max().item(), "fwd_rel_l2": fwd_rel,
+              "fwd_rel_l2_bar": rel_bar, "fwd_max_abs_bar": abs_bar,
+              "fwd_within_one_rounding": one_rounding, "stats_rel_l2": stats_rel,
+              "grads": rows})
+        if not fwd_ok or not stats_rel <= 1e-5 or not all(r["ok"] for r in rows):
+            raise AssertionError(f"gn_swish kernels {shape} {dtype}: fwd rel {fwd_rel}, "
+                                 f"stats rel {stats_rel}, {rows}")
+        if tuple(shape) == GN_TIMED[0]:
+            worst = {"gn_swish_fwd": fwd_err.max().item(),
+                     "gn_swish_bwd": max(r["max_abs_err"] for r in rows)}
+        del x, g, y, dx, y_ref, dx_ref, fwd_err
+        torch.cuda.empty_cache()
+
+    for shape, dtype in (((8, 128, 56, 56), torch.bfloat16), ((2, 96, 9, 9), torch.float32)):
+        x, w, b, g, groups = gn_inputs(gen, shape, dtype)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        ref_leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        got = torch.autograd.grad(gs.GroupNormSwish.apply(*leaves, groups, 1e-6), leaves, g)
+        want = torch.autograd.grad(gs.group_norm_swish_plain(*ref_leaves, groups, 1e-6), ref_leaves, g)
+        bar = 1e-4 if dtype == torch.float32 else 1e-2
+        rows = [{"name": "d" + n, "rel_l2": torch_rel_l2(a, r), "bar": bar}
+                for n, a, r in zip(("x", "gamma", "beta"), got, want)]
+        emit({"phase": "kernel", "kernels": "GroupNormSwish autograd vs autograd of the plain forward",
+              "shape": list(shape), "dtype": str(dtype).split(".")[-1], "grads": rows})
+        if not all(r["rel_l2"] <= bar for r in rows):
+            raise AssertionError(f"GroupNormSwish grads {shape} {dtype}: {rows}")
+
+    timed = {}
+    for shape in GN_TIMED:
+        x, w, b, g, groups = gn_inputs(gen, shape, torch.bfloat16)
+        _, mean, rstd = gs.group_norm_swish_fwd(x, w, b, groups, 1e-6)
+        xl = x.clone().requires_grad_(True)
+        wl, bl = (t.to(x.dtype).requires_grad_(True) for t in (w, b))
+        lib_out = torch.nn.functional.silu(torch.nn.functional.group_norm(xl, groups, wl, bl, 1e-6))
+        n, el, c = x.numel(), x.element_size(), shape[1]
+        work = {  # bytes with each input read once and each output written once
+            "gn_swish_fwd": 2.0 * n * el + 2 * c * 4,
+            "gn_swish_bwd": 3.0 * n * el + 4 * c * 4 + 2 * shape[0] * groups * 4,
+        }
+        calls = {
+            "gn_swish_fwd": (lambda: gs.group_norm_swish_fwd(x, w, b, groups, 1e-6),
+                             lambda: gs.group_norm_swish_fwd_plain(x, w, b, groups, 1e-6),
+                             lambda: gn_library(x, w, b, groups)),
+            "gn_swish_bwd": (lambda: gs.group_norm_swish_bwd(x, w, b, g, mean, rstd),
+                             lambda: gs.group_norm_swish_bwd_plain(x, w, b, g, mean, rstd),
+                             lambda: torch.autograd.grad(lib_out, (xl, wl, bl), g, retain_graph=True)),
+        }
+        for name, (kernel, plain, library) in calls.items():
+            flops = GN_OPS_PER_ELEMENT[name] * float(n)
+            t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, work[name] / H100_BYTES_PER_S * 1e3
+            ms = cuda_ms(kernel)
+            row = {"shape": list(shape), "dtype": "bfloat16", "ms": ms, "plain_ms": cuda_ms(plain),
+                   "library_ms": cuda_ms(library),
+                   "library": "F.group_norm + F.silu, two calls" + (", autograd backward"
+                                                                    if name == "gn_swish_bwd" else ""),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "bytes": work[name], "flops": flops, "gb_per_s": work[name] / ms / 1e6}
+            emit({"phase": "kernel", "kernel": name, **row})
+            timed[(name, tuple(shape))] = row
+        del x, g, xl, lib_out
+        torch.cuda.empty_cache()
+    return {name: dict(timed[(name, GN_TIMED[0])], max_abs_err=worst[name],
+                       at_224={k: timed[(name, GN_TIMED[1])][k]
+                               for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")})
+            for name in worst}
+
+
 def build_engines():
     cpu_model = build_model(FLAGSHIP, "fp32", "cpu")
     init_weights(cpu_model, seed=0)
@@ -490,12 +691,18 @@ def phase_http(engine) -> None:
 
 # kernel-name fragments -> the layer a kernel belongs to, for the breakdown
 _CATEGORIES = (
+    ("gn_row_stats", "gn_swish_fwd (B6)"),
+    ("gn_group_stats", "gn_swish_fwd (B6)"),
+    ("gn_swish_apply", "gn_swish_fwd (B6)"),
+    ("gn_bwd", "gn_swish_bwd (B7)"),
     ("flash_fwd", "flash_fwd (B1)"),
     ("flash_dkv", "flash_dkv (B2)"),
     ("flash_dq", "flash_dq (B3)"),
     ("Nhwc", "cudnn layout transforms"),
     ("Nchw", "cudnn layout transforms"),
     ("fprop", "convolution"),
+    ("dgrad", "convolution"),  # cuDNN's implicit-GEMM backward kernels, whose
+    ("wgrad", "convolution"),  # names hold "gemm" but not "conv"
     ("conv", "convolution"),
     ("gemm", "matmul"),
     ("group_norm", "group norm"),
@@ -593,6 +800,35 @@ def train_model(state_dict, precision: str, device, frozen_from=None):
     return model, frozen
 
 
+def run_steps(tag: str, step, state, batch, gen, warmup: int, timed: int, want: dict):
+    """`warmup` + `timed` train steps, each a run of the main path: the
+    counts are reset just before it and read just after, and must equal
+    `want`; every step's metrics must be finite. Returns (state, the timed
+    steps' ms, the counts summed over all steps)."""
+    totals = dict.fromkeys(want, 0)
+    times = []
+    for i in range(warmup + timed):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launches()
+        values = {k.split("/", 1)[1]: float(v) for k, v in metrics.items()}
+        emit({"phase": tag, "step": i, "warmup": i < warmup, "ms": ms, **values,
+              "launches": counts})
+        if not all(np.isfinite(list(values.values()))):
+            raise AssertionError(f"{tag} step {i}: non-finite metrics {values}")
+        if counts != want:
+            raise AssertionError(f"{tag} step {i}: launches {counts}, want {want}")
+        for name in totals:
+            totals[name] += counts[name]
+        if i >= warmup:
+            times.append(ms)
+    return state, times, totals
+
+
 def phase_train(state_dict) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -602,27 +838,9 @@ def phase_train(state_dict) -> dict:
     step = build_train_step(model, FLAGSHIP_LOSS, tx, augment=True, max_channels=3)
     batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
     gen = torch.Generator(device=CARD).manual_seed(0)
-    totals = dict.fromkeys(PER_TRAIN_STEP, 0)
-    times = []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        torch.cuda.synchronize()
-        fa.reset_launches()  # each step is a run of the main path
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, gen)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        counts = dict(fa.launches)  # read just after the step
-        values = {k.split("/", 1)[1]: float(v) for k, v in metrics.items()}
-        emit({"phase": "train", "step": i, "warmup": i < WARMUP_STEPS, "ms": ms, **values,
-              "launches": counts})
-        if not all(np.isfinite(list(values.values()))):
-            raise AssertionError(f"train step {i}: non-finite metrics {values}")
-        if counts != PER_TRAIN_STEP:
-            raise AssertionError(f"train step {i}: launches {counts}, want {PER_TRAIN_STEP}")
-        for name in totals:
-            totals[name] += counts[name]
-        if i >= WARMUP_STEPS:
-            times.append(ms)
+    want = {**PER_TRAIN_STEP, "gn_swish_fwd": 0, "gn_swish_bwd": 0}
+    state, times, totals = run_steps("train", step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
+                                     want)
     median = statistics.median(times)
     emit({"phase": "train", "batch": TRAIN_BATCH, "resolution": int(model.resolution),
           "ms_per_step_median": median, "ms_per_step_min": min(times),
@@ -632,6 +850,73 @@ def phase_train(state_dict) -> dict:
           "params": sum(p.numel() for p in state.params.values())})
     emit({"phase": "train", "profile": "one step",
           **device_breakdown(lambda: step(state, batch, gen), median)})
+    del model, frozen, state, step, batch
+    torch.cuda.empty_cache()
+    return totals
+
+
+FUSED_FLAGSHIP_TIMED = 5
+
+
+def phase_flagship_fused_serve(engine) -> dict:
+    """The flagship's bucket-32 reconstruct with MEDVAE_FUSED_GN on (B6 at
+    every GroupNorm+SiLU), then off, on the same engine: launches, ms, peak
+    memory, and the two outputs against each other."""
+    res, c = int(engine.model.resolution), int(engine.model.max_channels)
+    x = np.random.RandomState(3).randint(0, 256, (32, res, res, c), np.uint8)
+    m = (np.arange(32) % 5).astype(np.int32)
+    sites = gn_swish_sites(engine.model)
+    want = {"flash_fwd": PER_CHUNK["reconstruct"], "flash_dkv": 0, "flash_dq": 0,
+            "gn_swish_fwd": sites, "gn_swish_bwd": 0}
+    row = {"phase": "flagship_fused_gn", "path": "reconstruct", "bucket": 32}
+    outs = {}
+    for on in (True, False):
+        key = "on" if on else "off"
+        with fused_gn(on):
+            engine.reconstruct(x, modality=m)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()  # the path starts here
+            outs[key] = engine.reconstruct(x, modality=m)
+            counts = launches()  # and ends here
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            times = host_samples_ms(lambda: engine.reconstruct(x, modality=m), reps=5)
+        if on and counts != want:
+            raise AssertionError(f"fused flagship reconstruct: launches {counts}, want {want}")
+        ms = statistics.median(times)
+        row.update({f"launches_{key}": counts, f"ms_{key}": ms, f"samples_ms_{key}": times,
+                    f"images_per_sec_{key}": 32 / ms * 1e3, f"peak_memory_gib_{key}": peak})
+    row["on_vs_off_rel_l2"] = rel_l2(outs["on"], outs["off"])
+    emit(row)
+    if not np.isfinite(outs["on"]).all() or not row["on_vs_off_rel_l2"] <= 5e-2:
+        raise AssertionError(f"fused flagship reconstruct: {row['on_vs_off_rel_l2']} from the plain path")
+    return row["launches_on"]
+
+
+def phase_flagship_fused_train(state_dict) -> dict:
+    """The flagship's train step with MEDVAE_FUSED_GN on: B6/B7 at every
+    GroupNorm+SiLU next to B1-B3's 5/5/5; ms, img/s, peak memory and a
+    profile of one step, beside the `train` phase's switch-off numbers."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(True):
+        model, frozen = train_model(state_dict, "bf16", CARD)
+        tx = bench_optimizer()
+        state = create_train_state(model, tx, frozen)
+        step = build_train_step(model, FLAGSHIP_LOSS, tx, augment=True, max_channels=3)
+        batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
+        gen = torch.Generator(device=CARD).manual_seed(0)
+        sites = gn_swish_sites(model)
+        want = {**PER_TRAIN_STEP, "gn_swish_fwd": sites, "gn_swish_bwd": sites}
+        state, times, totals = run_steps("flagship_fused_gn", step, state, batch, gen, WARMUP_STEPS,
+                                         FUSED_FLAGSHIP_TIMED, want)
+        median = statistics.median(times)
+        emit({"phase": "flagship_fused_gn", "path": "train", "batch": TRAIN_BATCH,
+              "gn_swish_sites": sites, "ms_per_step_median": median, "samples_ms": times,
+              "images_per_sec": TRAIN_BATCH / median * 1e3,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+        emit({"phase": "flagship_fused_gn", "profile": "one train step",
+              **device_breakdown(lambda: step(state, batch, gen), median)})
     del model, frozen, state, step, batch
     torch.cuda.empty_cache()
     return totals
@@ -704,30 +989,212 @@ def phase_train_parity(state_dict) -> None:
         raise AssertionError(f"train parity out of bars: {row}")
 
 
+# bench.py's default step (config/models.py:CVAE_BENCH, bs 4096, adam 1e-3,
+# the `vae` loss) through medvae_tpu_torch.bench's builder
+CVAE_LOSS = {"type": "vae", "recon_loss_type": "mse", "kl_weight": 1.0, "recon_weight": 1.0}
+CVAE_PARITY_BATCH = 8
+
+
+def phase_cvae28_train(on: bool) -> dict:
+    """2 warmup and 10 timed steps of the 28² CVAE at bs 4096 with
+    MEDVAE_FUSED_GN `on` (B6/B7 at every GroupNorm+SiLU, counts derived from
+    the model) or off; ms, img/s, flops and mfu, peak memory, a profile."""
+    tag = "cvae28_train" if on else "cvae28_train_off"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(on):
+        model, step, state, batch = bench.build_bench("cvae", "quick", device=CARD)
+        sites = gn_swish_sites(model)
+        want = {**dict.fromkeys(fa.launches, 0), "gn_swish_fwd": sites if on else 0,
+                "gn_swish_bwd": sites if on else 0}
+        gen = torch.Generator(device=CARD).manual_seed(0)
+        state, times, totals = run_steps(tag, step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
+                                         want)
+        median = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flops, state = bench.flops_per_step(step, state, batch, gen)
+        bs = int(batch["image_u8"].shape[0])
+        row = {"phase": tag, "batch": bs, "resolution": int(model.resolution),
+               "gn_swish_sites": {"encoder": gn_swish_sites(model.encoder),
+                                  "decoder": gn_swish_sites(model.decoder)},
+               "ms_per_step_median": median, "ms_per_step_min": min(times),
+               "ms_per_step_max": max(times), "samples_ms": times,
+               "images_per_sec": bs / median * 1e3, "flops_per_step": flops,
+               "achieved_tflops": flops / median / 1e9,
+               "mfu": flops / (median / 1e3) / H100_BF16_FLOPS, "peak_memory_gib": peak,
+               "params": sum(p.numel() for p in state.params.values())}
+        emit(row)
+        emit({"phase": tag, "profile": "one step",
+              **device_breakdown(lambda: step(state, batch, gen), median)})
+    del model, step, state, batch
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_cvae28_parity() -> None:
+    """One fp32 step of the 28² CVAE at bs 8 with MEDVAE_FUSED_GN on, card
+    against CPU (same weights, batch and noise): loss relative 1e-4, gradient
+    global relative L2 1e-3, and relative L2 1e-3 for the gradient of every
+    GroupNorm weight and bias that B7 computes, beside a repeat of the card's
+    step; then the card's bf16 loss against its fp32 loss (5e-2)."""
+    cpu_model = init_weights(build_model(CVAE_BENCH, "fp32", "cpu", train=True), seed=0)
+    state_dict = cpu_model.state_dict()
+    batch = bench.synthetic_batch(CVAE_PARITY_BATCH, CVAE_BENCH["resolution"], "cpu")
+    r = cpu_model.encoder_out_res
+    batch["noise"] = torch.from_numpy(
+        np.random.RandomState(8).randn(CVAE_PARITY_BATCH, r, r, cpu_model.latent_dim).astype(np.float32))
+    gn_leaves = [n for n, m in cpu_model.named_modules()
+                 if re.search(r"(norm1|norm2|norm_out)$", n)]
+
+    def loss_and_grads(precision, device):
+        model = build_model(CVAE_BENCH, precision, device, train=True)
+        model.load_state_dict(state_dict)
+        state = create_train_state(model, build_optimizer({"type": "adam", "lr": 1e-3},
+                                                          {"type": "constant"}, gradient_clip_val=1.0))
+        fn = build_loss_and_grads(model, CVAE_LOSS, augment=False, max_channels=3)
+        reset_launches()
+        losses, grads = fn(state, {k: v.to(device) for k, v in batch.items()})
+        counts = launches()
+        return ({k: float(v) for k, v in losses.items()},
+                dict(zip(state.params, (g.float().cpu() for g in grads))), counts)
+
+    with fused_gn(True):
+        card, card_grads, card_counts = loss_and_grads("fp32", CARD)
+        _, repeat_grads, _ = loss_and_grads("fp32", CARD)
+        cpu, cpu_grads, _ = loss_and_grads("fp32", "cpu")
+        half, _, _ = loss_and_grads("bf16", CARD)
+    sites = gn_swish_sites(cpu_model)
+    if card_counts["gn_swish_fwd"] != sites or card_counts["gn_swish_bwd"] != sites:
+        raise AssertionError(f"cvae28_parity: the card's step launched {card_counts}, want {sites}/{sites}")
+
+    def grad_rel(a, b):
+        diff = torch.sqrt(sum(((a[k] - b[k]).double() ** 2).sum() for k in b))
+        return float(diff / torch.sqrt(sum((v.double() ** 2).sum() for v in b.values())))
+
+    gn_rows = [{"param": f"{n}.{leaf}",
+                "card_vs_cpu": torch_rel_l2(card_grads[f"{n}.{leaf}"], cpu_grads[f"{n}.{leaf}"]),
+                "card_repeat": torch_rel_l2(repeat_grads[f"{n}.{leaf}"], card_grads[f"{n}.{leaf}"])}
+               for n in gn_leaves for leaf in ("weight", "bias")]
+    worst = max(r["card_vs_cpu"] for r in gn_rows)
+    row = {"phase": "cvae28_parity", "batch": CVAE_PARITY_BATCH, "card_launches": card_counts,
+           "fp32_card_losses": card, "fp32_cpu_losses": cpu, "bf16_card_losses": half,
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss_bar": 1e-4,
+           "grad_global_rel_l2": grad_rel(card_grads, cpu_grads), "grad_bar": 1e-3,
+           "grad_rel_l2_card_repeat": grad_rel(repeat_grads, card_grads),
+           "gn_grad_rel_l2_max": worst, "gn_grad_bar": 1e-3, "gn_leaves": len(gn_rows),
+           "gn_grads": gn_rows,
+           "bf16_vs_fp32_loss_rel": abs(half["loss"] - card["loss"]) / abs(card["loss"]),
+           "bf16_bar": 5e-2}
+    emit(row)
+    if not (row["loss_rel"] <= 1e-4 and row["grad_global_rel_l2"] <= 1e-3 and worst <= 1e-3
+            and row["bf16_vs_fp32_loss_rel"] <= 5e-2 and len(gn_rows) == 2 * sites):
+        raise AssertionError(f"cvae28 parity out of bars: {row}")
+
+
+def phase_cvae28_serve() -> dict:
+    """The 28² CVAE (random weights from seed 0, bf16) behind
+    InferenceEngine(buckets 1/8/32) with MEDVAE_FUSED_GN on: requests by
+    modality name and by index, B6 launches per chunk (derived from the
+    model), reconstruct latency per bucket, and card fp32 against CPU fp32
+    (relative L2 1e-3)."""
+    cpu_model = init_weights(build_model(CVAE_BENCH, "fp32", "cpu"), seed=0)
+    state = cpu_model.state_dict()
+    models = {}
+    for precision in ("bf16", "fp32"):
+        models[precision] = build_model(CVAE_BENCH, precision, CARD)
+        models[precision].load_state_dict(state)
+    engine = InferenceEngine(models["bf16"], buckets=(1, 8, 32), device=CARD)
+    enc, dec = gn_swish_sites(cpu_model.encoder), gn_swish_sites(cpu_model.decoder)
+    per_chunk = {"reconstruct": enc + dec, "encode": enc, "decode": dec, "sample": dec}
+    rs = np.random.RandomState(9)
+    res, c, r, zdim = CVAE_BENCH["resolution"], CVAE_BENCH["input_channels"], cpu_model.encoder_out_res, cpu_model.latent_dim
+    images = {n: rs.randint(0, 256, (n, res, res, c), np.uint8) for n in (1, 8, 37)}
+    z8 = rs.randn(8, r, r, zdim).astype(np.float32)
+    requests = [
+        ("reconstruct", 1, lambda: engine.reconstruct(images[1], modality="dermamnist")),
+        ("reconstruct", 8, lambda: engine.reconstruct(images[8], modality=np.arange(8) % 12)),
+        ("reconstruct", 37, lambda: engine.reconstruct(images[37], modality=(np.arange(37) * 5) % 12)),
+        ("encode", 8, lambda: engine.encode(images[8], modality="octmnist")),
+        ("decode", 8, lambda: engine.decode(z8)),
+        ("sample", 8, lambda: engine.sample(8, modality="pathmnist", seed=1)),
+    ]
+    totals = dict.fromkeys(gs.launches, 0)
+    with fused_gn(True):
+        t0 = time.perf_counter()
+        n_warm = engine.warmup()
+        emit({"phase": "cvae28_serve", "warmup_runs": n_warm,
+              "warmup_seconds": round(time.perf_counter() - t0, 3), "per_chunk": per_chunk})
+        for method, n, fn in requests:
+            reset_launches()  # each request is a run of the path
+            out = fn()
+            counts = launches()
+            chunks = len(list(engine._chunks(n)))
+            arrays = out if isinstance(out, tuple) else (out,)
+            want_shape = (n, r, r, zdim) if method == "encode" else (n, res, res, c)
+            ok = all(a.shape == want_shape and np.isfinite(a).all() for a in arrays)
+            emit({"phase": "cvae28_serve", "method": method, "n": n, "chunks": chunks,
+                  "launches": counts, "shape": list(arrays[0].shape), "finite_and_shaped": ok})
+            if not ok or counts["gn_swish_fwd"] != per_chunk[method] * chunks or counts["gn_swish_bwd"]:
+                raise AssertionError(f"cvae28 {method}({n}): {counts}, want "
+                                     f"{per_chunk[method]} x {chunks} B6 launches; shapes ok {ok}")
+            for k in totals:
+                totals[k] += counts[k]
+        for b in engine.buckets:
+            x, m = rs.randint(0, 256, (b, res, res, c), np.uint8), np.arange(b) % 12
+            engine.reconstruct(x, modality=m)
+            times = host_samples_ms(lambda: engine.reconstruct(x, modality=m), reps=max(5, 40 // b))
+            ms = statistics.median(times)
+            emit({"phase": "cvae28_serve", "method": "reconstruct", "bucket": b, "ms_per_batch": ms,
+                  "images_per_sec": b / ms * 1e3, "min_ms": min(times), "max_ms": max(times)})
+        x, m = images[8], np.arange(8) % 12
+        card = InferenceEngine(models["fp32"], buckets=(8,), device=CARD).reconstruct(x, modality=m)
+        cpu = InferenceEngine(cpu_model, buckets=(8,), device="cpu").reconstruct(x, modality=m)
+        half = engine.reconstruct(x, modality=m)
+    row = {"phase": "cvae28_serve", "parity": "reconstruct n=8",
+           "fp32_card_vs_cpu_rel_l2": rel_l2(card, cpu), "tolerance": 1e-3,
+           "bf16_vs_fp32_card_rel_l2": rel_l2(half, card), "bf16_bound": 5e-2}
+    emit(row)
+    if not (row["fp32_card_vs_cpu_rel_l2"] <= 1e-3 and row["bf16_vs_fp32_card_rel_l2"] <= 5e-2):
+        raise AssertionError(f"cvae28 serve parity: {row}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 2
+    os.environ["MEDVAE_FUSED_GN"] = "0"  # the port's default; fused phases turn it on
     smi = phase_env()
     phase_build()
     kernel = phase_kernel()
     backward = phase_backward()
+    gn_kernel = phase_gn_kernel()
     bf16_engine, fp32_engine, cpu_engine = build_engines()
     state_dict = cpu_engine.model.state_dict()
     serve_launches = phase_serve(bf16_engine)
     phase_parity(bf16_engine, fp32_engine, cpu_engine)
     phase_http(bf16_engine)
     phase_profile(bf16_engine)
+    fused_serve_launches = phase_flagship_fused_serve(bf16_engine)
     del bf16_engine, fp32_engine, cpu_engine
     train_launches = phase_train(state_dict)
+    fused_train_launches = phase_flagship_fused_train(state_dict)
     phase_train_parity(state_dict)
+    cvae_launches = phase_cvae28_train(True)
+    phase_cvae28_train(False)
+    phase_cvae28_parity()
+    cvae_serve_launches = phase_cvae28_serve()
     print(smi, flush=True)
     source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
               "flash_dkv": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
-              "flash_dq": "medvae_tpu_torch/ops/csrc/flash_bwd.cu"}
+              "flash_dq": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
+              "gn_swish_fwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu",
+              "gn_swish_bwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu"}
     replaces = {"flash_fwd": "medvae_tpu/ops/flash_attention.py:208",
                 "flash_dkv": "medvae_tpu/ops/flash_attention.py:279",
-                "flash_dq": "medvae_tpu/ops/flash_attention.py:341"}
+                "flash_dq": "medvae_tpu/ops/flash_attention.py:341",
+                "gn_swish_fwd": "medvae_tpu/ops/groupnorm_swish.py:106",
+                "gn_swish_bwd": "medvae_tpu/ops/groupnorm_swish.py:154"}
     fwd = {k: kernel[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")}
     fwd.update(launches=serve_launches + train_launches["flash_fwd"],
@@ -743,6 +1210,16 @@ def main() -> int:
         rows.append({"name": name, "launches": train_launches[name],
                      **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "library_covers", "backward_ms")}})
+    for name in ("gn_swish_fwd", "gn_swish_bwd"):
+        r = gn_kernel[name]
+        # launches: the main path's, bench.py's default step with the switch
+        # on (cvae28_train); then the other paths that ran the kernel
+        rows.append({"name": name, "launches": cvae_launches[name],
+                     "launches_cvae28_serve": cvae_serve_launches[name],
+                     "launches_flagship_fused_serve": fused_serve_launches[name],
+                     "launches_flagship_fused_train": fused_train_launches[name],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "library", "shape", "at_224")}})
     emit({"kernels": [{"name": r["name"], "route": "cuda", "source": source[r["name"]],
                        "replaces": replaces[r["name"]], **{k: v for k, v in r.items() if k != "name"}}
                       for r in rows]})

@@ -1,0 +1,164 @@
+"""Training-step throughput of the port on the card: the counterpart of
+bench.py's default step mode (bench.py:391-434).
+
+    python -m medvae_tpu_torch.bench
+
+BENCH_MODEL=cvae (the default) is bench.py's north-star step: the 28²
+ConditionalVAE (`config/models.py:CVAE_BENCH`) at bs 4096, fp32 params with
+bf16 compute, the `vae` loss (MSE, kl 1), adam lr 1e-3 constant, clip 1.0,
+augment off, max_channels 3, on bench.py's synthetic batch (five modalities
+round robin, channels [1, 3, 3, 1, 3], uint8 images from seed 0).
+BENCH_MODEL=flagship swaps in the DisentangledConditionalVAE step; with
+BENCH_CONFIG=full224 that is the full-scale experiment's step at bs 32 (attention
+at 28² and 56², fp32 LPIPS and CLIP-ViT towers unless BENCH_TOWERS=0, adamw
+lr 1e-4, augment on). BENCH_CONFIG=full224 alone is the 224² ConditionalVAE
+at bs 32. BENCH_BATCH overrides the batch, BENCH_SECONDS (8) the timed window.
+MEDVAE_FUSED_GN=1 routes every GroupNorm+SiLU through kernels B6/B7.
+
+Prints one JSON line: `metric`, `value` (images/s), `unit`, and
+`flops_per_step` (torch.utils.flop_counter over one step: the matmuls and
+convolutions of forward and backward; the hand-written kernels are not
+counted), `achieved_tflops` and `mfu` against the H100's 989 TFLOP/s bf16
+dense peak, the card's name and the batch. bench.py's `vs_baseline` is left
+out: its target was set for a TPU. BENCH_MODE=pipeline and generate are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from medvae_tpu_torch.config.models import CVAE_BENCH, build_model, init_weights
+from medvae_tpu_torch.train.optim import build_optimizer
+from medvae_tpu_torch.train.state import create_train_state
+from medvae_tpu_torch.train.step import build_train_step, make_frozen
+
+H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+
+_FULL224 = dict(latent_dim=128, hidden_channels=128, ch_mult=[1, 2, 4, 8], num_res_blocks=2,
+                attn_resolutions=[16], resolution=224)
+_VAE_LOSS = {"type": "vae", "recon_loss_type": "mse", "kl_weight": 1.0, "recon_weight": 1.0}
+
+
+def bench_config(model: str = "cvae", config: str = "quick",
+                 towers: bool = True) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[str, Any], bool, int]:
+    """(model config, loss config, optimizer config, augment, default batch)
+    of bench.py's `_config` and `_build` (bench.py:96-230)."""
+    if config not in ("quick", "full224"):
+        raise ValueError(f"BENCH_CONFIG must be quick or full224, got {config!r}")
+    full224 = config == "full224"
+    arch = dict(_FULL224) if full224 else {
+        k: CVAE_BENCH[k] for k in ("latent_dim", "hidden_channels", "ch_mult", "num_res_blocks",
+                                   "attn_resolutions", "resolution")
+    }
+    batch = 32 if full224 else 4096
+    adam = {"type": "adam", "lr": 1e-3}
+    if model == "cvae":
+        return dict(CVAE_BENCH, **arch), dict(_VAE_LOSS), adam, False, batch
+    if model != "flagship":
+        raise ValueError(f"BENCH_MODEL must be cvae or flagship, got {model!r}")
+    latent = arch.pop("latent_dim")
+    if full224:
+        arch["attn_resolutions"] = [28, 56]
+    cfg = dict(arch, _target_="medvae_tpu.models.DisentangledConditionalVAE", num_modalities=5,
+               shared_latent_dim=latent // 2, modality_latent_dim=latent // 2, dropout=0.0)
+    loss = {"type": "disentangled_vae", "recon_loss_type": "mse", "kl_weight": 1.0,
+            "recon_weight": 1.0, "separation_weight": 0.1, "contrastive_weight": 0.2}
+    if full224 and towers:
+        loss.update(perceptual_weight=0.1, biomedclip_weight=0.1, clip_encoder="vit")
+    opt = {"type": "adamw", "lr": 1e-4} if full224 else adam
+    return cfg, loss, opt, full224, batch
+
+
+def synthetic_batch(batch_size: int, size: int, device) -> Dict[str, torch.Tensor]:
+    """bench.py's `_synthetic_batch` (bench.py:132-142) as tensors on `device`."""
+    rs = np.random.RandomState(0)
+    midx = (np.arange(batch_size) % 5).astype(np.int64)
+    arrays = {
+        "image_u8": rs.randint(0, 255, (batch_size, size, size, 3), np.uint8),
+        "modality_onehot": np.eye(12, dtype=np.float32)[midx],
+        "modality_idx": midx,
+        "channels": np.asarray([1, 3, 3, 1, 3], np.int64)[midx],
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def build_bench(model: str = "cvae", config: str = "quick", batch_size: int | None = None,
+                device: Any = "cuda", towers: bool = True, seed: int = 0):
+    """(model, step, state, batch): the bench's model with random weights
+    from `seed`, its train step, initial state and synthetic batch."""
+    model_cfg, loss_cfg, opt_cfg, augment, default_batch = bench_config(model, config, towers)
+    net = init_weights(build_model(model_cfg, "bf16", device, train=True), seed)
+    tx = build_optimizer(opt_cfg, {"type": "constant"}, gradient_clip_val=1.0)
+    state = create_train_state(net, tx, make_frozen(loss_cfg, device, seed=seed))
+    step = build_train_step(net, loss_cfg, tx, augment=augment, max_channels=3)
+    batch = synthetic_batch(batch_size or default_batch, int(net.resolution), device)
+    return net, step, state, batch
+
+
+def flops_per_step(step, state, batch, generator) -> Tuple[float, Any]:
+    """Operations of one step, counted by torch.utils.flop_counter (matmuls
+    and convolutions, forward and backward); runs that step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        state, _ = step(state, batch, generator)
+    return float(counter.get_total_flops()), state
+
+
+def main() -> None:
+    mode = os.environ.get("BENCH_MODE", "step")
+    if mode != "step":
+        raise NotImplementedError(f"BENCH_MODE={mode} is not ported yet (only step)")
+    if not torch.cuda.is_available():
+        raise SystemExit("medvae_tpu_torch.bench: no CUDA device; the bench runs on the card")
+    model_name = os.environ.get("BENCH_MODEL", "cvae")
+    config = os.environ.get("BENCH_CONFIG", "quick")
+    batch_size = int(os.environ["BENCH_BATCH"]) if os.environ.get("BENCH_BATCH") else None
+    towers = os.environ.get("BENCH_TOWERS", "1") == "1"
+    _, step, state, batch = build_bench(model_name, config, batch_size, "cuda", towers)
+    bs = int(batch["image_u8"].shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, metrics = step(state, batch, gen)  # warmup: cuDNN plans, kernel builds
+    float(metrics["train/loss"])
+    flops, state = flops_per_step(step, state, batch, gen)
+
+    target = float(os.environ.get("BENCH_SECONDS", 8.0))
+    steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        state, metrics = step(state, batch, gen)
+        steps += 1
+        if steps % 10 == 0:
+            torch.cuda.synchronize()
+            if time.perf_counter() - t0 > target:
+                break
+    last_loss = float(metrics["train/loss"])
+    elapsed = time.perf_counter() - t0
+    if last_loss != last_loss:
+        raise RuntimeError("NaN loss in benchmark")
+    achieved = flops * steps / elapsed
+    print(json.dumps({
+        "metric": f"{model_name}_train_images_per_sec_per_chip",
+        "value": round(steps * bs / elapsed, 1),
+        "unit": "images/sec/chip",
+        "flops_per_step": flops,
+        "achieved_tflops_per_chip": round(achieved / 1e12, 2),
+        "mfu": round(achieved / H100_BF16_FLOPS, 4),
+        "device": torch.cuda.get_device_name(0),
+        "batch": bs,
+        "steps": steps,
+        "seconds": round(elapsed, 3),
+        "fused_gn": os.environ.get("MEDVAE_FUSED_GN") == "1",
+    }))
+
+
+if __name__ == "__main__":
+    main()

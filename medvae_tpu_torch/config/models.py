@@ -1,7 +1,8 @@
 """Model configs and construction (counterpart of medvae_tpu/train/trainer.py:53-89).
 
 `FLAGSHIP` equals configs/model/disentangled_conditional_vae.yaml as a Python
-dict, so that nothing on the serving path needs PyYAML.
+dict, so that nothing on the serving path needs PyYAML. `CVAE_BENCH` is the
+28² ConditionalVAE of bench.py's default step (bench.py:118-129,205-211).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Any, Dict, Mapping
 import torch
 
 from medvae_tpu_torch.core.precision import compute_dtype_for, configure_backends
-from medvae_tpu_torch.models import DisentangledConditionalVAE
+from medvae_tpu_torch.models import BaseVAE, BetaVAE, ConditionalVAE, DisentangledConditionalVAE
 from medvae_tpu_torch.nn.blocks import Conv2d, set_compute_dtype
 
 FLAGSHIP: Dict[str, Any] = {
@@ -33,13 +34,40 @@ FLAGSHIP: Dict[str, Any] = {
     "contrastive_weight": 0.05,
 }
 
-_ARCH_KEYS = (
-    "num_modalities", "shared_latent_dim", "modality_latent_dim", "hidden_channels",
-    "ch_mult", "num_res_blocks", "attn_resolutions", "resolution", "double_z",
+CVAE_BENCH: Dict[str, Any] = {
+    "_target_": "medvae_tpu.models.ConditionalVAE",
+    "input_channels": 3,
+    "latent_dim": 16,
+    "hidden_channels": 32,
+    "ch_mult": [1, 2, 4],
+    "num_res_blocks": 1,
+    "attn_resolutions": [],
+    "resolution": 28,
+    "condition_method": "concat",
+    "dropout": 0.0,
+}
+
+_CODEC_KEYS = (
+    "hidden_channels", "ch_mult", "num_res_blocks", "attn_resolutions", "resolution", "double_z",
 )
-# the loss weights are training's; the flagship's latent is shared + modality,
-# whatever `latent_dim` says (the JAX model ignores it too)
-_UNUSED_KEYS = ("_target_", "latent_dim", "modality_separation_weight", "contrastive_weight")
+_BASE_KEYS = ("input_channels", "latent_dim") + _CODEC_KEYS
+# class name -> (class, config keys its constructor takes, keys read elsewhere
+# or ignored). The flagship's loss weights are training's, and its latent is
+# shared + modality whatever `latent_dim` says (the JAX model ignores it too).
+_MODELS = {
+    "BaseVAE": (BaseVAE, _BASE_KEYS, ()),
+    "BetaVAE": (BetaVAE, _BASE_KEYS + ("beta",), ()),
+    "ConditionalVAE": (
+        ConditionalVAE,
+        _BASE_KEYS + ("modalities", "condition_dim", "condition_method", "num_modalities"),
+        (),
+    ),
+    "DisentangledConditionalVAE": (
+        DisentangledConditionalVAE,
+        ("num_modalities", "shared_latent_dim", "modality_latent_dim") + _CODEC_KEYS,
+        ("latent_dim", "modality_separation_weight", "contrastive_weight"),
+    ),
+}
 
 
 def build_model(
@@ -47,9 +75,10 @@ def build_model(
     precision: str = "bf16",
     device: Any = "cuda",
     train: bool = False,
-) -> DisentangledConditionalVAE:
-    """Instantiate the model of `model_cfg` on `device` with the precision
-    applied. Params are made in fp32.
+) -> BaseVAE:
+    """Instantiate the model of `model_cfg` (`_target_` BaseVAE, BetaVAE,
+    ConditionalVAE or DisentangledConditionalVAE, the flagship when unset) on
+    `device` with the precision applied. Params are made in fp32.
 
     Serving (`train=False`): eval mode, no grads, conv weights stored in the
     compute dtype (rounding them once here equals flax's cast at every call).
@@ -59,22 +88,23 @@ def build_model(
     and projector params are fp32 in both. Neither needs remat at 224², bs 32
     on an 80 GB card."""
     cfg = dict(model_cfg)
-    target = str(cfg.get("_target_", "DisentangledConditionalVAE"))
-    if not target.endswith("DisentangledConditionalVAE"):
+    target = str(cfg.get("_target_", "DisentangledConditionalVAE")).rsplit(".", 1)[-1]
+    if target not in _MODELS:
         raise NotImplementedError(f"model {target} is not ported yet")
+    cls, keys, unused = _MODELS[target]
     if cfg.get("use_linear_attn") or cfg.get("attn_type", "vanilla") != "vanilla":
         raise NotImplementedError("linear attention is not ported yet")
     if float(cfg.get("dropout", 0.0)) != 0.0:
         raise NotImplementedError("dropout is a training feature, not ported yet")
-    unknown = set(cfg) - set(_ARCH_KEYS) - set(_UNUSED_KEYS) - {
-        "use_linear_attn", "attn_type", "dropout",
+    unknown = set(cfg) - set(keys) - set(unused) - {
+        "_target_", "use_linear_attn", "attn_type", "dropout",
     }
     if unknown:
-        raise ValueError(f"unknown model config keys: {sorted(unknown)}")
+        raise ValueError(f"unknown {target} config keys: {sorted(unknown)}")
     compute_dtype = compute_dtype_for(precision)
     configure_backends()
     with torch.device(device):
-        model = DisentangledConditionalVAE(**{k: cfg[k] for k in _ARCH_KEYS if k in cfg})
+        model = cls(**{k: cfg[k] for k in keys if k in cfg})
     if train:
         set_compute_dtype(model, compute_dtype)
         return model.train().requires_grad_(True)
@@ -87,8 +117,8 @@ def build_model(
 @torch.no_grad()
 def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Random weights from a seeded CPU torch.Generator, so that every device
-    gets the same ones: kernels ~ N(0, 1/fan_in) (flax's lecun-normal scale),
-    norm scales 1, biases 0."""
+    gets the same ones: conv and linear kernels ~ N(0, 1/fan_in) (flax's
+    lecun-normal scale), norm scales 1, biases 0."""
     gen = torch.Generator().manual_seed(int(seed))
 
     def normal(p: torch.Tensor, fan_in: int) -> None:
@@ -98,7 +128,7 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
         if isinstance(module, torch.nn.GroupNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
-        elif isinstance(module, torch.nn.Conv2d):
+        elif isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
             normal(module.weight, module.weight[0].numel())
             module.bias.zero_()
     for p in model.parameters(recurse=False):  # projector (in, out) kernels, biases

@@ -6,7 +6,7 @@ two are compared like with like; the codec runs NCHW inside.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,7 +33,10 @@ class BaseVAE(nn.Module):
         attn_resolutions: Sequence[int] = (16,),
         resolution: int = 224,
         double_z: bool = True,
+        encoder_in_channels: Optional[int] = None,
     ):
+        """`encoder_in_channels`: the width the encoder takes when it is not
+        the image's (the concat ConditionalVAE's 2·C)."""
         super().__init__()
         self.input_channels = int(input_channels)
         self.latent_dim = int(latent_dim)
@@ -43,7 +46,7 @@ class BaseVAE(nn.Module):
             ch=hidden_channels,
             num_res_blocks=num_res_blocks,
             attn_resolutions=tuple(attn_resolutions),
-            in_channels=self.input_channels,
+            in_channels=int(encoder_in_channels or self.input_channels),
             resolution=self.resolution,
             z_channels=self.latent_dim,
             ch_mult=self.ch_mult,
@@ -96,3 +99,33 @@ class BaseVAE(nn.Module):
                 std.shape, generator=generator, dtype=torch.float32, device=std.device
             )
         return mean + noise.to(std.dtype) * std
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The JAX model's __call__ (medvae_tpu/models/base_vae.py:131-150) on
+        NHWC x: encode, reparameterize (`noise` or a draw from `generator`),
+        decode."""
+        mean, logvar = self.encode(x)
+        z = self.reparameterize(mean, logvar, noise=noise, generator=generator)
+        return {"reconstruction": self.decode(z), "mean": mean, "logvar": logvar, "z": z}
+
+    def sample(
+        self,
+        num_samples: int,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Decode a prior draw of the spatial latent (NHWC); `noise` replaces
+        the draw from `generator` (medvae_tpu/models/base_vae.py:152-156)."""
+        r = self.encoder_out_res
+        dev = self.encoder.conv_in.weight.device
+        if noise is None:
+            noise = torch.randn(
+                (num_samples, r, r, self.latent_dim),
+                generator=generator, dtype=torch.float32, device=dev,
+            )
+        return self.decode(noise.to(device=dev, dtype=self.dtype))

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from medvae_tpu_torch.ops.attention import attention
+from medvae_tpu_torch.ops.groupnorm_swish import fused_group_norm_swish_or_none
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -61,8 +62,14 @@ class GroupNorm(nn.GroupNorm):
 
 
 def norm_swish(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm (fp32 stats) -> cast back -> SiLU (medvae_tpu/nn/blocks.py:47-62,
-    the default path; the fused Pallas GN+SiLU kernel there is opt-in)."""
+    """GroupNorm (fp32 stats) -> cast back -> SiLU (medvae_tpu/nn/blocks.py:47-62).
+    With MEDVAE_FUSED_GN=1 the whole norm + affine + SiLU runs as the fused
+    kernels B6/B7 (ops/groupnorm_swish.py), with SiLU in fp32 before the one
+    cast, as the JAX package's fused kernel has it. `norm`'s weight and bias
+    are the params either way, so state_dicts are the same."""
+    out = fused_group_norm_swish_or_none(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
+    if out is not None:
+        return out
     return swish(norm(x))
 
 

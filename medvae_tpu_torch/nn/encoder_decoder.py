@@ -4,8 +4,10 @@ NCHW in and out. Modules are laid out as the reference torch codec is
 (`down.{i}.block.{j}`, `down.{i}.attn.{j}`, `down.{i}.downsample`,
 `mid.block_1/attn_1/block_2`, `up.{i}.…`, `conv_in/out`, `norm_out`), so a
 state_dict key names the same tensor in both. An attention block follows every
-res block whose resolution is in `attn_resolutions`. FiLM, temb, dropout and
-remat are training features of the JAX codec and come with the training slice.
+res block whose resolution is in `attn_resolutions`. The encoder's
+`in_channels` is the width of what it is given: 2·C for the concat
+ConditionalVAE, whose flax conv infers it from the input. FiLM, temb, dropout
+and remat are not ported yet.
 """
 
 from __future__ import annotations

@@ -5,7 +5,11 @@
     device only ever sees len(buckets) batch shapes;
   * deterministic inference — reconstruct and encode use the posterior mean;
     sample takes an explicit seed or draws one from the engine's stream;
-  * the flagship DisentangledConditionalVAE with modality-routed heads;
+  * every model family, as the JAX engine dispatches them
+    (medvae_tpu/serve/engine.py:93-94,110-146,213-250): the flagship
+    DisentangledConditionalVAE takes modality indices and routes its heads;
+    the ConditionalVAE takes a one-hot of `_cond_width` and decodes and
+    samples unconditionally; Base and Beta take no condition;
   * `MicroBatcher` coalesces concurrent single-image requests.
 
 Images are NHWC uint8 (or float already in [-1, 1]); uint8 is normalized on
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES, modality_index
+from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 
@@ -51,7 +56,7 @@ def resolve_device(device) -> torch.device:
 
 
 class InferenceEngine:
-    """Shape-bucketed inference over a DisentangledConditionalVAE."""
+    """Shape-bucketed inference over a VAE of any of the port's families."""
 
     def __init__(
         self,
@@ -67,6 +72,8 @@ class InferenceEngine:
             raise ValueError(f"invalid buckets: {buckets}")
         self._seeds = torch.Generator().manual_seed(int(seed))
         self._seed_lock = threading.Lock()
+        self._is_disentangled = isinstance(model, DisentangledConditionalVAE)
+        self._is_conditional = isinstance(model, ConditionalVAE)
 
     @classmethod
     def from_checkpoint(
@@ -109,8 +116,22 @@ class InferenceEngine:
             return x
         return np.asarray(x, np.float32)
 
-    def _modality_arrays(self, modality, n: int) -> np.ndarray:
-        """int32 (n,) modality indices, range-checked against the model."""
+    @property
+    def _cond_width(self) -> int:
+        """The one-hot width of the ConditionalVAE's condition head (its
+        cond_dim, which may differ from 12); 12 otherwise, unused."""
+        if self._is_conditional:
+            return int(self.model.cond_dim)
+        return len(MODALITY_NAMES)
+
+    @property
+    def _channels(self) -> int:
+        m = self.model
+        return int(m.max_channels if self._is_disentangled else m.input_channels)
+
+    def _modality_arrays(self, modality, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(int32 (n,) modality indices, range-checked against the model;
+        float32 (n, _cond_width) one-hot of them)."""
         if modality is None:
             midx = np.zeros((n,), np.int32)
         elif isinstance(modality, str):
@@ -121,14 +142,17 @@ class InferenceEngine:
                 midx = np.full((n,), midx[0], np.int32)
         if midx.shape[0] != n:
             raise ValueError(f"modality length {midx.shape[0]} != batch {n}")
-        # a clip would silently serve the wrong modality
-        bound = int(self.model.num_modalities)
+        # a clip would silently serve the wrong modality; the bound is what
+        # /info advertises for this model
+        bound = int(self.model.num_modalities) if self._is_disentangled else self._cond_width
         if midx.size and (midx.min() < 0 or midx.max() >= bound):
             raise ValueError(
                 f"modality index out of range [0, {bound}) for "
                 f"{type(self.model).__name__}: {midx[(midx < 0) | (midx >= bound)][:8]}"
             )
-        return midx
+        onehot = np.zeros((n, self._cond_width), np.float32)
+        onehot[np.arange(n), midx] = 1.0
+        return midx, onehot
 
     def _pad(self, a: np.ndarray, bucket: int) -> torch.Tensor:
         if a.shape[0] != bucket:
@@ -144,14 +168,29 @@ class InferenceEngine:
     # device graphs                                                       #
     # ------------------------------------------------------------------ #
 
-    def _encode_dev(self, x: torch.Tensor, midx: torch.Tensor):
+    def _encode_dev(self, x: torch.Tensor, midx: torch.Tensor, onehot: torch.Tensor):
         if x.dtype == torch.uint8:
             x = x.float() / 255.0 * 2.0 - 1.0
-        mean, logvar = self.model.encode(x, midx)
+        if self._is_disentangled:
+            mean, logvar = self.model.encode(x, midx)
+        elif self._is_conditional:
+            mean, logvar = self.model.encode(x, onehot)
+        else:
+            mean, logvar = self.model.encode(x)
         return mean.float(), logvar.float()
 
     def _decode_dev(self, z: torch.Tensor, midx: torch.Tensor) -> torch.Tensor:
-        return self.model.decode(z.to(self.model.dtype), midx).float()
+        z = z.to(self.model.dtype)
+        if self._is_disentangled:
+            return self.model.decode(z, midx).float()
+        return self.model.decode(z).float()
+
+    def _sample_dev(self, n: int, midx: torch.Tensor, onehot: torch.Tensor, gen) -> torch.Tensor:
+        if self._is_disentangled:
+            return self.model.sample_conditional(n, midx, generator=gen).float()
+        if self._is_conditional:
+            return self.model.conditional_sample(n, onehot, generator=gen).float()
+        return self.model.sample(n, generator=gen).float()
 
     @staticmethod
     def _to_u8(r: torch.Tensor) -> torch.Tensor:
@@ -173,11 +212,12 @@ class InferenceEngine:
         """Deterministic reconstruction: decode of the posterior mean (no
         clamp, as serving calls encode and not the training forward)."""
         x = self._norm_images(images)
-        midx = self._modality_arrays(modality, x.shape[0])
+        midx, onehot = self._modality_arrays(modality, x.shape[0])
         outs = []
         for lo, ln, b in self._chunks(x.shape[0]):
             m = self._pad(midx[lo : lo + ln], b)
-            mean, _ = self._encode_dev(self._pad(x[lo : lo + ln], b), m)
+            mean, _ = self._encode_dev(self._pad(x[lo : lo + ln], b), m,
+                                       self._pad(onehot[lo : lo + ln], b))
             outs.append(self._finish(self._decode_dev(mean, m), output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -185,11 +225,12 @@ class InferenceEngine:
     def encode(self, images, modality=None) -> Tuple[np.ndarray, np.ndarray]:
         """Posterior (mean, logvar), NHWC float32."""
         x = self._norm_images(images)
-        midx = self._modality_arrays(modality, x.shape[0])
+        midx, onehot = self._modality_arrays(modality, x.shape[0])
         means, logvars = [], []
         for lo, ln, b in self._chunks(x.shape[0]):
             mean, logvar = self._encode_dev(
-                self._pad(x[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b)
+                self._pad(x[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b),
+                self._pad(onehot[lo : lo + ln], b),
             )
             means.append(mean[:ln].cpu().numpy())
             logvars.append(logvar[:ln].cpu().numpy())
@@ -198,7 +239,7 @@ class InferenceEngine:
     @torch.inference_mode()
     def decode(self, z, modality=None, output: str = "float32") -> np.ndarray:
         z = np.asarray(z, np.float32)
-        midx = self._modality_arrays(modality, z.shape[0])
+        midx, _ = self._modality_arrays(modality, z.shape[0])
         outs = []
         for lo, ln, b in self._chunks(z.shape[0]):
             r = self._decode_dev(self._pad(z[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
@@ -211,14 +252,13 @@ class InferenceEngine:
     ) -> np.ndarray:
         """Prior samples; seeded explicitly or from the engine's stream."""
         n = int(num_samples)
-        midx = self._modality_arrays(modality, n)
+        midx, onehot = self._modality_arrays(modality, n)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) if seed is not None else self._next_seed())
         outs = []
         for lo, ln, b in self._chunks(n):
-            r = self.model.sample_conditional(
-                b, self._pad(midx[lo : lo + ln], b), generator=gen
-            ).float()
+            r = self._sample_dev(b, self._pad(midx[lo : lo + ln], b),
+                                 self._pad(onehot[lo : lo + ln], b), gen)
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -226,7 +266,7 @@ class InferenceEngine:
         """Run every (method, bucket) once ahead of traffic (kernel builds,
         cuDNN plans, allocator pools); returns how many were run."""
         res = int(self.model.resolution)
-        c = int(self.model.max_channels)
+        c = self._channels
         count = 0
         for b in self.buckets:
             x = np.zeros((b, res, res, c), np.uint8)
@@ -242,11 +282,13 @@ class InferenceEngine:
         return {
             "model": type(m).__name__,
             "resolution": int(m.resolution),
-            "input_channels": int(m.max_channels),
-            "latent_dim": int(m.total_latent_dim),
+            "input_channels": self._channels,
+            # the flagship's latent is shared + modality; the others' latent_dim
+            "latent_dim": int(m.total_latent_dim if self._is_disentangled else m.latent_dim),
             "buckets": list(self.buckets),
-            "modalities": list(MODALITY_NAMES[: m.num_modalities]),
-            "conditional": True,
+            "modalities": list(MODALITY_NAMES[: m.num_modalities if self._is_disentangled
+                                              else self._cond_width]),
+            "conditional": self._is_conditional or self._is_disentangled,
         }
 
 

@@ -27,6 +27,7 @@ import torch
 from medvae_tpu_torch.data.pipeline import preprocess
 from medvae_tpu_torch.losses.elbo import DisentangledVAELoss, VAELoss
 from medvae_tpu_torch.losses.perceptual import BiomedCLIPLoss, LPIPSLoss
+from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
 from medvae_tpu_torch.train.optim import Optimizer, global_norm
 from medvae_tpu_torch.train.state import TrainState
 
@@ -102,6 +103,20 @@ def make_criterion(loss_cfg: Dict[str, Any], model) -> Callable:
     raise ValueError(f"Unknown loss type: {loss_type}")
 
 
+def make_forward_fn(model: torch.nn.Module) -> Callable:
+    """forward(x, batch, generator) -> outputs dict, by model family
+    (medvae_tpu/train/step.py:55-98): the flagship takes the batch's
+    `modality_idx`, the ConditionalVAE its `modality_onehot`, Base and Beta
+    nothing. `batch["noise"]`, when given, is the reparameterization draw."""
+    if isinstance(model, DisentangledConditionalVAE):
+        return lambda x, batch, gen: model(x, batch["modality_idx"], noise=batch.get("noise"),
+                                           generator=gen)
+    if isinstance(model, ConditionalVAE):
+        return lambda x, batch, gen: model(x, batch["modality_onehot"], noise=batch.get("noise"),
+                                           generator=gen)
+    return lambda x, batch, gen: model(x, noise=batch.get("noise"), generator=gen)
+
+
 def build_loss_and_grads(
     model: torch.nn.Module,
     loss_cfg: Dict[str, Any],
@@ -114,6 +129,7 @@ def build_loss_and_grads(
     respect to `state.params`, in their order (zeros for a param the loss
     does not reach, as jax.grad gives)."""
     criterion = make_criterion(loss_cfg, model)
+    forward = make_forward_fn(model)
     compute_dtype = model.dtype
 
     def loss_and_grads(
@@ -127,7 +143,7 @@ def build_loss_and_grads(
             batch, generator, augment=augment, max_channels=max_channels,
             dtype=compute_dtype, draws=draws,
         )
-        outputs = model(x, batch["modality_idx"], noise=batch.get("noise"), generator=generator)
+        outputs = forward(x, batch, generator)
         loss_dict = criterion(state.frozen, outputs, x)
         grads = torch.autograd.grad(loss_dict["loss"], params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]

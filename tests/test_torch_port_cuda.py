@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from medvae_tpu_torch.ops import flash_attention as fa
+from medvae_tpu_torch.ops import groupnorm_swish as gs
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +131,102 @@ def test_backward_wrappers_raise_on_the_card_instead_of_falling_back(gen):
             wide = torch.zeros((1, 64, 96), device="cuda")
             fn(wide, wide, wide, wide, rows, rows)
     assert fa.launches == before
+
+
+# ---------------------------------------------------------------- B6, B7 ---- #
+
+# the shapes chip_smoke.py holds B6 and B7 to: the 28² CVAE's bs-4096 levels
+# (cg = 1 at 28²x32; h·w = 49, not a multiple of the vector width, at 7²x128),
+# the flagship's widest level at bs 32 and at bs 1 (the split reduction), an
+# fp32 level of the flagship, and a ragged fp32 shape with cg = 3
+GN_SHAPES = [((4096, 32, 28, 28), torch.bfloat16), ((4096, 128, 7, 7), torch.bfloat16),
+             ((32, 128, 224, 224), torch.bfloat16), ((1, 128, 224, 224), torch.bfloat16),
+             ((2, 1024, 28, 28), torch.float32), ((3, 96, 9, 9), torch.float32)]
+
+
+def _gn_inputs(gen, shape, dtype):
+    """x with an offset (|mean| > std in some groups), gamma around 1, beta
+    around 0, and an incoming gradient."""
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+    w = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return x, w, b, g, min(32, c)
+
+
+def _assert_gn_fwd_close(got, want, dtype):
+    """fp32: relative L2 1e-5 and max abs 1e-4; bf16: at most one rounding
+    apart elementwise (2^-7 |p| + 1e-6) and relative L2 2e-3."""
+    got, want = got.double(), want.double()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert _rel(got, want) <= 1e-5 and (got - want).abs().max().item() <= 1e-4
+    else:
+        assert bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-6).all())
+        assert _rel(got, want) <= 2e-3
+
+
+@pytest.mark.parametrize("shape, dtype", GN_SHAPES)
+def test_gn_swish_kernels_match_plain_versions(gen, shape, dtype):
+    x, w, b, g, groups = _gn_inputs(gen, shape, dtype)
+    before = dict(gs.launches)
+    y, mean, rstd = gs.group_norm_swish_fwd(x, w, b, groups, 1e-6)
+    dx, dw, db = gs.group_norm_swish_bwd(x, w, b, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert gs.launches == {k: v + 1 for k, v in before.items()}
+    y_ref, mean_ref, rstd_ref = gs.group_norm_swish_fwd_plain(x, w, b, groups, 1e-6)
+    assert y.dtype == dtype and dx.dtype == dtype
+    _assert_gn_fwd_close(y, y_ref, dtype)
+    assert _rel(mean, mean_ref) <= 1e-5 and _rel(rstd, rstd_ref) <= 1e-5
+    dx_ref, dw_ref, db_ref = gs.group_norm_swish_bwd_plain(x, w, b, g, mean, rstd)
+    if dtype == torch.float32:
+        for got, want in ((dx, dx_ref), (dw, dw_ref), (db, db_ref)):
+            assert _rel(got, want) <= 1e-4
+    else:
+        _assert_grad_close(dx, dx_ref, dtype, "dx")
+        assert _rel(dw, dw_ref) <= 1e-3 and _rel(db, db_ref) <= 1e-3
+
+
+def test_gn_swish_backward_is_deterministic(gen):
+    """No atomics: the same inputs give the same bits."""
+    x, w, b, g, groups = _gn_inputs(gen, (8, 64, 56, 56), torch.bfloat16)
+    _, mean, rstd = gs.group_norm_swish_fwd(x, w, b, groups, 1e-6)
+    first = gs.group_norm_swish_bwd(x, w, b, g, mean, rstd)
+    second = gs.group_norm_swish_bwd(x, w, b, g, mean, rstd)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_swish_function_grads_match_autograd_of_plain_forward(gen, dtype):
+    x, w, b, g, groups = _gn_inputs(gen, (4, 64, 16, 16), dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    got = torch.autograd.grad(gs.GroupNormSwish.apply(*leaves, groups, 1e-6), leaves, g)
+    want = torch.autograd.grad(gs.group_norm_swish_plain(*ref_leaves, groups, 1e-6), ref_leaves, g)
+    bar = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b_ in zip(got, want):
+        assert _rel(a, b_) <= bar
+
+
+def test_gn_swish_wrappers_raise_on_the_card_instead_of_falling_back(gen):
+    x, w, b, g, _ = _gn_inputs(gen, (2, 64, 8, 8), torch.float32)
+    _, mean, rstd = gs.group_norm_swish_fwd(x, w, b, 32, 1e-6)
+    before = dict(gs.launches)
+    with pytest.raises(TypeError):
+        gs.group_norm_swish_fwd(x.half(), w, b, 32, 1e-6)
+    with pytest.raises(ValueError, match="groups"):
+        gs.group_norm_swish_fwd(x, w, b, 24, 1e-6)
+    with pytest.raises(ValueError, match="fp32"):
+        gs.group_norm_swish_fwd(x, w.bfloat16(), b, 32, 1e-6)
+    t = x.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.group_norm_swish_fwd(t, w, b, 32, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.group_norm_swish_bwd(x, w, b, g.transpose(2, 3).contiguous().transpose(2, 3), mean, rstd)
+    with pytest.raises(TypeError):
+        gs.group_norm_swish_bwd(x, w, b, g.bfloat16(), mean, rstd)
+    with pytest.raises(ValueError, match="fp32"):
+        gs.group_norm_swish_bwd(x, w, b, g, mean.double(), rstd)
+    assert gs.launches == before
