@@ -68,7 +68,36 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            and bf16 against fp32 (5e-2);
   cvae28_serve  the CVAE behind InferenceEngine(buckets 1/8/32) with the switch
            on: requests by modality name and index, B6 launches a chunk,
-           latency per bucket, card fp32 against CPU fp32 (1e-3).
+           latency per bucket, card fp32 against CPU fp32 (1e-3);
+  attn kernel  the whole-sequence attention kernels B4 (forward) and B5
+           (backward) against their plain versions at ATTN_SHAPES in bf16 and
+           fp32 (fp32: B4 max abs and relative L2 1e-5, B5 1e-4; bf16: B4 one
+           rounding apart elementwise and relative L2 2e-3, B5 by GRAD_REL and
+           GRAD_ABS_OF_STD), a bitwise repeat of B5, the FusedAttention
+           Function against autograd through the plain forward, and their
+           times at (64, 256, 1024) bf16 beside bound, plain,
+           scaled_dot_product_attention in fp32 (and its backward) and
+           reference_attention;
+  base128_train  the chest_base_vae experiment's step at 128² (the BaseVAE of
+           configs/model/base_vae.yaml, 251 M params, attention at 16² x 1024;
+           fp32 params, bf16 compute, adamw 2e-4, wd 1e-4, cosine, clip 1.0,
+           `vae` loss, augment on) at bs 64 on the synthetic ChestMNIST feed:
+           2 warmup and 10 timed steps with 7/7 B4/B5 launches each, ms,
+           img/s, peak memory, a profile;
+  base128_serve  that model (seeded weights, bf16) behind InferenceEngine
+           (buckets 1/8/32): B4 launches a chunk (7 a reconstruct, 3 an encode,
+           4 a decode or sample), latency per bucket, card fp32 vs CPU fp32
+           (1e-3) and bf16 vs fp32 (5e-2);
+  base128_parity  one fp32 step at bs 2, card against CPU: loss 1e-4, gradient
+           1e-3, each of the 28 attention q/k/v/proj_out weight gradients
+           ATTN_GRAD_REL, beside a repeat of the card's step;
+  trainer128  `medvae_tpu_torch.cli.train` on experiment=chest_base_vae at
+           128² (2 epochs of 8 batches, validation and test), the same command
+           with one more epoch and resume=true ("Resuming at optimizer step
+           16"), then 3 epochs uninterrupted: the resumed params against those,
+           launches counted (7 B4 a train step or eval batch, 7 B5 a train
+           step), and the final checkpoint served (7 B4). Its work directory
+           is build/chip_smoke_work, removed at the end.
 Then the card line from nvidia-smi, the kernels line, and
 {"ok": true, "device": {...}} last.
 """
@@ -77,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import re
@@ -93,11 +123,16 @@ import torch
 
 try:
     from medvae_tpu_torch import bench
+    from medvae_tpu_torch.cli import train as cli_train
     from medvae_tpu_torch.cli.serve import _b64_to_np, _np_to_b64, serve
+    from medvae_tpu_torch.config.compose import compose
     from medvae_tpu_torch.config.models import CVAE_BENCH, FLAGSHIP, build_model, init_weights
-    from medvae_tpu_torch.nn.blocks import ResnetBlock
+    from medvae_tpu_torch.data.medmnist import MedMNISTDataModule
+    from medvae_tpu_torch.data.pipeline import DeviceFeeder
+    from medvae_tpu_torch.nn.blocks import AttnBlock, ResnetBlock
     from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder
     from medvae_tpu_torch.ops import _build
+    from medvae_tpu_torch.ops import attention as at
     from medvae_tpu_torch.ops import flash_attention as fa
     from medvae_tpu_torch.ops import groupnorm_swish as gs
     from medvae_tpu_torch.ops.attention import reference_attention
@@ -123,7 +158,7 @@ TOLERANCE = {torch.bfloat16: (4e-3, 1e-2), torch.float32: (1e-4, 1e-4)}
 GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 GRAD_ABS_OF_STD = {torch.bfloat16: 0.15, torch.float32: None}
 LSE_TOLERANCE = 1e-4
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "groupnorm_swish")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "groupnorm_swish", "attention")
 CHECK_SHAPES = [((32, 3136, 512), torch.bfloat16), ((2, 784, 1024), torch.bfloat16),
                 ((2, 1000, 512), torch.bfloat16), ((2, 3136, 512), torch.float32)]
 
@@ -135,11 +170,17 @@ def emit(obj) -> None:
 def reset_launches() -> None:
     fa.reset_launches()
     gs.reset_launches()
+    at.reset_launches()
 
 
 def launches() -> dict:
-    """Every kernel's count: B1-B3, then B6 and B7."""
-    return {**fa.launches, **gs.launches}
+    """Every kernel's count: B1-B3, B6 and B7, then B4 and B5."""
+    return {**fa.launches, **gs.launches, **at.launches}
+
+
+def want_launches(**counts) -> dict:
+    """Every kernel's count zero, but for `counts`."""
+    return {**dict.fromkeys(launches(), 0), **counts}
 
 
 @contextlib.contextmanager
@@ -213,9 +254,11 @@ def phase_env() -> str:
         [_build.find_nvcc(), "--version"], capture_output=True, text=True, timeout=60,
         check=True,
     ).stdout.strip().splitlines()[-1]
+    import yaml  # config/compose.py reads configs/ with it (trainer128)
+
     emit({
         "phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
-        "cuda": torch.version.cuda, "nvcc": nvcc, "gpu": smi,
+        "cuda": torch.version.cuda, "nvcc": nvcc, "pyyaml": yaml.__version__, "gpu": smi,
         "device_count": torch.cuda.device_count(),
     })
     return smi
@@ -691,6 +734,8 @@ def phase_http(engine) -> None:
 
 # kernel-name fragments -> the layer a kernel belongs to, for the breakdown
 _CATEGORIES = (
+    ("attention_fwd_kernel", "attention_fwd (B4)"),
+    ("attention_bwd_", "attention_bwd (B5)"),
     ("gn_row_stats", "gn_swish_fwd (B6)"),
     ("gn_group_stats", "gn_swish_fwd (B6)"),
     ("gn_swish_apply", "gn_swish_fwd (B6)"),
@@ -838,7 +883,7 @@ def phase_train(state_dict) -> dict:
     step = build_train_step(model, FLAGSHIP_LOSS, tx, augment=True, max_channels=3)
     batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
     gen = torch.Generator(device=CARD).manual_seed(0)
-    want = {**PER_TRAIN_STEP, "gn_swish_fwd": 0, "gn_swish_bwd": 0}
+    want = want_launches(**PER_TRAIN_STEP)
     state, times, totals = run_steps("train", step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
                                      want)
     median = statistics.median(times)
@@ -866,8 +911,7 @@ def phase_flagship_fused_serve(engine) -> dict:
     x = np.random.RandomState(3).randint(0, 256, (32, res, res, c), np.uint8)
     m = (np.arange(32) % 5).astype(np.int32)
     sites = gn_swish_sites(engine.model)
-    want = {"flash_fwd": PER_CHUNK["reconstruct"], "flash_dkv": 0, "flash_dq": 0,
-            "gn_swish_fwd": sites, "gn_swish_bwd": 0}
+    want = want_launches(flash_fwd=PER_CHUNK["reconstruct"], gn_swish_fwd=sites)
     row = {"phase": "flagship_fused_gn", "path": "reconstruct", "bucket": 32}
     outs = {}
     for on in (True, False):
@@ -907,7 +951,7 @@ def phase_flagship_fused_train(state_dict) -> dict:
         batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
         gen = torch.Generator(device=CARD).manual_seed(0)
         sites = gn_swish_sites(model)
-        want = {**PER_TRAIN_STEP, "gn_swish_fwd": sites, "gn_swish_bwd": sites}
+        want = want_launches(**PER_TRAIN_STEP, gn_swish_fwd=sites, gn_swish_bwd=sites)
         state, times, totals = run_steps("flagship_fused_gn", step, state, batch, gen, WARMUP_STEPS,
                                          FUSED_FLAGSHIP_TIMED, want)
         median = statistics.median(times)
@@ -1005,8 +1049,7 @@ def phase_cvae28_train(on: bool) -> dict:
     with fused_gn(on):
         model, step, state, batch = bench.build_bench("cvae", "quick", device=CARD)
         sites = gn_swish_sites(model)
-        want = {**dict.fromkeys(fa.launches, 0), "gn_swish_fwd": sites if on else 0,
-                "gn_swish_bwd": sites if on else 0}
+        want = want_launches(gn_swish_fwd=sites if on else 0, gn_swish_bwd=sites if on else 0)
         gen = torch.Generator(device=CARD).manual_seed(0)
         state, times, totals = run_steps(tag, step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
                                          want)
@@ -1159,6 +1202,444 @@ def phase_cvae28_serve() -> dict:
     return totals
 
 
+# ------------------------------------------------------------ B4 and B5 ---- #
+
+# the 128² BaseVAE's attention (64, 256, 1024), a narrower level, and ragged
+# edges of the gate: n off the tiles, odd channel counts, the largest n at
+# c 64 and the largest c at n 128
+ATTN_SHAPES = [(64, 256, 1024), (64, 256, 512), (2, 144, 64), (3, 196, 96), (2, 863, 64),
+               (2, 128, 2870)]
+ATTN_TIMED = (64, 256, 1024)  # bf16, the main path's shape
+# B4 against its plain version: fp32 max abs and relative L2 1e-5 (JAX's bar,
+# tests/test_ops.py:40); bf16 one rounding apart elementwise (2^-7 |p| + 1e-6)
+# and relative L2 2e-3. B5: fp32 max abs and relative L2 1e-4
+# (tests/test_ops.py:59); bf16 by GRAD_REL and GRAD_ABS_OF_STD.
+ATTN_FWD_BAR = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+ATTN_BWD_BAR = 1e-4
+
+
+def attn_grad_check(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> dict:
+    if dtype == torch.bfloat16:
+        return grad_check(name, got, want, dtype)
+    err = (got.double() - want.double()).abs().max().item()
+    rel = torch_rel_l2(got, want)
+    finite = bool(torch.isfinite(got).all())
+    return {"name": name, "max_abs_err": err, "rel_l2": rel, "bar": ATTN_BWD_BAR, "finite": finite,
+            "ok": finite and err <= ATTN_BWD_BAR and rel <= ATTN_BWD_BAR}
+
+
+def phase_attn_kernel() -> dict:
+    """B4 and B5 against their plain versions at ATTN_SHAPES in bf16 and
+    fp32, a bitwise repeat of B5, FusedAttention against autograd through the
+    plain forward, and their times at ATTN_TIMED beside bound, plain,
+    scaled_dot_product_attention in fp32 and reference_attention."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(shape, dtype, count):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(count)]
+
+    worst = {}
+    for shape in ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = randn(shape, dtype, 4)
+            o = at.fused_attention_fwd(q, k, v)
+            grads = at.fused_attention_bwd(q, k, v, g)
+            torch.cuda.synchronize()
+            o_ref = at.fused_attention_fwd_plain(q, k, v)
+            err = (o.double() - o_ref.double()).abs()
+            rel = torch_rel_l2(o, o_ref)
+            if dtype == torch.float32:
+                fwd_ok = err.max().item() <= ATTN_FWD_BAR[dtype] and rel <= ATTN_FWD_BAR[dtype]
+                one_rounding = None
+            else:
+                one_rounding = bool((err <= 2.0**-7 * o_ref.double().abs() + 1e-6).all())
+                fwd_ok = one_rounding and rel <= ATTN_FWD_BAR[dtype]
+            fwd_ok = fwd_ok and bool(torch.isfinite(o).all())
+            rows = [attn_grad_check(n, a, b, dtype)
+                    for n, a, b in zip(("dq", "dk", "dv"), grads, at.fused_attention_bwd_plain(q, k, v, g))]
+            emit({"phase": "attn kernel", "kernels": "attention_fwd (B4), attention_bwd (B5)",
+                  "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                  "fwd_max_abs_err": err.max().item(), "fwd_rel_l2": rel,
+                  "fwd_bar": ATTN_FWD_BAR[dtype], "fwd_within_one_rounding": one_rounding,
+                  "output_std": o_ref.float().std().item(), "grads": rows})
+            if not fwd_ok or not all(r["ok"] for r in rows):
+                raise AssertionError(f"attention kernels {shape} {dtype}: fwd max abs "
+                                     f"{err.max().item()}, rel {rel}, {rows}")
+            if (tuple(shape), dtype) == (ATTN_TIMED, torch.bfloat16):
+                worst = {"attention_fwd": err.max().item(),
+                         "attention_bwd": max(r["max_abs_err"] for r in rows)}
+            del q, k, v, g, o, grads, o_ref, err
+            torch.cuda.empty_cache()
+
+    q, k, v, g = randn(ATTN_TIMED, torch.bfloat16, 4)
+    first, second = at.fused_attention_bwd(q, k, v, g), at.fused_attention_bwd(q, k, v, g)
+    repeat = all(torch.equal(a, b) for a, b in zip(first, second))
+    emit({"phase": "attn kernel", "attention_bwd_bitwise_repeat": repeat, "shape": list(ATTN_TIMED)})
+    if not repeat:
+        raise AssertionError("attention_bwd is not bitwise repeatable")
+    for shape, dtype in (((4, 256, 1024), torch.bfloat16), ((2, 144, 96), torch.float32)):
+        q2, k2, v2, w = randn(shape, dtype, 4)
+        leaves = [t.clone().requires_grad_(True) for t in (q2, k2, v2)]
+        ref_leaves = [t.clone().requires_grad_(True) for t in (q2, k2, v2)]
+        got = torch.autograd.grad(at.FusedAttention.apply(*leaves), leaves, w)
+        want = torch.autograd.grad(at.fused_attention_fwd_plain(*ref_leaves), ref_leaves, w)
+        rows = [attn_grad_check("d" + n, a, b, dtype) for n, a, b in zip("qkv", got, want)]
+        emit({"phase": "attn kernel", "kernels": "FusedAttention autograd vs autograd of the plain forward",
+              "shape": list(shape), "dtype": str(dtype).split(".")[-1], "grads": rows})
+        if not all(r["ok"] for r in rows):
+            raise AssertionError(f"FusedAttention grads {shape} {dtype}: {rows}")
+
+    b, n, c = ATTN_TIMED
+    el = q.element_size()
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    q4, k4, v4 = (t[:, None] for t in (q32, k32, v32))
+    library_bwd_ms, backend, refused = sdpa_backward_ms(q32, k32, v32, g.float())
+    # (operations with two bf16 operands, operations with an fp32 one, bytes):
+    # Q·Kᵀ and G·Vᵀ take bf16 operands and could run on the bf16 tensor cores;
+    # P·V, Pᵀ·G, dS·K and dSᵀ·Q take the fp32 P or dS and need the fp32 rate.
+    # Bytes: each input read once and each output written once.
+    mm = 2.0 * b * n * n * c
+    work = {
+        "attention_fwd": (mm, mm, 4.0 * b * n * c * el),
+        "attention_bwd": (2 * mm, 3 * mm, 7.0 * b * n * c * el),
+    }
+    calls = {
+        "attention_fwd": (lambda: at.fused_attention_fwd(q, k, v), lambda: at.fused_attention_fwd_plain(q, k, v),
+                          cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)),
+                          "scaled_dot_product_attention, fp32 inputs"),
+        "attention_bwd": (lambda: at.fused_attention_bwd(q, k, v, g),
+                          lambda: at.fused_attention_bwd_plain(q, k, v, g), library_bwd_ms,
+                          f"scaled_dot_product_attention backward, fp32 inputs ({backend})"),
+    }
+    rows = {}
+    for name, (kernel, plain, library_ms, library) in calls.items():
+        bf16_flops, fp32_flops, nbytes = work[name]
+        flops = bf16_flops + fp32_flops
+        t_ops = (bf16_flops / H100_BF16_FLOPS + fp32_flops / H100_FP32_FLOPS) * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        ms = cuda_ms(kernel)
+        rows[name] = {"shape": [b, n, c], "dtype": "bfloat16", "ms": ms, "plain_ms": cuda_ms(plain),
+                      "library_ms": library_ms, "library": library,
+                      "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "flops": flops, "flops_bf16_operands": bf16_flops, "bytes": nbytes,
+                      "tflops_per_s": flops / ms / 1e9,
+                      "max_abs_err": worst[name]}
+    rows["attention_fwd"]["reference_attention_ms"] = cuda_ms(lambda: reference_attention(q, k, v))
+    rows["attention_bwd"]["library_refused"] = refused
+    for name, row in rows.items():
+        emit({"phase": "attn kernel", "kernel": name, **row})
+    del q, k, v, g, q32, k32, v32, first, second
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------- the 128² BaseVAE slice ---- #
+
+BASE128_OVERRIDES = ["experiment=chest_base_vae", "model.resolution=128", "data.size=128"]
+BASE128_SITES = 7  # encoder level 3 (two), encoder mid, decoder mid, decoder level 3 (three)
+BASE128_PER_CHUNK = {"reconstruct": 7, "encode": 3, "decode": 4, "sample": 4}
+BASE128_BATCH = 64
+WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_work")
+
+
+def base128_config():
+    """configs/experiment/chest_base_vae.yaml at 128², composed by the port."""
+    return compose(cli_train.default_config_dir(), "config", BASE128_OVERRIDES)
+
+
+def attn_sites(model) -> int:
+    return sum(isinstance(m, AttnBlock) for m in model.modules())
+
+
+def phase_base128_serve(model_cfg, state_dict) -> dict:
+    """The 128² BaseVAE (`state_dict`, random weights from seed 0; bf16) behind
+    InferenceEngine(buckets 1/8/32): requests with B4 launches per chunk
+    (7 a reconstruct, 3 an encode, 4 a decode or sample), latency per
+    bucket, card fp32 against CPU fp32 (1e-3) and bf16 against fp32."""
+    cpu_model = build_model(model_cfg, "fp32", "cpu")
+    cpu_model.load_state_dict(state_dict)
+    if attn_sites(cpu_model) != BASE128_SITES:
+        raise AssertionError(f"the 128² BaseVAE has {attn_sites(cpu_model)} attention blocks")
+    models = {}
+    for precision in ("bf16", "fp32"):
+        models[precision] = build_model(model_cfg, precision, CARD)
+        models[precision].load_state_dict(state_dict)
+    engine = InferenceEngine(models["bf16"], buckets=(1, 8, 32), device=CARD)
+    rs = np.random.RandomState(10)
+    res, c, r, zdim = 128, 1, cpu_model.encoder_out_res, cpu_model.latent_dim
+    images = {n: rs.randint(0, 256, (n, res, res, c), np.uint8) for n in (1, 8, 37)}
+    z8 = rs.randn(8, r, r, zdim).astype(np.float32)
+    requests = [
+        ("reconstruct", 1, lambda: engine.reconstruct(images[1])),
+        ("reconstruct", 8, lambda: engine.reconstruct(images[8])),
+        ("reconstruct", 37, lambda: engine.reconstruct(images[37])),
+        ("encode", 8, lambda: engine.encode(images[8])),
+        ("decode", 8, lambda: engine.decode(z8)),
+        ("sample", 8, lambda: engine.sample(8, seed=1)),
+    ]
+    t0 = time.perf_counter()
+    emit({"phase": "base128_serve", "params": sum(p.numel() for p in cpu_model.parameters()),
+          "attention_blocks": BASE128_SITES, "warmup_runs": engine.warmup(),
+          "warmup_seconds": round(time.perf_counter() - t0, 3)})
+    totals = dict.fromkeys(at.launches, 0)
+    for method, n, fn in requests:
+        reset_launches()  # each request is a run of the path
+        out = fn()
+        counts = launches()
+        chunks = len(list(engine._chunks(n)))
+        arrays = out if isinstance(out, tuple) else (out,)
+        want_shape = (n, r, r, zdim) if method == "encode" else (n, res, res, c)
+        ok = all(a.shape == want_shape and np.isfinite(a).all() for a in arrays)
+        emit({"phase": "base128_serve", "method": method, "n": n, "chunks": chunks, "launches": counts,
+              "shape": list(arrays[0].shape), "finite_and_shaped": ok})
+        if not ok or counts != want_launches(attention_fwd=BASE128_PER_CHUNK[method] * chunks):
+            raise AssertionError(f"base128 {method}({n}): {counts}, want {BASE128_PER_CHUNK[method]} x "
+                                 f"{chunks} B4 launches; shapes ok {ok}")
+        for k in totals:
+            totals[k] += counts[k]
+    for bucket in engine.buckets:
+        x = rs.randint(0, 256, (bucket, res, res, c), np.uint8)
+        engine.reconstruct(x)
+        times = host_samples_ms(lambda: engine.reconstruct(x), reps=max(5, 40 // bucket))
+        ms = statistics.median(times)
+        emit({"phase": "base128_serve", "method": "reconstruct", "bucket": bucket, "ms_per_batch": ms,
+              "images_per_sec": bucket / ms * 1e3, "min_ms": min(times), "max_ms": max(times)})
+    x = images[1]
+    card = InferenceEngine(models["fp32"], buckets=(1,), device=CARD).reconstruct(x)
+    t0 = time.perf_counter()
+    cpu = InferenceEngine(cpu_model, buckets=(1,), device="cpu").reconstruct(x)
+    cpu_s = time.perf_counter() - t0
+    half = engine.reconstruct(x)
+    row = {"phase": "base128_serve", "parity": "reconstruct n=1",
+           "fp32_card_vs_cpu_rel_l2": rel_l2(card, cpu), "tolerance": 1e-3,
+           "bf16_vs_fp32_card_rel_l2": rel_l2(half, card), "bf16_bound": 5e-2, "cpu_seconds": cpu_s}
+    emit(row)
+    if not (row["fp32_card_vs_cpu_rel_l2"] <= 1e-3 and row["bf16_vs_fp32_card_rel_l2"] <= 5e-2):
+        raise AssertionError(f"base128 serve parity: {row}")
+    del engine, models
+    torch.cuda.empty_cache()
+    return totals
+
+
+def base128_batch(cfg, device, batch_size: int) -> dict:
+    """The first training batch of the 128² synthetic ChestMNIST split, as
+    the trainer's feeder gives it (shuffled for epoch 0)."""
+    dm = MedMNISTDataModule(**{k: v for k, v in cfg["data"].items() if k != "_target_"})
+    dm.root = os.path.join(WORK, "data")
+    feeder = DeviceFeeder(dm.split("train"), batch_size, device, seed=int(cfg["seed"]))
+    return next(iter(feeder.epoch(0)))
+
+
+def base128_optimizer(cfg):
+    tcfg = cfg["training"]
+    return build_optimizer(dict(tcfg["optimizer"]), dict(tcfg["scheduler"]),
+                           steps_per_epoch=2048 // BASE128_BATCH,
+                           gradient_clip_val=tcfg["gradient_clip_val"])
+
+
+def phase_base128_train(cfg, state_dict) -> dict:
+    """12 steps of the chest_base_vae step at 128², bs 64 (fp32 params, bf16
+    compute, adamw 2e-4 wd 1e-4 on the cosine schedule, clip 1.0, `vae` loss,
+    augment on): 7/7 B4/B5 launches a step or it raises; ms, img/s, peak
+    memory and a profile of one step."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg["model"], "bf16", CARD, train=True)
+    model.load_state_dict(state_dict)
+    tx = base128_optimizer(cfg)
+    state = create_train_state(model, tx)
+    step = build_train_step(model, dict(cfg["training"]["loss"]), tx, augment=True, max_channels=1)
+    batch = base128_batch(cfg, CARD, BASE128_BATCH)
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    want = want_launches(attention_fwd=BASE128_SITES, attention_bwd=BASE128_SITES)
+    state, times, totals = run_steps("base128_train", step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
+                                     want)
+    median = statistics.median(times)
+    emit({"phase": "base128_train", "batch": BASE128_BATCH, "resolution": 128,
+          "ms_per_step_median": median, "ms_per_step_min": min(times), "ms_per_step_max": max(times),
+          "samples_ms": times, "images_per_sec": BASE128_BATCH / median * 1e3,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "params": sum(p.numel() for p in state.params.values())})
+    emit({"phase": "base128_train", "profile": "one step",
+          **device_breakdown(lambda: step(state, batch, gen), median)})
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return {k: totals[k] for k in at.launches}
+
+
+def phase_base128_parity(cfg, state_dict) -> None:
+    """One fp32 step of the 128² BaseVAE at bs 2, card against CPU (same
+    weights, batch and noise, augment off): loss relative 1e-4, gradient
+    global relative L2 1e-3 and ATTN_GRAD_REL for each of the 28 attention
+    q/k/v/proj_out weight gradients (B5's fp32 instance), beside a repeat of
+    the card's step; and the card's bf16 loss against its fp32 loss (5e-2)."""
+    batch = base128_batch(cfg, "cpu", 2)
+    m = cfg["model"]
+    r = m["resolution"] // 2 ** (len(m["ch_mult"]) - 1)
+    batch["noise"] = torch.from_numpy(np.random.RandomState(11).randn(2, r, r, m["latent_dim"]).astype(np.float32))
+    loss_cfg = dict(cfg["training"]["loss"])
+
+    def loss_and_grads(precision, device):
+        model = build_model(cfg["model"], precision, device, train=True)
+        model.load_state_dict(state_dict)
+        state = create_train_state(model, base128_optimizer(cfg))
+        fn = build_loss_and_grads(model, loss_cfg, augment=False, max_channels=1)
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, grads = fn(state, {k: v.to(device) for k, v in batch.items()})
+        seconds = time.perf_counter() - t0
+        return ({k: float(v) for k, v in losses.items()},
+                dict(zip(state.params, (g.float().cpu() for g in grads))), launches(), seconds)
+
+    card, card_grads, card_counts, card_s = loss_and_grads("fp32", CARD)
+    _, repeat_grads, _, _ = loss_and_grads("fp32", CARD)
+    cpu, cpu_grads, _, cpu_s = loss_and_grads("fp32", "cpu")
+    half, _, _, _ = loss_and_grads("bf16", CARD)
+    if card_counts != want_launches(attention_fwd=BASE128_SITES, attention_bwd=BASE128_SITES):
+        raise AssertionError(f"base128_parity: the card's step launched {card_counts}")
+
+    def grad_rel(a, b):
+        diff = torch.sqrt(sum(((a[k] - b[k]).double() ** 2).sum() for k in b))
+        return float(diff / torch.sqrt(sum((v.double() ** 2).sum() for v in b.values())))
+
+    attn = [n for n in cpu_grads if re.search(r"attn(_1|\.\d+)\.(q|k|v|proj_out)\.weight$", n)]
+    if len(attn) != 4 * BASE128_SITES:
+        raise AssertionError(f"want the 28 attention weights, got {len(attn)}")
+    rows = [{"param": n, "card_vs_cpu": torch_rel_l2(card_grads[n], cpu_grads[n]),
+             "card_repeat": torch_rel_l2(repeat_grads[n], card_grads[n])} for n in attn]
+    worst = max(r["card_vs_cpu"] for r in rows)
+    row = {"phase": "base128_parity", "batch": 2, "card_launches": card_counts,
+           "fp32_card_losses": card, "fp32_cpu_losses": cpu, "bf16_card_losses": half,
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss_bar": 1e-4,
+           "grad_global_rel_l2": grad_rel(card_grads, cpu_grads), "grad_bar": 1e-3,
+           "grad_rel_l2_card_repeat": grad_rel(repeat_grads, card_grads),
+           "attn_grad_rel_l2_max": worst, "attn_grad_bar": ATTN_GRAD_REL, "attn_grads": rows,
+           "bf16_vs_fp32_loss_rel": abs(half["loss"] - card["loss"]) / abs(card["loss"]),
+           "bf16_bar": 5e-2, "card_seconds": card_s, "cpu_seconds": cpu_s}
+    emit(row)
+    if not (row["loss_rel"] <= 1e-4 and row["grad_global_rel_l2"] <= 1e-3 and worst <= ATTN_GRAD_REL
+            and row["bf16_vs_fp32_loss_rel"] <= 5e-2):
+        raise AssertionError(f"base128 parity out of bars: {row}")
+
+
+TRAINER_EPOCHS, TRAINER_BATCHES = 2, 8
+# resumed params against the uninterrupted run's, relative L2: bit for bit on
+# the CPU; on the card cuDNN's algorithms need not repeat, so a bar
+RESUME_BAR = 1e-3
+
+
+def train_cli(work: str, epochs: int, *extra) -> tuple:
+    """One `python -m medvae_tpu_torch.cli.train` run of the 128²
+    chest_base_vae experiment in `work`, its stdout captured; returns (the
+    captured text, the run's metrics.jsonl rows, seconds, the counts of B4/B5
+    launched by the run)."""
+    import io
+
+    args = [*BASE128_OVERRIDES, f"device={CARD}", f"work_dir={work}", f"training.max_epochs={epochs}",
+            f"+training.limit_train_batches={TRAINER_BATCHES}", "training.log_every_n_steps=4",
+            "checkpointing.save_top_k=1", "early_stopping.enabled=false", *extra]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_train.main(args)
+    seconds = time.perf_counter() - t0
+    counts = {k: launches()[k] for k in at.launches}
+    if rc != 0:
+        raise AssertionError(f"cli.train returned {rc}")
+    with open(os.path.join(work, "logs", "chest_base_vae", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return out.getvalue(), rows, seconds, counts
+
+
+def final_params(work: str) -> dict:
+    path = os.path.join(work, "logs", "checkpoints", "chest_base_vae", "chest_base_vae_final", "checkpoint.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+
+
+def phase_trainer128() -> dict:
+    """cli/train.py on experiment=chest_base_vae at 128² (2 epochs of 8
+    batches, validation and test on), then the same command with one more
+    epoch and resume=true, then 3 epochs uninterrupted: steps, img/s and the
+    validation per epoch, B4/B5 launches (7 a train step, 7 a validation or
+    test batch), the resumed params against the uninterrupted ones (within
+    RESUME_BAR, and the two-epoch params past it as a control); and the
+    final checkpoint served through InferenceEngine (7 B4 a reconstruct)."""
+    import shutil
+
+    split, whole = os.path.join(WORK, "split"), os.path.join(WORK, "whole")
+    for d in (split, whole):
+        shutil.rmtree(d, ignore_errors=True)
+    # the synthetic 128² split is cached on disk: the runs share it
+    data = f"data_dir={os.path.join(WORK, 'data')}"
+    totals = dict.fromkeys(at.launches, 0)
+    eval_batches = 2 * (256 // BASE128_BATCH)  # one validation and the test, 4 batches each
+
+    def check(tag, text, rows, seconds, counts, epochs_run):
+        steps = epochs_run * TRAINER_BATCHES
+        want = {"attention_fwd": BASE128_SITES * (steps + epochs_run * eval_batches // 2 + eval_batches // 2),
+                "attention_bwd": BASE128_SITES * steps}
+        val = [{k: r[k] for k in ("step", "val/loss", "val/psnr", "val/ssim", "val/kl_total",
+                                  "epoch_time_sec")} for r in rows if "val/loss" in r]
+        speed = [{"step": r["step"], "train/loss": r["train/loss"],
+                  "images_per_sec": r["train/images_per_sec"]} for r in rows if "train/images_per_sec" in r]
+        emit({"phase": "trainer128", "run": tag, "seconds": seconds, "train_steps": steps,
+              "launches": counts, "want_launches": want, "val_per_epoch": val, "train_logs": speed,
+              "printed": [line for line in text.splitlines() if line.startswith(("Resum", "Final", "remat",
+                                                                                 "device_cache", "fused"))]})
+        finite = all(np.isfinite(v["val/loss"]) for v in val)
+        if counts != want or not finite or not val:
+            raise AssertionError(f"trainer128 {tag}: launches {counts}, want {want}; val {val}")
+        for k in totals:
+            totals[k] += counts[k]
+
+    text, first_rows, seconds, counts = train_cli(split, TRAINER_EPOCHS, data)
+    check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS)
+    two_epochs = final_params(split)
+    gc.collect()
+    text, rows, seconds, counts = train_cli(split, TRAINER_EPOCHS + 1, data, "resume=true")
+    resumed_at = TRAINER_EPOCHS * TRAINER_BATCHES
+    if f"Resuming at optimizer step {resumed_at}" not in text:
+        raise AssertionError(f"trainer128 resume did not print 'Resuming at optimizer step {resumed_at}'")
+    check("resume +1 epoch", text, rows[len(first_rows):], seconds, counts, 1)  # the log appends
+    resumed = final_params(split)
+    final_dir = os.path.join(split, "logs", "checkpoints", "chest_base_vae", "chest_base_vae_final")
+    engine = InferenceEngine.from_checkpoint(final_dir, buckets=(8,), device=CARD)
+    reset_launches()
+    res = int(engine.model.resolution)
+    rec = engine.reconstruct(np.random.RandomState(12).randint(0, 256, (8, res, res, 1), np.uint8))
+    serve_counts = {k: launches()[k] for k in at.launches}
+    del engine
+    gc.collect()
+    shutil.rmtree(split, ignore_errors=True)
+    text, rows, seconds, counts = train_cli(whole, TRAINER_EPOCHS + 1, data)
+    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1)
+    whole_params = final_params(whole)
+    shutil.rmtree(WORK, ignore_errors=True)
+    diff = max((resumed[k] - whole_params[k]).abs().max().item() for k in whole_params)
+    norm = torch.sqrt(sum((v.double() ** 2).sum() for v in whole_params.values()))
+
+    def rel_to_whole(params):
+        return float(torch.sqrt(sum(((params[k] - whole_params[k]).double() ** 2).sum()
+                                    for k in whole_params)) / norm)
+
+    rel, control = rel_to_whole(resumed), rel_to_whole(two_epochs)
+    row = {"phase": "trainer128", "resumed_vs_uninterrupted_max_abs": diff,
+           "resumed_vs_uninterrupted_rel_l2": rel, "bar": RESUME_BAR,
+           "control_two_epochs_vs_three_rel_l2": control,
+           "served_final_checkpoint": {"shape": list(rec.shape), "finite": bool(np.isfinite(rec).all()),
+                                       "launches": serve_counts}}
+    emit(row)
+    # the control is one epoch of training apart: a resume that skipped or
+    # repeated batches, or lost the optimizer's moments, would lie near it
+    if not (rel <= RESUME_BAR < control and np.isfinite(rec).all() and rec.shape == (8, res, res, 1)
+            and serve_counts == {"attention_fwd": BASE128_SITES, "attention_bwd": 0}):
+        raise AssertionError(f"trainer128: {row}")
+    for k in totals:
+        totals[k] += serve_counts[k]
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -1169,6 +1650,7 @@ def main() -> int:
     kernel = phase_kernel()
     backward = phase_backward()
     gn_kernel = phase_gn_kernel()
+    attn_kernel = phase_attn_kernel()
     bf16_engine, fp32_engine, cpu_engine = build_engines()
     state_dict = cpu_engine.model.state_dict()
     serve_launches = phase_serve(bf16_engine)
@@ -1184,17 +1666,27 @@ def main() -> int:
     phase_cvae28_train(False)
     phase_cvae28_parity()
     cvae_serve_launches = phase_cvae28_serve()
+    cfg = base128_config()
+    base128_weights = init_weights(build_model(cfg["model"], "fp32", "cpu", train=True), seed=0).state_dict()
+    attn_launches = {"base128_train": phase_base128_train(cfg, base128_weights),
+                     "base128_serve": phase_base128_serve(cfg["model"], base128_weights)}
+    phase_base128_parity(cfg, base128_weights)
+    attn_launches["trainer128"] = phase_trainer128()
     print(smi, flush=True)
     source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
               "flash_dkv": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
               "flash_dq": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
               "gn_swish_fwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu",
-              "gn_swish_bwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu"}
+              "gn_swish_bwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu",
+              "attention_fwd": "medvae_tpu_torch/ops/csrc/attention.cu",
+              "attention_bwd": "medvae_tpu_torch/ops/csrc/attention.cu"}
     replaces = {"flash_fwd": "medvae_tpu/ops/flash_attention.py:208",
                 "flash_dkv": "medvae_tpu/ops/flash_attention.py:279",
                 "flash_dq": "medvae_tpu/ops/flash_attention.py:341",
                 "gn_swish_fwd": "medvae_tpu/ops/groupnorm_swish.py:106",
-                "gn_swish_bwd": "medvae_tpu/ops/groupnorm_swish.py:154"}
+                "gn_swish_bwd": "medvae_tpu/ops/groupnorm_swish.py:154",
+                "attention_fwd": "medvae_tpu/ops/attention.py:94",
+                "attention_bwd": "medvae_tpu/ops/attention.py:129"}
     fwd = {k: kernel[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")}
     fwd.update(launches=serve_launches + train_launches["flash_fwd"],
@@ -1220,6 +1712,14 @@ def main() -> int:
                      "launches_flagship_fused_train": fused_train_launches[name],
                      **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "library", "shape", "at_224")}})
+    for name in ("attention_fwd", "attention_bwd"):
+        r = attn_kernel[name]
+        # launches: the 128² slice's three paths (train step, serving, the
+        # trainer through cli/train.py), each counted from 0 around its run
+        rows.append({"name": name, "launches": sum(c[name] for c in attn_launches.values()),
+                     **{f"launches_{path}": c[name] for path, c in attn_launches.items()},
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "library", "shape")}})
     emit({"kernels": [{"name": r["name"], "route": "cuda", "source": source[r["name"]],
                        "replaces": replaces[r["name"]], **{k: v for k, v in r.items() if k != "name"}}
                       for r in rows]})

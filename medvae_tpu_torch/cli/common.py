@@ -2,6 +2,9 @@
 
 A port checkpoint is one `torch.save`d dict
 `{"state_dict": ..., "model": <model config dict>, "precision": "bf16"|"fp32"}`.
+The trainer's snapshots (train/checkpoint.py) are directories holding one in
+`checkpoint.pt`, with the train state beside it; every loader here takes the
+file or such a directory.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ def save_checkpoint(
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
+    if os.path.isdir(path):
+        path = os.path.join(path, "checkpoint.pt")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)

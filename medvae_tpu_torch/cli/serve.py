@@ -118,7 +118,8 @@ def serve(engine, host: str = "127.0.0.1", port: int = 8901,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Serve a port checkpoint over HTTP")
-    p.add_argument("--model_path", required=True, help="port checkpoint (.pt)")
+    p.add_argument("--model_path", required=True,
+                   help="port checkpoint (.pt) or a trainer snapshot directory")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8901)

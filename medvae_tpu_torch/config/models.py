@@ -49,6 +49,7 @@ CVAE_BENCH: Dict[str, Any] = {
 
 _CODEC_KEYS = (
     "hidden_channels", "ch_mult", "num_res_blocks", "attn_resolutions", "resolution", "double_z",
+    "dropout",
 )
 _BASE_KEYS = ("input_channels", "latent_dim") + _CODEC_KEYS
 # class name -> (class, config keys its constructor takes, keys read elsewhere
@@ -94,11 +95,7 @@ def build_model(
     cls, keys, unused = _MODELS[target]
     if cfg.get("use_linear_attn") or cfg.get("attn_type", "vanilla") != "vanilla":
         raise NotImplementedError("linear attention is not ported yet")
-    if float(cfg.get("dropout", 0.0)) != 0.0:
-        raise NotImplementedError("dropout is a training feature, not ported yet")
-    unknown = set(cfg) - set(keys) - set(unused) - {
-        "_target_", "use_linear_attn", "attn_type", "dropout",
-    }
+    unknown = set(cfg) - set(keys) - set(unused) - {"_target_", "use_linear_attn", "attn_type"}
     if unknown:
         raise ValueError(f"unknown {target} config keys: {sorted(unknown)}")
     compute_dtype = compute_dtype_for(precision)

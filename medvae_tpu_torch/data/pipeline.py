@@ -1,5 +1,12 @@
-"""On-device batch preprocessing (counterpart of
-medvae_tpu/data/pipeline.py:381-453 and medvae_tpu/train/step.py:119-139).
+"""The data feed and on-device batch preprocessing (counterpart of
+medvae_tpu/data/pipeline.py:33-190,381-453 and medvae_tpu/train/step.py:119-139).
+
+`DeviceFeeder` walks a split in the JAX feeder's order, bit for bit: the same
+numpy permutation per (seed, epoch), optionally modality-stratified
+(`stratified_order`), the ragged tail dropped in training and wrapped around
+with a `valid` mask in evaluation. Batches are assembled with numpy on the
+host, copied into pinned memory and on to the card with non_blocking copies,
+two batches ahead of the step.
 
 uint8 → float [0, 1] in the compute dtype → (augment) → Normalize(0.5, 0.5) to
 [−1, 1]. The augmentation is the JAX package's: horizontal flip p = 0.5,
@@ -14,9 +21,119 @@ in fp32, as it does there.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from collections import deque
+from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
+
+from medvae_tpu_torch.data.medmnist import CHANNELS_BY_MODALITY_INDEX, SplitArrays
+from medvae_tpu_torch.data.modalities import MODALITY_NAMES
+
+PREFETCH = 2  # batches in flight ahead of the step, as the JAX feeder keeps
+
+def stratified_order(modality_idx: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """A permutation of [0, n) whose every contiguous window holds a
+    near-proportional share of each modality (medvae_tpu/data/pipeline.py:33-65):
+    shuffle within each modality, place member r of a c-member modality at
+    (r + u) / c with a per-epoch random phase u, and sort by position. Every
+    window of B samples then holds B·c_m/n ± 1 samples of modality m, so the
+    batch-global separation and contrastive losses see every modality."""
+    members_all = []
+    pos_all = []
+    for m in np.unique(modality_idx):
+        members = np.flatnonzero(modality_idx == m)
+        rng.shuffle(members)
+        c = len(members)
+        members_all.append(members)
+        pos_all.append((np.arange(c) + rng.uniform()) / c)
+    idx = np.concatenate(members_all)
+    pos = np.concatenate(pos_all)
+    return idx[np.argsort(pos, kind="stable")]
+
+
+class DeviceFeeder:
+    """Iterates the batches of a split on `device`.
+
+    * drops the ragged tail when `drop_last` (training), else pads it by
+      wraparound with `valid` 0 on the padding (evaluation), so metrics stay
+      exact;
+    * shuffles with numpy's RandomState seeded by the epoch, as the JAX
+      feeder does, so a (seed, epoch) gives the same batches in both
+      packages, and a resumed run can skip the batches it already took;
+    * `stratify` (with `shuffle`) draws modality-stratified orders;
+    * on a CUDA device each batch goes through pinned host memory with a
+      non_blocking copy, PREFETCH batches ahead.
+    """
+
+    def __init__(
+        self,
+        arrays: SplitArrays,
+        batch_size: int,
+        device,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        seed: int = 0,
+        stratify: bool = False,
+    ):
+        self.arrays = arrays
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.stratify = bool(stratify) and shuffle
+        self._rng = np.random.RandomState(seed)
+        n = len(arrays)
+        if drop_last:
+            self.steps_per_epoch = max(1, n // batch_size) if n >= batch_size else 1
+        else:
+            self.steps_per_epoch = (n + batch_size - 1) // batch_size
+
+    def _gather(self, idx: np.ndarray, valid: np.ndarray) -> Dict[str, np.ndarray]:
+        a = self.arrays
+        onehot = np.zeros((len(idx), len(MODALITY_NAMES)), np.float32)
+        onehot[np.arange(len(idx)), a.modality_idx[idx]] = 1.0
+        return {
+            "image_u8": a.images[idx],
+            "label": a.labels[idx],
+            "modality_onehot": onehot,
+            "modality_idx": a.modality_idx[idx],
+            # natural channel count per sample, for on-device masking
+            "channels": CHANNELS_BY_MODALITY_INDEX[a.modality_idx[idx]],
+            "valid": valid.astype(np.float32),
+        }
+
+    def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        return {k: torch.from_numpy(v).pin_memory().to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+        n = len(self.arrays)
+        order = np.arange(n)
+        if self.shuffle:
+            self._rng.seed((epoch + 1) * 9973 + 7)
+            if self.stratify:
+                order = stratified_order(self.arrays.modality_idx, self._rng)
+            else:
+                self._rng.shuffle(order)
+        bs = self.batch_size
+        pending: deque = deque()
+        for step in range(self.steps_per_epoch):
+            idx = order[step * bs: min(step * bs + bs, n)]
+            valid = np.ones(len(idx), bool)
+            if len(idx) < bs:
+                # wraparound pad, masked invalid; modulo tiling so a shortfall
+                # larger than the split still fills the batch
+                pad = order[np.arange(bs - len(idx)) % n]
+                valid = np.concatenate([valid, np.zeros(len(pad), bool)])
+                idx = np.concatenate([idx, pad])
+            pending.append(self._put(self._gather(idx, valid)))
+            if len(pending) > PREFETCH:
+                yield pending.popleft()
+        while pending:
+            yield pending.popleft()
 
 
 def augment_draws(

@@ -33,6 +33,7 @@ class BaseVAE(nn.Module):
         attn_resolutions: Sequence[int] = (16,),
         resolution: int = 224,
         double_z: bool = True,
+        dropout: float = 0.0,
         encoder_in_channels: Optional[int] = None,
     ):
         """`encoder_in_channels`: the width the encoder takes when it is not
@@ -51,6 +52,7 @@ class BaseVAE(nn.Module):
             z_channels=self.latent_dim,
             ch_mult=self.ch_mult,
             double_z=double_z,
+            dropout=dropout,
         )
         self.decoder = Decoder(
             ch=hidden_channels,
@@ -60,6 +62,7 @@ class BaseVAE(nn.Module):
             resolution=self.resolution,
             z_channels=self.latent_dim,
             ch_mult=self.ch_mult,
+            dropout=dropout,
         )
 
     @property
@@ -73,14 +76,17 @@ class BaseVAE(nn.Module):
         conv = self.encoder.conv_in
         return conv.compute_dtype or conv.weight.dtype
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """NHWC image -> (mean, logvar), each NHWC, split on channels."""
-        h = to_nhwc(self.encoder(to_nchw(x)))
+    def encode(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """NHWC image -> (mean, logvar), each NHWC, split on channels;
+        `generator` draws the dropout masks in train mode."""
+        h = to_nhwc(self.encoder(to_nchw(x), generator))
         mean, logvar = torch.chunk(h, 2, dim=-1)
         return mean, logvar
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return to_nhwc(self.decoder(to_nchw(z)))
+    def decode(self, z: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return to_nhwc(self.decoder(to_nchw(z), generator))
 
     @staticmethod
     def reparameterize(
@@ -108,10 +114,10 @@ class BaseVAE(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """The JAX model's __call__ (medvae_tpu/models/base_vae.py:131-150) on
         NHWC x: encode, reparameterize (`noise` or a draw from `generator`),
-        decode."""
-        mean, logvar = self.encode(x)
+        decode; in train mode the dropout masks come from `generator` too."""
+        mean, logvar = self.encode(x, generator)
         z = self.reparameterize(mean, logvar, noise=noise, generator=generator)
-        return {"reconstruction": self.decode(z), "mean": mean, "logvar": logvar, "z": z}
+        return {"reconstruction": self.decode(z, generator), "mean": mean, "logvar": logvar, "z": z}
 
     def sample(
         self,

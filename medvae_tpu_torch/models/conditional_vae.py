@@ -48,6 +48,7 @@ class ConditionalVAE(BaseVAE):
         attn_resolutions: Sequence[int] = (16,),
         resolution: int = 224,
         double_z: bool = True,
+        dropout: float = 0.0,
         modalities: Optional[Sequence[str]] = None,
         condition_dim: Optional[int] = None,
         condition_method: str = "concat",
@@ -61,7 +62,7 @@ class ConditionalVAE(BaseVAE):
             input_channels=input_channels, latent_dim=latent_dim,
             hidden_channels=hidden_channels, ch_mult=ch_mult,
             num_res_blocks=num_res_blocks, attn_resolutions=attn_resolutions,
-            resolution=resolution, double_z=double_z,
+            resolution=resolution, double_z=double_z, dropout=dropout,
             encoder_in_channels=2 * int(input_channels),
         )
         self.modality_list = tuple(modalities) if modalities else DEFAULT_MODALITIES
@@ -82,13 +83,14 @@ class ConditionalVAE(BaseVAE):
         return to_nhwc(cmap)
 
     def encode(
-        self, x: torch.Tensor, condition: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, condition: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC x and its (b, cond_dim) one-hot condition -> (mean, logvar)."""
         if condition is None:
             raise ValueError("the concat ConditionalVAE encodes an image with its condition")
         cmap = self.create_condition_map(condition, x.shape[1], x.shape[2])
-        h = self.encoder(torch.cat([to_nchw(x), to_nchw(cmap).to(x.dtype)], dim=1))
+        h = self.encoder(torch.cat([to_nchw(x), to_nchw(cmap).to(x.dtype)], dim=1), generator)
         mean, logvar = torch.chunk(to_nhwc(h), 2, dim=-1)
         return mean, logvar
 
@@ -100,9 +102,9 @@ class ConditionalVAE(BaseVAE):
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """The JAX model's __call__ (:155-177) on NHWC x."""
-        mean, logvar = self.encode(x, condition)
+        mean, logvar = self.encode(x, condition, generator)
         z = self.reparameterize(mean, logvar, noise=noise, generator=generator)
-        return {"reconstruction": self.decode(z), "mean": mean, "logvar": logvar, "z": z,
+        return {"reconstruction": self.decode(z, generator), "mean": mean, "logvar": logvar, "z": z,
                 "condition": condition}
 
     def conditional_sample(

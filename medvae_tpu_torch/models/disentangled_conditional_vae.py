@@ -48,6 +48,7 @@ class DisentangledConditionalVAE(BaseVAE):
         attn_resolutions: Sequence[int] = (16,),
         resolution: int = 224,
         double_z: bool = True,
+        dropout: float = 0.0,
     ):
         chans = tuple(MODALITY_CHANNEL_MAP.get(m, 3) for m in range(num_modalities))
         # the base VAE runs at max_channels and the total latent
@@ -56,7 +57,7 @@ class DisentangledConditionalVAE(BaseVAE):
             latent_dim=int(shared_latent_dim) + int(modality_latent_dim),
             hidden_channels=hidden_channels, ch_mult=ch_mult,
             num_res_blocks=num_res_blocks, attn_resolutions=attn_resolutions,
-            resolution=resolution, double_z=double_z,
+            resolution=resolution, double_z=double_z, dropout=dropout,
         )
         self.num_modalities = int(num_modalities)
         self.shared_latent_dim = int(shared_latent_dim)
@@ -117,7 +118,8 @@ class DisentangledConditionalVAE(BaseVAE):
         return modality_indices.long().clamp(0, self.num_modalities - 1)
 
     def encode(
-        self, x: torch.Tensor, modality_indices: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, modality_indices: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC x -> (mu, logvar). The input projection runs in x's dtype
         (fp32 for a normalized uint8 request); the cast to the compute dtype
@@ -127,15 +129,16 @@ class DisentangledConditionalVAE(BaseVAE):
             midx = self._clip(modality_indices)
             w, b = self._stacked_input_matrices()
             x = torch.nan_to_num(self._route(x, w[midx], b[midx]))
-        h = to_nhwc(self.encoder(to_nchw(x)))
+        h = to_nhwc(self.encoder(to_nchw(x), generator))
         mu, logvar = torch.chunk(h, 2, dim=-1)
         return torch.nan_to_num(mu), torch.nan_to_num(logvar)
 
     def decode(
-        self, z: torch.Tensor, modality_indices: Optional[torch.Tensor] = None
+        self, z: torch.Tensor, modality_indices: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Base decode, then the routed heads and the output projection."""
-        recon = self.decoder(to_nchw(z))  # (B, C, H, W)
+        recon = self.decoder(to_nchw(z), generator)  # (B, C, H, W)
         if modality_indices is None:
             return to_nhwc(recon)
         bsz, c, hh, ww = recon.shape
@@ -233,11 +236,11 @@ class DisentangledConditionalVAE(BaseVAE):
         `generator`."""
         if modality_indices is None:
             modality_indices = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
-        mu, logvar = self.encode(x, modality_indices)
+        mu, logvar = self.encode(x, modality_indices, generator)
         logvar = torch.clamp(logvar, -10.0, 10.0)
         mu = torch.clamp(mu, -10.0, 10.0)
         z = self.reparameterize(mu, logvar, noise=noise, generator=generator)
-        reconstruction = self.decode(z, modality_indices)
+        reconstruction = self.decode(z, modality_indices, generator)
         return {
             "reconstruction": reconstruction,
             "mean": mu,

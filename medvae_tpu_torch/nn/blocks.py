@@ -73,12 +73,24 @@ def norm_swish(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return swish(norm(x))
 
 
-class ResnetBlock(nn.Module):
-    """GN -> swish -> 3x3 conv, twice, plus a 1x1 nin shortcut on a channel change."""
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax's nn.Dropout: keep each element with probability 1 − rate and
+    scale the kept ones by 1 / (1 − rate); the mask is drawn from `generator`
+    (the train step's, on x's device; the default one when None)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, in_channels: int, out_channels: int | None = None):
+
+class ResnetBlock(nn.Module):
+    """GN -> swish -> 3x3 conv, twice, plus a 1x1 nin shortcut on a channel
+    change. Dropout at `dropout` before the second conv in train mode, where
+    medvae_tpu/nn/blocks.py:140 places it; off in eval mode."""
+
+    def __init__(self, in_channels: int, out_channels: int | None = None, dropout: float = 0.0):
         super().__init__()
         out_channels = out_channels or in_channels
+        self.dropout = float(dropout)
         self.norm1 = GroupNorm(in_channels)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.norm2 = GroupNorm(out_channels)
@@ -88,9 +100,12 @@ class ResnetBlock(nn.Module):
         else:
             self.nin_shortcut = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.conv1(norm_swish(self.norm1, x))
-        h = self.conv2(norm_swish(self.norm2, h))
+        h = norm_swish(self.norm2, h)
+        if self.dropout and self.training:
+            h = dropout(h, self.dropout, generator)
+        h = self.conv2(h)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h

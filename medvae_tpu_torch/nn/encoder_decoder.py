@@ -6,8 +6,9 @@ NCHW in and out. Modules are laid out as the reference torch codec is
 state_dict key names the same tensor in both. An attention block follows every
 res block whose resolution is in `attn_resolutions`. The encoder's
 `in_channels` is the width of what it is given: 2·C for the concat
-ConditionalVAE, whose flax conv infers it from the input. FiLM, temb, dropout
-and remat are not ported yet.
+ConditionalVAE, whose flax conv infers it from the input. Every res block
+takes `dropout`, drawing its masks from the `generator` passed to forward.
+FiLM, temb and remat are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,16 +29,16 @@ from medvae_tpu_torch.nn.blocks import (
 )
 
 
-def _mid(channels: int) -> nn.Module:
+def _mid(channels: int, dropout: float) -> nn.Module:
     mid = nn.Module()
-    mid.block_1 = ResnetBlock(channels, channels)
+    mid.block_1 = ResnetBlock(channels, channels, dropout)
     mid.attn_1 = AttnBlock(channels)
-    mid.block_2 = ResnetBlock(channels, channels)
+    mid.block_2 = ResnetBlock(channels, channels, dropout)
     return mid
 
 
-def _run_mid(mid: nn.Module, h: torch.Tensor) -> torch.Tensor:
-    return mid.block_2(mid.attn_1(mid.block_1(h)))
+def _run_mid(mid: nn.Module, h: torch.Tensor, generator) -> torch.Tensor:
+    return mid.block_2(mid.attn_1(mid.block_1(h, generator)), generator)
 
 
 class Encoder(nn.Module):
@@ -52,6 +53,7 @@ class Encoder(nn.Module):
         z_channels: int,
         ch_mult: Sequence[int] = (1, 2, 4, 8),
         double_z: bool = True,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.num_res_blocks = num_res_blocks
@@ -66,7 +68,7 @@ class Encoder(nn.Module):
             block_in = ch * in_ch_mult[i_level]
             block_out = ch * mult
             for _ in range(num_res_blocks):
-                level.block.append(ResnetBlock(block_in, block_out))
+                level.block.append(ResnetBlock(block_in, block_out, dropout))
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     level.attn.append(AttnBlock(block_in))
@@ -74,21 +76,21 @@ class Encoder(nn.Module):
                 level.downsample = Downsample(block_in)
                 curr_res //= 2
             self.down.append(level)
-        self.mid = _mid(block_in)
+        self.mid = _mid(block_in, dropout)
         self.norm_out = GroupNorm(block_in)
         out_channels = 2 * z_channels if double_z else z_channels
         self.conv_out = Conv2d(block_in, out_channels, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.conv_in(x)
         for level in self.down:
             for j, block in enumerate(level.block):
-                h = block(h)
+                h = block(h, generator)
                 if len(level.attn):
                     h = level.attn[j](h)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
-        h = _run_mid(self.mid, h)
+        h = _run_mid(self.mid, h, generator)
         return self.conv_out(norm_swish(self.norm_out, h))
 
 
@@ -103,13 +105,14 @@ class Decoder(nn.Module):
         resolution: int,
         z_channels: int,
         ch_mult: Sequence[int] = (1, 2, 4, 8),
+        dropout: float = 0.0,
     ):
         super().__init__()
         num_levels = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (num_levels - 1)
         self.conv_in = Conv2d(z_channels, block_in, 3, padding=1)
-        self.mid = _mid(block_in)
+        self.mid = _mid(block_in, dropout)
         levels = {}
         for i_level in reversed(range(num_levels)):
             level = nn.Module()
@@ -117,7 +120,7 @@ class Decoder(nn.Module):
             level.attn = nn.ModuleList()
             block_out = ch * ch_mult[i_level]
             for _ in range(num_res_blocks + 1):
-                level.block.append(ResnetBlock(block_in, block_out))
+                level.block.append(ResnetBlock(block_in, block_out, dropout))
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     level.attn.append(AttnBlock(block_in))
@@ -130,11 +133,11 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm(block_in)
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = _run_mid(self.mid, self.conv_in(z))
+    def forward(self, z: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        h = _run_mid(self.mid, self.conv_in(z), generator)
         for level in reversed(self.up):
             for j, block in enumerate(level.block):
-                h = block(h)
+                h = block(h, generator)
                 if len(level.attn):
                     h = level.attn[j](h)
             if hasattr(level, "upsample"):

@@ -1,4 +1,5 @@
-"""The train step (counterpart of medvae_tpu/train/step.py:119-225,402-537).
+"""The train and eval steps (counterpart of
+medvae_tpu/train/step.py:119-225,402-537,659-795).
 
 `build_train_step(model, loss_cfg, tx, ...)` returns
 `step(state, batch, generator=None, draws=None) -> (state, metrics)`, the JAX
@@ -12,6 +13,14 @@ Random draws come from `generator` (a torch.Generator on the batch's device):
 the reparameterization noise unless `batch["noise"]` is given, and the
 augmentation draws unless `draws` is given. So a test can pin both.
 
+`build_eval_step(model, loss_cfg, ...)` returns `eval_step(state, batch,
+generator=None) -> metrics`: the forward in eval mode (no dropout; the
+reparameterization still draws, from `generator` or `batch["noise"]`), the
+criterion and the reconstruction, KL and latent metrics, all masked by the
+batch's `valid`, as `val/<name>` fp32 scalars on the device; plus the sums a
+whole-split validation needs: `val/_weight`, `val/_psnr_by_mod`,
+`val/_count_by_mod` and, for the flagship, `val/_zmod_sum_by_mod`.
+
 Not ported yet (later slices): `accumulate_grad_batches` > 1, the GAN path
 (`lpips_discriminator`) and the tower-only loss types (`lpips`, `biomedclip`)
 raise NotImplementedError.
@@ -24,10 +33,12 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import preprocess
 from medvae_tpu_torch.losses.elbo import DisentangledVAELoss, VAELoss
 from medvae_tpu_torch.losses.perceptual import BiomedCLIPLoss, LPIPSLoss
 from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
+from medvae_tpu_torch.train.metrics import kl_metrics, latent_metrics, psnr, reconstruction_metrics
 from medvae_tpu_torch.train.optim import Optimizer, global_norm
 from medvae_tpu_torch.train.state import TrainState
 
@@ -187,3 +198,47 @@ def build_train_step(
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 
     return step
+
+
+def build_eval_step(
+    model: torch.nn.Module,
+    loss_cfg: Dict[str, Any],
+    *,
+    max_channels: int = 3,
+    n_modalities: int = 0,
+):
+    """The eval step; see the module docstring. The per-modality sums are
+    `max(n_modalities, 12, model.num_modalities)` wide."""
+    criterion = make_criterion(loss_cfg, model)
+    forward = make_forward_fn(model)
+    n_mod = max(n_modalities, len(MODALITY_NAMES), int(getattr(model, "num_modalities", 0) or 0))
+
+    @torch.no_grad()
+    def eval_step(
+        state: TrainState, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            x = preprocess(batch, None, augment=False, max_channels=max_channels, dtype=model.dtype)
+            outputs = forward(x, batch, generator)
+        finally:
+            model.train(was_training)
+        valid = batch.get("valid")
+        metrics = {f"val/{k}": v for k, v in criterion(state.frozen, outputs, x).items()}
+        for group in (reconstruction_metrics(outputs["reconstruction"], x, valid),
+                      kl_metrics(outputs["mean"], outputs["logvar"], valid),
+                      latent_metrics(outputs["z"], valid)):
+            metrics.update({f"val/{k}": v for k, v in group.items()})
+        v = valid.float() if valid is not None else torch.ones((x.shape[0],), device=x.device)
+        metrics["val/_weight"] = v.sum()
+        onehot = torch.nn.functional.one_hot(batch["modality_idx"].long(), n_mod).float() * v[:, None]
+        per_sample = psnr(outputs["reconstruction"].float(), x.float())
+        metrics["val/_psnr_by_mod"] = (per_sample[:, None] * onehot).sum(dim=0)
+        metrics["val/_count_by_mod"] = onehot.sum(dim=0)
+        if isinstance(model, DisentangledConditionalVAE):
+            _, z_mod = model.partition_latent(outputs["z"])
+            metrics["val/_zmod_sum_by_mod"] = onehot.T @ (z_mod.float() * v[:, None])
+        return metrics
+
+    return eval_step

@@ -10,6 +10,7 @@ JAX test harness:
 import pytest
 import torch
 
+from medvae_tpu_torch.ops import attention as at
 from medvae_tpu_torch.ops import flash_attention as fa
 from medvae_tpu_torch.ops import groupnorm_swish as gs
 
@@ -230,3 +231,95 @@ def test_gn_swish_wrappers_raise_on_the_card_instead_of_falling_back(gen):
     with pytest.raises(ValueError, match="fp32"):
         gs.group_norm_swish_bwd(x, w, b, g, mean.double(), rstd)
     assert gs.launches == before
+
+
+# ---------------------------------------------------------------- B4, B5 ---- #
+
+# the shapes chip_smoke.py holds B4 and B5 to: the 128² BaseVAE's attention
+# (64, 256, 1024), a narrower level, and ragged edges of the gate (n not a
+# multiple of the tiles, odd channel counts, the largest n at c 64 and the
+# largest c at n 128)
+ATTN_SHAPES = [(64, 256, 1024), (64, 256, 512), (2, 144, 64), (3, 196, 96), (2, 863, 64),
+               (2, 128, 2870)]
+
+
+def _assert_attn_fwd_close(got, want, dtype):
+    """fp32: max abs and relative L2 1e-5 (tests/test_ops.py:40); bf16: one
+    rounding apart elementwise and relative L2 2e-3."""
+    got, want = got.double(), want.double()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5 and _rel(got, want) <= 1e-5
+    else:
+        assert bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-6).all())
+        assert _rel(got, want) <= 2e-3
+
+
+def _assert_attn_grad_close(got, want, dtype, what):
+    """fp32: max abs and relative L2 1e-4 (tests/test_ops.py:59); bf16: the
+    flash backward's bars."""
+    if dtype == torch.float32:
+        err = (got.double() - want.double()).abs().max().item()
+        assert torch.isfinite(got).all() and err <= 1e-4 and _rel(got, want) <= 1e-4, (what, err)
+    else:
+        _assert_grad_close(got, want, dtype, what)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_kernels_match_plain_versions(gen, shape, dtype):
+    q, k, v, g = _qkv(gen, shape, dtype, 4)
+    before = dict(at.launches)
+    o = at.fused_attention_fwd(q, k, v)
+    dq, dk, dv = at.fused_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert at.launches == {k_: v_ + 1 for k_, v_ in before.items()}
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    _assert_attn_fwd_close(o, at.fused_attention_fwd_plain(q, k, v), dtype)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                               at.fused_attention_bwd_plain(q, k, v, g)):
+        _assert_attn_grad_close(got, want, dtype, name)
+
+
+def test_attention_backward_is_deterministic(gen):
+    """No atomics: the same inputs give the same bits."""
+    q, k, v, g = _qkv(gen, (8, 256, 1024), torch.bfloat16, 4)
+    first = at.fused_attention_bwd(q, k, v, g)
+    second = at.fused_attention_bwd(q, k, v, g)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("shape, dtype", [((4, 256, 1024), torch.bfloat16),
+                                          ((2, 144, 96), torch.float32)])
+def test_fused_attention_function_grads_match_autograd_of_plain_forward(gen, shape, dtype):
+    q, k, v, w = _qkv(gen, shape, dtype, 4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    # a non-contiguous incoming gradient, as AttnBlock's transpose gives
+    out = at.FusedAttention.apply(*leaves).transpose(1, 2)
+    (out.float() * w.transpose(1, 2).float()).sum().backward()
+    ref = at.fused_attention_fwd_plain(*ref_leaves).transpose(1, 2)
+    (ref.float() * w.transpose(1, 2).float()).sum().backward()
+    for name, a, b_ in zip("qkv", leaves, ref_leaves):
+        _assert_attn_grad_close(a.grad, b_.grad, dtype, "d" + name)
+
+
+def test_attention_wrappers_raise_on_the_card_instead_of_falling_back(gen):
+    q = torch.randn((1, 128, 64), generator=gen, device="cuda")
+    before = dict(at.launches)
+    with pytest.raises(TypeError):
+        at.fused_attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        at.fused_attention_fwd(q, q.cpu(), q)
+    assert at.uses_fused(863, 64) and not at.uses_fused(864, 64)
+    assert at.fused_max_tokens() >= 863  # every n the gate admits
+    with pytest.raises(ValueError, match="n <="):
+        big = torch.zeros((1, at.fused_max_tokens() + 1, 64), device="cuda")
+        at.fused_attention_fwd(big, big, big)
+    t = q.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        at.fused_attention_bwd(q, q, q, t)
+    with pytest.raises(TypeError):
+        at.fused_attention_bwd(q, q, q, q.bfloat16())
+    assert at.launches == before

@@ -36,6 +36,7 @@ from medvae_tpu.train.trainer import build_model as jax_build_model
 from medvae_tpu_torch import bench
 from medvae_tpu_torch.compat.jax_params import from_jax_grads, from_jax_params, plan_jax_params
 from medvae_tpu_torch.config.models import CVAE_BENCH, build_model
+from medvae_tpu_torch.nn.blocks import ResnetBlock
 from medvae_tpu_torch.serve.engine import InferenceEngine
 from medvae_tpu_torch.train import optim as toptim
 from medvae_tpu_torch.train import state as tstate
@@ -172,13 +173,13 @@ def test_converter_covers_the_full_size_trees(name):
 
 @pytest.mark.parametrize("name", ["base_vae_quick", "beta_vae_quick", "conditional_vae_quick"])
 def test_quick_configs_raise_on_their_dropout(name):
-    """The quick configs set dropout 0.1, which is not ported yet; every
-    other key of theirs is taken."""
+    """The quick configs set dropout 0.1, which the port now takes (it raised
+    until dropout was ported): every key of theirs builds, and every res
+    block drops at their rate."""
     cfg = yaml.safe_load((CONFIGS / f"{name}.yaml").read_text())["model"]
-    with pytest.raises(NotImplementedError, match="dropout"):
-        build_model(cfg, "bf16", "meta")
-    model = build_model(dict(cfg, dropout=0.0), "bf16", "meta")
+    model = build_model(cfg, "bf16", "meta", train=True)
     assert model.resolution == 28
+    assert {m.dropout for m in model.modules() if isinstance(m, ResnetBlock)} == {0.1}
 
 
 def test_cvae_bench_config_is_bench_py_default(monkeypatch):
