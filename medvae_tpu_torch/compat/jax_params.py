@@ -123,6 +123,29 @@ def _convert(tree: Mapping[str, Any], expected: Mapping[str, Tuple[int, ...]]):
     return out
 
 
+def leaf_to_torch(
+    path: Tuple[str, ...], value: np.ndarray, expected: Mapping[str, Tuple[int, ...]]
+) -> Optional[Tuple[str, torch.Tensor]]:
+    """(torch name, fp32 tensor) for one JAX leaf at `path`, or None when the
+    leaf has no rule or `expected` ({name: shape}) has no such tensor. The
+    value is first reshaped to the JAX layout of the target, as a graft of
+    exported weights reshapes to the param's shape, then laid out for torch."""
+    try:
+        name, _ = _target(path, 4)  # the name does not depend on the rank
+    except KeyError:
+        return None
+    if name not in expected:
+        return None
+    want = tuple(expected[name])
+    transform = None
+    if path[-1] == "kernel" and len(path) > 1 and len(want) in (2, 4):
+        transform = "conv" if len(want) == 4 else "dense"
+    axes = _AXES[transform]
+    jax_shape = want if axes is None else tuple(want[axes.index(i)] for i in range(len(want)))
+    value = np.asarray(value, np.float32).reshape(jax_shape)
+    return name, torch.tensor(value if axes is None else value.transpose(axes))
+
+
 def from_jax_params(params: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """state_dict (fp32 CPU tensors) for `model` from the JAX param tree."""
     return _convert(params, {k: tuple(v.shape) for k, v in model.state_dict().items()})

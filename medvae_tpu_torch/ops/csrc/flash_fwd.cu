@@ -16,34 +16,44 @@
 // far above the H100's ~295 operations per byte, so the kernel is bound by
 // tensor-core throughput, not by memory.
 //
-// What this design does about that bound: both products run on the tensor
-// cores, and the (n, n) logits never leave the SM. It does not yet keep the
-// tensor cores fed: loads are synchronous, one block fits an SM, and fragments
-// are gathered with plain shared-memory loads. wgmma with TMA-fed,
-// double-buffered K/V tiles and warp specialisation are the next design.
+// Three instances; medvae_flash_fwd_bf16 picks one by c alone, with no
+// try-and-fall-back:
+//  * bf16, c % 128 == 0 and c <= 512 (every shape of the main path): the
+//    Hopper instance, wgmma on TMA-fed, double-buffered K/V tiles with P
+//    kept in registers (flash_fwd_wgmma_kernel, its own comment below).
+//  * bf16, any other c (multiples of 64 up to 1024; the 784 x 1024 blocks):
+//    the first design, mma.sync m16n8k16 with synchronous loads. c = 1024
+//    does not fit the wgmma instance's split of O over two warpgroups (128
+//    fp32 registers a thread at c = 512 already), and its shapes are off the
+//    main path.
+//  * fp32: CUDA-core FMAs in full fp32 (no TF32), as the JAX fp32 dot does;
+//    the parity path, not the serving path.
 //
-// Design (simple first):
+// The mma.sync instance (simple first):
 //  * One block per (TILE query rows, batch element). The whole Q tile and one
 //    TILE-row K and V tile live in padded shared memory (rows padded by 16
 //    bytes so that fragment loads are bank-conflict free).
-//  * The head dim c (512 here, up to 1024) is far larger than stock
-//    FlashAttention's <= 256, so the fp32 O tile (TILE x c) cannot sit in one
-//    warp's registers. Its channel dim is split across warps instead: warp w
-//    owns columns [64w, 64w + 64) of O in registers, c / 64 warps per block.
-//    TILE = 64 rows for c <= 512 (128 fp32 registers a thread, 8 warps) and 32
-//    rows above (64 registers a thread, up to 16 warps), which keeps the tiles
+//  * The fp32 O tile (TILE x c) cannot sit in one warp's registers. Its
+//    channel dim is split across warps instead: warp w owns columns
+//    [64w, 64w + 64) of O in registers, c / 64 warps per block. TILE = 64
+//    rows for c <= 512 (128 fp32 registers a thread, 8 warps) and 32 rows
+//    above (64 registers a thread, up to 16 warps), which keeps the tiles
 //    inside the 227 KB of shared memory a block may use.
-//  * bf16 products run on the tensor cores with mma.sync m16n8k16 (fp32
-//    accumulate). The fp32 instance uses CUDA-core FMAs in full fp32 (no TF32),
-//    as the JAX fp32 dot does; it is the parity path, not the serving path.
+//  * Loads are synchronous, one block fits an SM, and fragments are gathered
+//    with plain shared-memory loads: it reached 48 TFLOP/s on an H100 at
+//    the flagship shape, which is why the main path left it.
 //  * Any n: the ragged last K tile is masked to -inf before the softmax, the
 //    ragged last Q tile is zero-filled and not stored.
 //
-// C interface (bound with ctypes; returns cudaGetLastError() after the launch;
-// lse may be null):
+// C interface (bound with ctypes; each launch returns cudaGetLastError() after
+// the launch; lse may be null):
 //   int medvae_flash_fwd_bf16(q, k, v, o, lse, b, n, c, scale, stream)
 //   int medvae_flash_fwd_f32 (q, k, v, o, lse, b, n, c, scale, stream)
+//   int medvae_flash_fwd_bf16_instance(c)   1: wgmma instance, 0: mma.sync
+//   int medvae_flash_wgmma_selftest(q, k, v, s, o, o_staged, stream)
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -394,6 +404,549 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------------ //
+// The Hopper instance: wgmma on TMA-fed, double-buffered K/V tiles.        //
+// ------------------------------------------------------------------------ //
+//
+// Takes bf16 with c % 128 == 0 and c <= 512: every shape of the main path
+// (c = 512 at 3136 tokens) and every c up to 512 that uses_flash admits.
+//
+// Block: 64 query rows of one batch element; three warpgroups. Warpgroup 2
+// is the producer: one thread issues every TMA load (Q once, then K and V
+// tiles of 32 keys into a ring of two stages each) and setmaxnreg gives its
+// registers to the consumers. Warpgroups 0 and 1 are the consumers.
+//
+// Head dim c = 512 is twice what stock FlashAttention takes: a 64 x 512 fp32
+// O would need 256 registers a thread in one warpgroup. So O's columns are
+// split: consumer w owns rows 0-63 x columns [w c/2, (w+1) c/2) of O (128
+// fp32 registers a thread at c = 512), and contracts Q K^T over the same
+// channel half. The two partial 64 x 32 logits tiles are exchanged through
+// shared memory under a named barrier and summed; IEEE addition commutes, so
+// both consumers hold the same S bit for bit and run the same online softmax
+// on their own copy, with no further exchange.
+//
+// Products: S = Q K^T is wgmma m64n32k16 with both operands in shared memory
+// (K-major); O += P V is wgmma m64n64k16 with P as the A operand straight
+// from registers (the fp32 S accumulator's layout is the bf16 A fragment's,
+// so P is converted in place and never touches shared memory) and V as a
+// transposed (MN-major) B operand, read in place.
+//
+// Shared memory: Q 64 KB, K and V 2 x 2 x 32 KB, the S exchange 2 x 16 KB
+// (double-buffered by iteration, so one barrier a tile suffices) at c = 512:
+// 224 KB of the 227 KB a block may use. Every tile is TMA's 128-byte swizzle
+// of boxes 64 channels (128 bytes) wide: a 512-channel row is 8 boxes, each
+// box a stack of 1024-byte atoms of 8 rows. The 3-D tensor maps over
+// (c, n, b) zero-fill rows at or past n within a batch element; keys at or
+// past n are still masked to -inf.
+
+constexpr int kWgRows = 64;   // query rows a block
+constexpr int kWgKeys = 32;   // keys a stage
+constexpr int kWgThreads = 384;
+constexpr uint32_t kQBox = kWgRows * 128;   // bytes of a 64-row, 64-channel box
+constexpr uint32_t kKVBox = kWgKeys * 128;  // bytes of a 32-row box
+constexpr uint32_t kXBytes = 2 * 2 * 16 * 128 * 4;  // S exchange: 2 buffers x 2 consumers
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`
+// (1024-byte aligned atom base, plus a k offset inside the 128-byte row for
+// K-major operands). Every tile here is a stack of 8-row, 1024-byte atoms,
+// so the stride between 8-row groups (SBO) is 1024 bytes. The other stride
+// (LBO) is never read by these products: a K-major k16 step stays inside
+// one 128-byte row, and the MN-major V operand is 64 channels (one atom)
+// wide; it is set to the same 1024 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed. A
+// wait that lasts seconds traps, so a pipeline fault ends the launch with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t spins = 0;; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 28)) __trap();
+  }
+}
+
+// One TMA box of a 3-D (c, n, b) map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(row), "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes, so the compiler
+// moves no access to them across the issue or the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The bf16 A fragments of P for the k16 slice kk of a 32-key tile, from the
+// fp32 m64n32 accumulator s: the accumulator's (row, column) pairs are the A
+// fragment's (row, k) pairs, so this is a cast, not a shuffle.
+__device__ __forceinline__ void p_fragments(const float* s, int kk, uint32_t* a) {
+  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// D(64 x 32, fp32) += A(64 x 16, smem) B(16 x 32, smem), both K-major.
+__device__ __forceinline__ void wgmma_m64n32_ss(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+// D(64 x 64, fp32) += A(64 x 16, registers) B(16 x 64, smem, MN-major: tnspB).
+__device__ __forceinline__ void wgmma_m64n64_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 64, fp32) += A(64 x 16, smem, K-major) B(16 x 64, smem, MN-major)
+// (the self-test's staged-P product).
+__device__ __forceinline__ void wgmma_m64n64_ss_tb(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int C>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int n, float scale_log2) {
+  constexpr int NBOX = C / 64;  // 64-channel boxes in a row
+  constexpr int NB = NBOX / 2;  // boxes a consumer owns
+  constexpr uint32_t Q_BYTES = NBOX * kQBox;
+  constexpr uint32_t KV_BYTES = NBOX * kKVBox;  // one stage of K (or V)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;
+  const uint32_t sk = sq + Q_BYTES;
+  const uint32_t sv = sk + 2 * KV_BYTES;
+  const uint32_t sx = sv + 2 * KV_BYTES;
+  const uint32_t bars = sx + kXBytes;
+  float* xs = reinterpret_cast<float*>(smem_raw + (sx - raw));
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 + 8 * s; };
+  auto v_full = [&](int s) { return bars + 24 + 8 * s; };
+  auto k_empty = [&](int s) { return bars + 40 + 8 * s; };
+  auto v_empty = [&](int s) { return bars + 56 + 8 * s; };
+
+  const int tiles = (n + kWgKeys - 1) / kWgKeys;
+  const int q0 = blockIdx.x * kWgRows;
+  const int batch = blockIdx.y;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 256);
+      mbar_init(v_empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int b = 0; b < NBOX; ++b) tma_load_3d(sq + b * kQBox, &tm_q, q_full, b * 64, q0, batch);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it & 1;
+        const uint32_t free_parity = ((it >> 1) & 1) ^ 1;
+        mbar_wait(k_empty(s), free_parity);
+        mbar_expect_tx(k_full(s), KV_BYTES);  // full boxes, also where the tail is zero-filled
+        for (int b = 0; b < NBOX; ++b)
+          tma_load_3d(sk + s * KV_BYTES + b * kKVBox, &tm_k, k_full(s), b * 64, it * kWgKeys, batch);
+        mbar_wait(v_empty(s), free_parity);
+        mbar_expect_tx(v_full(s), KV_BYTES);
+        for (int b = 0; b < NBOX; ++b)
+          tma_load_3d(sv + s * KV_BYTES + b * kKVBox, &tm_v, v_full(s), b * 64, it * kWgKeys, batch);
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int t4 = lane & 3;
+    float acc[NB][32];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it & 1;
+      const uint32_t parity = (it >> 1) & 1;
+      // S (partial) = Q K^T over this consumer's channel half
+      float sc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+      mbar_wait(k_full(s), parity);
+      fence_regs<16>(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const uint32_t qa = sq + (wg * NB + b) * kQBox;
+        const uint32_t kb = sk + s * KV_BYTES + (wg * NB + b) * kKVBox;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) wgmma_m64n32_ss(sc, sw128_desc(qa + 32 * k), sw128_desc(kb + 32 * k));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<16>(sc);
+      mbar_arrive(k_empty(s));
+
+      // exchange the partial tiles; thread t of either consumer holds the
+      // same (row, key) positions, so each writes its registers in order
+      float* mine = xs + ((it & 1) * 2 + wg) * 2048;
+      const float* theirs = xs + ((it & 1) * 2 + (wg ^ 1)) * 2048;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) mine[i * 128 + tid] = sc[i];
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sc[i] += theirs[i * 128 + tid];
+
+      // online softmax in the log2 domain, on the accumulator layout: this
+      // thread holds keys 8j + 2 t4 + {0, 1} (j < 4) of rows g and g + 8
+      const int key0 = it * kWgKeys + 2 * t4;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = key0 + 8 * j + (e & 1) < n;
+          sc[4 * j + e] = valid ? sc[4 * j + e] * scale_log2 : -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f(m0 - mn0);
+      const float alpha1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[4 * j] = exp2f(sc[4 * j] - mn0);
+        sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn0);
+        sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn1);
+        sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn1);
+        sum0 += sc[4 * j] + sc[4 * j + 1];
+        sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = alpha0 * l0 + sum0;  // this thread's share of the row sum
+      l1 = alpha1 * l1 + sum1;
+      uint32_t pa[2][4];
+      p_fragments(sc, 0, pa[0]);
+      p_fragments(sc, 1, pa[1]);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[b][4 * j] *= alpha0;
+          acc[b][4 * j + 1] *= alpha0;
+          acc[b][4 * j + 2] *= alpha1;
+          acc[b][4 * j + 3] *= alpha1;
+        }
+
+      // O += P V on this consumer's columns
+      mbar_wait(v_full(s), parity);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) fence_regs<32>(acc[b]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          wgmma_m64n64_rs(acc[b], pa[kk],
+                          sw128_desc(sv + s * KV_BYTES + (wg * NB + b) * kKVBox + kk * 16 * 128));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int b = 0; b < NB; ++b) fence_regs<32>(acc[b]);
+      mbar_arrive(v_empty(s));
+    }
+
+    // O / l, cast, store the rows that exist; lse = m ln 2 + ln l
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const int r0 = q0 + warp * 16 + (lane >> 2);
+    const int r1 = r0 + 8;
+    const size_t row_base = (size_t)batch * n;
+    if (lse != nullptr && wg == 0 && t4 == 0) {
+      if (r0 < n) lse[row_base + r0] = m0 * kLn2 + logf(l0);
+      if (r1 < n) lse[row_base + r1] = m1 * kLn2 + logf(l1);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (wg * NB + b) * 64 + 8 * j + 2 * t4;
+        if (r0 < n)
+          *reinterpret_cast<__nv_bfloat162*>(o + (row_base + r0) * C + col) =
+              __floats2bfloat162_rn(acc[b][4 * j] / l0, acc[b][4 * j + 1] / l0);
+        if (r1 < n)
+          *reinterpret_cast<__nv_bfloat162*>(o + (row_base + r1) * C + col) =
+              __floats2bfloat162_rn(acc[b][4 * j + 2] / l1, acc[b][4 * j + 3] / l1);
+      }
+  }
+}
+
+template <int C>
+constexpr size_t wgmma_smem_bytes() {
+  // 1024 bytes of slack to align the tiles, the tiles, the exchange, 9 barriers
+  return 1024 + (C / 64) * (kQBox + 4 * kKVBox) + kXBytes + 9 * 8;
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no link against libcuda.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {  // resolved once, thread-safely
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 (b, n, c) tensor, innermost first, with
+// boxes of 64 channels x `rows` rows x 1 batch element, 128-byte swizzle,
+// and zero fill past n.
+bool encode_map(CUtensorMap* map, const void* ptr, int b, int n, int c, int rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)n, (cuuint64_t)b};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)n * c * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int C>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b, int n,
+                 float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, b, n, C, kWgRows) || !encode_map(&tk, k, b, n, C, kWgKeys) ||
+      !encode_map(&tv, v, b, n, C, kWgKeys)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = wgmma_smem_bytes<C>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kWgRows - 1) / kWgRows, b);
+  flash_fwd_wgmma_kernel<C><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, n, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+bool takes_wgmma(int c) { return c % 128 == 0 && c <= 512; }
+
+// The descriptor and fragment self-test: one warpgroup, one tile of each
+// product as the Hopper instance forms it. q (64 x 128), k and v (32 x 128)
+// bf16 arrive by TMA; s = q k^T (64 x 32 fp32), o = bf16(s) v with bf16(s)
+// from registers (64 x 128 fp32), and o_staged = the same product with
+// bf16(s) staged through shared memory as a K-major swizzled operand.
+__global__ void __launch_bounds__(128, 1)
+wgmma_selftest_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, float* s_out, float* o_out,
+                      float* o_staged_out) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;
+  const uint32_t sk = sq + 2 * kQBox;
+  const uint32_t sv = sk + 2 * kKVBox;
+  const uint32_t sp = sv + 2 * kKVBox;  // 64 rows x 64 keys (32 used), swizzled
+  const uint32_t bar = sp + kQBox;
+  unsigned char* gp = smem_raw + (sp - raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 2 * kQBox + 4 * kKVBox);
+    for (int b = 0; b < 2; ++b) {
+      tma_load_3d(sq + b * kQBox, &tm_q, bar, b * 64, 0, 0);
+      tma_load_3d(sk + b * kKVBox, &tm_k, bar, b * 64, 0, 0);
+      tma_load_3d(sv + b * kKVBox, &tm_v, bar, b * 64, 0, 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  const int warp = tid >> 5, lane = tid & 31, t4 = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);
+
+  float sc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+  fence_regs<16>(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_m64n32_ss(sc, sw128_desc(sq + b * kQBox + 32 * k), sw128_desc(sk + b * kKVBox + 32 * k));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<16>(sc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e >> 1);
+      const int col = 8 * j + 2 * t4 + (e & 1);
+      s_out[r * 32 + col] = sc[4 * j + e];
+      // bf16(s) into the staged operand, 128-byte swizzle by hand
+      const uint32_t off = r * 128 + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) * 2));
+      *reinterpret_cast<bf16*>(gp + off) = __float2bfloat16(sc[4 * j + e]);
+    }
+
+  uint32_t pa[2][4];
+  p_fragments(sc, 0, pa[0]);
+  p_fragments(sc, 1, pa[1]);
+  float acc[2][32], acc2[2][32];
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = acc2[b][i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the stores, for wgmma
+  __syncthreads();
+  fence_regs<32>(acc[0]);
+  fence_regs<32>(acc[1]);
+  fence_regs<32>(acc2[0]);
+  fence_regs<32>(acc2[1]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const uint64_t vd = sw128_desc(sv + b * kKVBox + kk * 16 * 128);
+      wgmma_m64n64_rs(acc[b], pa[kk], vd);
+      wgmma_m64n64_ss_tb(acc2[b], sw128_desc(sp + 32 * kk), vd);
+    }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<32>(acc[0]);
+  fence_regs<32>(acc[1]);
+  fence_regs<32>(acc2[0]);
+  fence_regs<32>(acc2[1]);
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = (r0 + 8 * (e >> 1)) * 128 + b * 64 + 8 * j + 2 * t4 + (e & 1);
+        o_out[idx] = acc[b][4 * j + e];
+        o_staged_out[idx] = acc2[b][4 * j + e];
+      }
+}
+
 bool bad_shape(int b, int n, int c) {
   return b < 1 || b > 65535 || n < 1 || c < 64 || c > 1024 || c % 64 != 0;
 }
@@ -422,8 +975,35 @@ extern "C" int medvae_flash_fwd_bf16(const void* q, const void* k, const void* v
   if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return c <= 512 ? launch_bf16<64>(q, k, v, o, l, b, n, c, scale, s)
-                  : launch_bf16<32>(q, k, v, o, l, b, n, c, scale, s);
+  switch (takes_wgmma(c) ? c : 0) {  // the instance is chosen by c alone
+    case 128: return launch_wgmma<128>(q, k, v, o, l, b, n, scale, s);
+    case 256: return launch_wgmma<256>(q, k, v, o, l, b, n, scale, s);
+    case 384: return launch_wgmma<384>(q, k, v, o, l, b, n, scale, s);
+    case 512: return launch_wgmma<512>(q, k, v, o, l, b, n, scale, s);
+    default:
+      return c <= 512 ? launch_bf16<64>(q, k, v, o, l, b, n, c, scale, s)
+                      : launch_bf16<32>(q, k, v, o, l, b, n, c, scale, s);
+  }
+}
+
+// 1 when medvae_flash_fwd_bf16 takes the wgmma instance for head dim c, 0
+// when it takes the mma.sync one.
+extern "C" int medvae_flash_fwd_bf16_instance(int c) { return takes_wgmma(c) ? 1 : 0; }
+
+// The self-test of the wgmma instance's descriptors and P fragments:
+// q (64, 128), k and v (32, 128) bf16 in; s (64, 32), o and o_staged
+// (64, 128) fp32 out (see wgmma_selftest_kernel).
+extern "C" int medvae_flash_wgmma_selftest(const void* q, const void* k, const void* v, void* s,
+                                           void* o, void* o_staged, void* stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, 1, kWgRows, 128, kWgRows) || !encode_map(&tk, k, 1, kWgKeys, 128, kWgKeys) ||
+      !encode_map(&tv, v, 1, kWgKeys, 128, kWgKeys)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = 1024 + 3 * kQBox + 4 * kKVBox + 8;
+  wgmma_selftest_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<float*>(s), static_cast<float*>(o), static_cast<float*>(o_staged));
+  return (int)cudaGetLastError();
 }
 
 extern "C" int medvae_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,

@@ -4,7 +4,9 @@ and the autograd Function that trains through them.
 Counterparts of medvae_tpu/ops/flash_attention.py:
   * B1 `_flash_fwd_kernel` -> csrc/flash_fwd.cu: O, and with `want_lse` the
     (b, n) fp32 row logsumexp the backward reads (the TPU's lane-replicated
-    (b, n, 128) carrier is not copied);
+    (b, n, 128) carrier is not copied). bf16 with c % 128 == 0 and c <= 512
+    takes its Hopper instance (wgmma, TMA), other bf16 shapes its mma.sync
+    one (`flash_fwd_instance` says which);
   * B2 `_flash_dkv_kernel` -> csrc/flash_bwd.cu: dK, dV;
   * B3 `_flash_dq_kernel`  -> csrc/flash_bwd.cu: dQ;
   * the `jax.custom_vjp` around them -> `FlashAttention`: forward B1 with lse,
@@ -161,6 +163,19 @@ def flash_attention_fwd(
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device) if want_lse else None
     _launch("flash_fwd", (q, k, v, out, lse), q)
     return out, lse
+
+
+def flash_fwd_instance(c: int, dtype: torch.dtype) -> str:
+    """Which instance of B1 a CUDA launch at head dim c takes: "wgmma_tma"
+    (the Hopper instance), "mma_sync" (bf16 shapes it does not take) or
+    "fp32_fma". Asks the built library, where the choice is made."""
+    if dtype == torch.float32:
+        return "fp32_fma"
+    from medvae_tpu_torch.ops import _build
+
+    fn = _build.load("flash_fwd").medvae_flash_fwd_bf16_instance
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return "wgmma_tma" if fn(int(c)) else "mma_sync"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

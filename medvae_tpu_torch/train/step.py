@@ -36,6 +36,7 @@ import torch
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import preprocess
 from medvae_tpu_torch.losses.elbo import DisentangledVAELoss, VAELoss
+from medvae_tpu_torch.losses.graft import graft_npz
 from medvae_tpu_torch.losses.perceptual import BiomedCLIPLoss, LPIPSLoss
 from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
 from medvae_tpu_torch.train.metrics import kl_metrics, latent_metrics, psnr, reconstruction_metrics
@@ -58,15 +59,22 @@ def _towers(loss_cfg: Dict[str, Any]):
 
 def make_frozen(loss_cfg: Dict[str, Any], device, seed: int = 0) -> Dict[str, torch.nn.Module]:
     """The frozen towers `loss_cfg` needs, with random weights from fixed
-    seeds (seed + 11 for LPIPS, seed + 13 for CLIP, as bench.py folds them)."""
+    seeds (seed + 11 for LPIPS, seed + 13 for CLIP, as bench.py folds them),
+    then the pretrained npz of `loss.weights_path` (LPIPS) and
+    `loss.clip_weights_path` (CLIP) grafted over them where set, as
+    medvae_tpu/train/trainer.py:218-233 does."""
     if str(loss_cfg.get("type", "vae")) != "disentangled_vae":
         return {}
     lp, bc, _, _ = _towers(loss_cfg)
     frozen = {}
     if lp is not None:
         frozen["lpips"] = lp.init(seed + 11, device)
+        if loss_cfg.get("weights_path"):
+            graft_npz(frozen["lpips"], str(loss_cfg["weights_path"]), "LPIPS")
     if bc is not None:
         frozen["clip"] = bc.init(seed + 13, device)
+        if loss_cfg.get("clip_weights_path"):
+            graft_npz(frozen["clip"], str(loss_cfg["clip_weights_path"]), "CLIP")
     return frozen
 
 

@@ -7,6 +7,8 @@ JAX test harness:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -104,6 +106,79 @@ def test_flash_function_grads_match_autograd_of_plain_forward(gen, shape, dtype)
     (ref.float() * w.transpose(1, 2).float()).sum().backward()
     for name, a, b in zip("qkv", leaves, ref_leaves):
         _assert_grad_close(a.grad, b.grad, dtype, "d" + name)
+
+
+def test_wgmma_descriptors_and_p_fragments_match_matmul(gen):
+    """One tile of each product of B1's Hopper instance (flash_fwd.cu:
+    medvae_flash_wgmma_selftest): S = q·kᵀ with both operands K-major in
+    swizzled shared memory, and bf16(S)·v with v read as a transposed
+    (MN-major) operand and bf16(S) taken from registers, held against the
+    same product with bf16(S) staged through shared memory."""
+    from medvae_tpu_torch.ops import _build
+
+    q = torch.randn((64, 128), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((32, 128), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((32, 128), generator=gen, device="cuda").bfloat16()
+    s = torch.empty((64, 32), device="cuda")
+    o, o_staged = torch.empty((64, 128), device="cuda"), torch.empty((64, 128), device="cuda")
+    fn = _build.load("flash_fwd").medvae_flash_wgmma_selftest
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 7, ctypes.c_int
+    err = fn(*(t.data_ptr() for t in (q, k, v, s, o, o_staged)), torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"CUDA error {err}"
+    torch.cuda.synchronize()
+    s_ref = q.double() @ k.double().T
+    o_ref = s.bfloat16().double() @ v.double()
+    assert _rel(s, s_ref) <= 1e-5, _rel(s, s_ref)
+    assert _rel(o, o_ref) <= 1e-5, _rel(o, o_ref)
+    assert torch.equal(o, o_staged)
+
+
+# the Hopper instance's head dims, and n ragged against both its 64-row query
+# tile and its 32-key stage
+WGMMA_C = [128, 256, 384, 512]
+WGMMA_N = [1, 63, 1000, 3136]
+
+
+@pytest.mark.parametrize("c", WGMMA_C)
+@pytest.mark.parametrize("n", WGMMA_N)
+def test_flash_wgmma_instance_matches_plain_version(gen, n, c):
+    assert fa.flash_fwd_instance(c, torch.bfloat16) == "wgmma_tma"
+    b = 1 if n == 3136 else 2
+    q, k, v = _qkv(gen, (b, n, c), torch.bfloat16)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+    before = fa.launches["flash_fwd"]
+    o = fa.flash_attention(q, k, v)
+    o_lse, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == before + 2
+    tol_abs, tol_rel = TOLERANCE[torch.bfloat16]
+    for got in (o, o_lse):
+        assert torch.isfinite(got).all()
+        err = (got.double() - o_ref.double()).abs().max().item()
+        assert err <= tol_abs and _rel(got, o_ref) <= tol_rel, (err, _rel(got, o_ref))
+    assert torch.equal(o, o_lse)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+def test_flash_wgmma_instance_repeats_bit_for_bit(gen):
+    q, k, v = _qkv(gen, (4, 1000, 512), torch.bfloat16)
+    o1, lse1 = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+def test_flash_c1024_stays_on_the_mma_sync_instance(gen):
+    assert fa.flash_fwd_instance(1024, torch.bfloat16) == "mma_sync"
+    assert fa.flash_fwd_instance(192, torch.bfloat16) == "mma_sync"
+    q, k, v = _qkv(gen, (2, 784, 1024), torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    tol_abs, tol_rel = TOLERANCE[torch.bfloat16]
+    assert (o.double() - o_ref.double()).abs().max().item() <= tol_abs
+    assert _rel(o, o_ref) <= tol_rel
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
 
 
 def test_flash_wrapper_raises_on_the_card_instead_of_falling_back(gen):

@@ -172,7 +172,7 @@ def test_converter_covers_the_full_size_trees(name):
 
 
 @pytest.mark.parametrize("name", ["base_vae_quick", "beta_vae_quick", "conditional_vae_quick"])
-def test_quick_configs_raise_on_their_dropout(name):
+def test_quick_configs_build_with_their_dropout(name):
     """The quick configs set dropout 0.1, which the port now takes (it raised
     until dropout was ported): every key of theirs builds, and every res
     block drops at their rate."""

@@ -264,3 +264,83 @@ def test_frozen_tower_init_is_seeded_and_frozen():
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
     assert not any(p.requires_grad for p in a.parameters()) and not a.training
     np.testing.assert_allclose(a.lin1.numpy(), 1.0 / 192)
+
+
+# ----------------------------------------------------------------- graft ---- #
+
+
+def _write_npz(path, variables, extra=None):
+    """A JAX tower init written as the export script writes one: flat
+    `params/...` keys, no download."""
+    from flax import traverse_util
+
+    flat = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(variables, sep="/").items()}
+    np.savez(path, **flat, **(extra or {}))
+    return str(path)
+
+
+def _graft_pair(tower, tmp_path):
+    """(JAX loss, its grafted variables, the port's tower grafted from the
+    same npz). The npz comes from a JAX init under another seed than the
+    one each package's random tower starts from."""
+    from medvae_tpu_torch.losses.graft import graft_npz
+
+    if tower == "lpips":
+        src = jperc.LPIPSLoss(dtype=jnp.float32).init(jax.random.PRNGKey(5), 64)
+        path = _write_npz(tmp_path / "lpips.npz", src, {"params/stale/kernel": np.zeros(3)})
+        jl = jperc.LPIPSLoss(weights_path=path, dtype=jnp.float32)
+        variables = jl.init(jax.random.PRNGKey(0), 64)
+        net = tperc.LPIPSLoss().init(11)
+    else:
+        jl = jperc.BiomedCLIPLoss(encoder=tower, dtype=jnp.float32)
+        if tower == "vit":
+            jl.module = JaxCLIPViT(**SMALL_VIT)
+        path = _write_npz(tmp_path / f"{tower}.npz", jl.init(jax.random.PRNGKey(6)),
+                          {"params/stale/kernel": np.zeros(3)})
+        jl._weights_path = path
+        variables = jl.init(jax.random.PRNGKey(1))
+        net = tperc.init_tower(CLIPViT(**SMALL_VIT) if tower == "vit" else tperc.SimpleCLIPEncoder(), 13)
+    return jl, variables, graft_npz(net, path, tower), path
+
+
+@pytest.mark.parametrize("tower", ["lpips", "vit", "simple"])
+def test_grafted_tower_matches_the_jax_graft(tower, tmp_path, capsys):
+    jl, variables, net, _ = _graft_pair(tower, tmp_path)
+    assert "ignored unmatched keys: ['params/stale/kernel']" in capsys.readouterr().out
+    if tower == "lpips":
+        a, b = np.tanh(_np(21, 2, 64, 64, 3)), np.tanh(_np(22, 2, 64, 64, 3))
+        want = np.asarray(jl.module.apply(variables, jnp.asarray(a), jnp.asarray(b)))
+        got = net(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    else:
+        x = _np(23, 2, 224, 224, 3)
+        want = np.asarray(jl.module.apply(variables, jnp.asarray(x)))
+        got = net(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert not any(p.requires_grad for p in net.parameters())
+
+
+def test_make_frozen_reads_both_weight_paths(tmp_path):
+    from medvae_tpu_torch.train.step import make_frozen
+
+    _, _, lpips, lpips_path = _graft_pair("lpips", tmp_path)
+    _, _, clip, clip_path = _graft_pair("simple", tmp_path)
+    cfg = {"type": "disentangled_vae", "perceptual_weight": 0.1, "biomedclip_weight": 0.1,
+           "clip_encoder": "simple"}
+    random = make_frozen(cfg, "cpu")
+    frozen = make_frozen({**cfg, "weights_path": lpips_path, "clip_weights_path": clip_path}, "cpu")
+    for key, want, first in (("lpips", lpips, "alex.conv1.weight"), ("clip", clip, "Conv_0.weight")):
+        got = frozen[key].state_dict()
+        assert all(torch.equal(got[k], v) for k, v in want.state_dict().items()), key
+        assert not torch.equal(got[first], random[key].state_dict()[first]), key
+
+
+def test_graft_without_a_matching_key_raises_in_both_packages(tmp_path):
+    from medvae_tpu.losses.graft import graft_npz as jax_graft
+    from medvae_tpu_torch.losses.graft import graft_npz
+
+    path = str(tmp_path / "wrong.npz")
+    np.savez(path, **{"alex/conv1/kernel": np.zeros((11, 11, 3, 64)), "params/nope": np.zeros(2)})
+    with pytest.raises(ValueError, match="matched 0 of 2"):
+        graft_npz(tperc.LPIPSLoss().init(0), path, "LPIPS")
+    with pytest.raises(ValueError, match="matched 0 of 2"):
+        jax_graft(jperc.LPIPSLoss().init(jax.random.PRNGKey(0), 64), path, "LPIPS")
