@@ -76,9 +76,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            (backward) against their plain versions at ATTN_SHAPES in bf16 and
            fp32 (fp32: B4 max abs and relative L2 1e-5, B5 1e-4; bf16: B4 one
            rounding apart elementwise and relative L2 2e-3, B5 by GRAD_REL and
-           GRAD_ABS_OF_STD), a bitwise repeat of B5, the FusedAttention
+           GRAD_ABS_OF_STD), each line naming the instance that took it
+           (wgmma_tma for bf16 with c % 64 == 0 and n <= 256, fma for the
+           rest), a bitwise repeat of B4 and of B5, the FusedAttention
            Function against autograd through the plain forward, and their
-           times at (64, 256, 1024) bf16 beside bound, plain,
+           times at (64, 256, 1024) bf16 beside two bounds (the Hopper
+           instance's arithmetic, each product with P or dS three times on
+           the tensor cores; and every such product once at the fp32 rate),
+           the FMA instance's time at the same shape, plain,
            scaled_dot_product_attention in fp32 (and its backward) and
            reference_attention;
   base128_train  the chest_base_vae experiment's step at 128² (the BaseVAE of
@@ -109,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import gc
 import json
 import os
@@ -748,8 +754,12 @@ def phase_http(engine) -> None:
 
 # kernel-name fragments -> the layer a kernel belongs to, for the breakdown
 _CATEGORIES = (
-    ("attention_fwd_kernel", "attention_fwd (B4)"),
+    ("attention_fwd_kernel", "attention_fwd (B4)"),  # the FMA instance
     ("attention_bwd_", "attention_bwd (B5)"),
+    ("attention_rows_wgmma_kernel<true>", "attention_fwd (B4)"),  # the Hopper instance
+    ("attention_rows_wgmma_kernelILb1E", "attention_fwd (B4)"),
+    ("attention_rows_wgmma", "attention_bwd (B5)"),
+    ("attention_cols_wgmma", "attention_bwd (B5)"),
     ("gn_row_stats", "gn_swish_fwd (B6)"),
     ("gn_group_stats", "gn_swish_fwd (B6)"),
     ("gn_swish_apply", "gn_swish_fwd (B6)"),
@@ -1242,6 +1252,32 @@ def attn_grad_check(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> 
             "ok": finite and err <= ATTN_BWD_BAR and rel <= ATTN_BWD_BAR}
 
 
+def fma_instance_calls(q, k, v, g) -> dict:
+    """B4 and B5 on the FMA instance (the first design) at the shape of q
+    (bf16), through the library's `medvae_attention_{fwd,bwd}_bf16_fma`,
+    which take it at any shape: the before of this run's before-and-after.
+    The port's wrappers never call these, so they count no launch."""
+    lib = _build.load("attention")
+    b, n, c = q.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = [torch.empty_like(q) for _ in range(4)]
+    stats = torch.empty((3, b, n), dtype=torch.float32, device=q.device)
+    fns = {}
+    for name, n_ptrs in (("fwd", 4), ("bwd", 8)):
+        fn = getattr(lib, f"medvae_attention_{name}_bf16_fma")
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+
+    def call(name, tensors):
+        err = fns[name](*(t.data_ptr() for t in tensors), b, n, c, float(c) ** -0.5, stream)
+        if err != 0:
+            raise RuntimeError(f"FMA instance {name}: CUDA error {err}")
+
+    return {"attention_fwd": lambda: call("fwd", (q, k, v, outs[0])),
+            "attention_bwd": lambda: call("bwd", (q, k, v, g, *outs[1:], stats))}
+
+
 def phase_attn_kernel() -> dict:
     """B4 and B5 against their plain versions at ATTN_SHAPES in bf16 and
     fp32, a bitwise repeat of B5, FusedAttention against autograd through the
@@ -1273,6 +1309,7 @@ def phase_attn_kernel() -> dict:
                     for n, a, b in zip(("dq", "dk", "dv"), grads, at.fused_attention_bwd_plain(q, k, v, g))]
             emit({"phase": "attn kernel", "kernels": "attention_fwd (B4), attention_bwd (B5)",
                   "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                  "instance": at.attention_instance(shape[1], shape[2], dtype),
                   "fwd_max_abs_err": err.max().item(), "fwd_rel_l2": rel,
                   "fwd_bar": ATTN_FWD_BAR[dtype], "fwd_within_one_rounding": one_rounding,
                   "output_std": o_ref.float().std().item(), "grads": rows})
@@ -1288,9 +1325,12 @@ def phase_attn_kernel() -> dict:
     q, k, v, g = randn(ATTN_TIMED, torch.bfloat16, 4)
     first, second = at.fused_attention_bwd(q, k, v, g), at.fused_attention_bwd(q, k, v, g)
     repeat = all(torch.equal(a, b) for a, b in zip(first, second))
-    emit({"phase": "attn kernel", "attention_bwd_bitwise_repeat": repeat, "shape": list(ATTN_TIMED)})
-    if not repeat:
-        raise AssertionError("attention_bwd is not bitwise repeatable")
+    fwd_repeat = torch.equal(at.fused_attention_fwd(q, k, v), at.fused_attention_fwd(q, k, v))
+    emit({"phase": "attn kernel", "attention_bwd_bitwise_repeat": repeat,
+          "attention_fwd_bitwise_repeat": fwd_repeat, "shape": list(ATTN_TIMED),
+          "instance": at.attention_instance(ATTN_TIMED[1], ATTN_TIMED[2], torch.bfloat16)})
+    if not (repeat and fwd_repeat):
+        raise AssertionError("attention_fwd or attention_bwd is not bitwise repeatable")
     for shape, dtype in (((4, 256, 1024), torch.bfloat16), ((2, 144, 96), torch.float32)):
         q2, k2, v2, w = randn(shape, dtype, 4)
         leaves = [t.clone().requires_grad_(True) for t in (q2, k2, v2)]
@@ -1308,15 +1348,21 @@ def phase_attn_kernel() -> dict:
     q32, k32, v32 = (t.float() for t in (q, k, v))
     q4, k4, v4 = (t[:, None] for t in (q32, k32, v32))
     library_bwd_ms, backend, refused = sdpa_backward_ms(q32, k32, v32, g.float())
-    # (operations with two bf16 operands, operations with an fp32 one, bytes):
-    # Q·Kᵀ and G·Vᵀ take bf16 operands and could run on the bf16 tensor cores;
-    # P·V, Pᵀ·G, dS·K and dSᵀ·Q take the fp32 P or dS and need the fp32 rate.
+    # (tensor-core operations, bytes, (operations of the products with two
+    # bf16 operands, of those with P or dS)). The first counts the Hopper
+    # instance's own arithmetic, all at the bf16 rate: Q·Kᵀ and G·Vᵀ take two bf16
+    # operands and run once on the tensor cores; P·V, Pᵀ·G, dS·K and dSᵀ·Q
+    # take the fp32 P or dS as three bf16 terms, so they run three times on
+    # the tensor cores (P and dS are never rounded once to bf16, as the TPU
+    # multiplies with an fp32 P). Beside it, `bound_fp32_products_ms` counts
+    # those products once at the fp32 rate, the bound of the FMA instance's design.
     # Bytes: each input read once and each output written once.
     mm = 2.0 * b * n * n * c
     work = {
-        "attention_fwd": (mm, mm, 4.0 * b * n * c * el),
-        "attention_bwd": (2 * mm, 3 * mm, 7.0 * b * n * c * el),
+        "attention_fwd": ((1 + 3) * mm, 4.0 * b * n * c * el, (mm, mm)),
+        "attention_bwd": ((2 + 3 * 3) * mm, 7.0 * b * n * c * el, (2 * mm, 3 * mm)),
     }
+    fma = fma_instance_calls(q, k, v, g)
     calls = {
         "attention_fwd": (lambda: at.fused_attention_fwd(q, k, v), lambda: at.fused_attention_fwd_plain(q, k, v),
                           cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)),
@@ -1327,22 +1373,26 @@ def phase_attn_kernel() -> dict:
     }
     rows = {}
     for name, (kernel, plain, library_ms, library) in calls.items():
-        bf16_flops, fp32_flops, nbytes = work[name]
-        flops = bf16_flops + fp32_flops
-        t_ops = (bf16_flops / H100_BF16_FLOPS + fp32_flops / H100_FP32_FLOPS) * 1e3
+        tc_flops, nbytes, (bf16_products, fp32_products) = work[name]
+        t_ops = tc_flops / H100_BF16_FLOPS * 1e3
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_fp32 = (bf16_products / H100_BF16_FLOPS + fp32_products / H100_FP32_FLOPS) * 1e3
         ms = cuda_ms(kernel)
-        rows[name] = {"shape": [b, n, c], "dtype": "bfloat16", "ms": ms, "plain_ms": cuda_ms(plain),
-                      "library_ms": library_ms, "library": library,
+        flops = bf16_products + fp32_products  # the function's own operations
+        rows[name] = {"shape": [b, n, c], "dtype": "bfloat16",
+                      "instance": at.attention_instance(n, c, torch.bfloat16), "ms": ms,
+                      "plain_ms": cuda_ms(plain), "library_ms": library_ms, "library": library,
                       "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                      "flops": flops, "flops_bf16_operands": bf16_flops, "bytes": nbytes,
+                      "bound_fp32_products_ms": max(t_fp32, t_bytes),
+                      "fma_instance_ms": cuda_ms(fma[name]),
+                      "flops": flops, "tensor_core_flops": tc_flops, "bytes": nbytes,
                       "tflops_per_s": flops / ms / 1e9,
                       "max_abs_err": worst[name]}
     rows["attention_fwd"]["reference_attention_ms"] = cuda_ms(lambda: reference_attention(q, k, v))
     rows["attention_bwd"]["library_refused"] = refused
     for name, row in rows.items():
         emit({"phase": "attn kernel", "kernel": name, **row})
-    del q, k, v, g, q32, k32, v32, first, second
+    del q, k, v, g, q32, k32, v32, first, second, fma
     torch.cuda.empty_cache()
     return rows
 
@@ -1732,8 +1782,9 @@ def main() -> int:
         # trainer through cli/train.py), each counted from 0 around its run
         rows.append({"name": name, "launches": sum(c[name] for c in attn_launches.values()),
                      **{f"launches_{path}": c[name] for path, c in attn_launches.items()},
-                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "library", "shape")}})
+                     **{k: r[k] for k in ("instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "bound_fp32_products_ms", "fma_instance_ms", "library_ms",
+                                          "library", "shape")}})
     emit({"kernels": [{"name": r["name"], "route": "cuda", "source": source[r["name"]],
                        "replaces": replaces[r["name"]], **{k: v for k, v in r.items() if k != "name"}}
                       for r in rows]})

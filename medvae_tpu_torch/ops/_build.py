@@ -5,9 +5,10 @@ Each `ops/csrc/<name>.cu` is compiled on its own by
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 into `build/medvae_tpu_torch/<name>-<hash>.so` beside the package, where the
-hash covers the source and the flags, so an edited kernel is rebuilt and an
-unchanged one is reused. The sources expose a plain C interface (no PyTorch
-headers), which keeps a build to seconds.
+hash covers the source, the shared headers `csrc/*.cuh` and the flags, so an
+edited kernel or header is rebuilt and an unchanged one is reused. The
+sources expose a plain C interface (no PyTorch headers), which keeps a build
+to seconds.
 """
 
 from __future__ import annotations
@@ -47,8 +48,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the source, every header in
+    csrc/ (a source may include any of them) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -19,13 +19,17 @@ on a TPU:
 The gates are kept for routing parity (the same blocks take the same path in
 both packages) until an H100 measurement in PERF.md sets the port's own.
 
-B4 and B5 compute in fp32 throughout, as the TPU kernels do: fp32 logits, the
-exact softmax (max, exp, sum, divide), P·V with fp32 P, and each output cast
-to the input dtype once. They are built from csrc/attention.cu by
-ops/_build.py at first use. On CUDA tensors the wrappers launch their kernel
-(bf16 or fp32) or raise; they use the plain PyTorch versions only for tensors
-on the CPU. Each call adds one to its kernel's count in `launches` (one for
-B5, which takes two CUDA launches).
+B4 and B5 keep the TPU kernels' fp32 arithmetic: fp32 logits, the exact
+softmax (max, exp, sum, divide), products with P and dS at fp32 fidelity, and
+each output cast to the input dtype once. They are built from
+csrc/attention.cu by ops/_build.py at first use, in two instances
+(`attention_instance` says which a shape takes): bf16 with c % 64 == 0 and
+n <= 256, every shape of the main path, takes the Hopper instance
+("wgmma_tma": tensor-core products, P and dS as three bf16 terms each); every
+other shape, and fp32, the FMA instance ("fma"). On CUDA tensors the wrappers
+launch their kernel or raise; they use the plain PyTorch versions only for
+tensors on the CPU. Each call adds one to its kernel's count in `launches`
+(one for B5, which takes two CUDA launches).
 """
 
 from __future__ import annotations
@@ -147,6 +151,31 @@ def fused_max_tokens() -> int:
     return fn()
 
 
+def attention_instance(n: int, c: int, dtype: torch.dtype) -> str:
+    """Which instance of B4 and B5 a CUDA launch at (n, c) takes: "wgmma_tma"
+    (the Hopper instance: bf16, c % 64 == 0, n <= 256) or "fma". Asks the
+    built library, where the choice is made."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    from medvae_tpu_torch.ops import _build
+
+    fn = _build.load("attention").medvae_attention_bf16_instance
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return "wgmma_tma" if fn(int(n), int(c)) else "fma"
+
+
+def _bwd_scratch(q: torch.Tensor) -> torch.Tensor:
+    """B5's scratch, sized by the library for the instance (b, n, c) takes:
+    the Hopper instance's bf16 planes of P and dS, or the FMA instance's row
+    max, sum and delta."""
+    from medvae_tpu_torch.ops import _build
+
+    fn = _build.load("attention").medvae_attention_bwd_scratch_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    nbytes = fn(*q.shape, int(q.dtype == torch.bfloat16))
+    return torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
+
+
 def _launch(name: str, tensors, q: torch.Tensor) -> None:
     b, n, c = q.shape
     with torch.cuda.device(q.device):
@@ -245,9 +274,7 @@ def fused_attention_bwd(
         return fused_attention_bwd_plain(q, k, v, g)
     _check(q, k, v, g)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    b, n, _ = q.shape
-    stats = torch.empty((3, b, n), dtype=torch.float32, device=q.device)  # row max, sum, delta
-    _launch("attention_bwd", (q, k, v, g, dq, dk, dv, stats), q)
+    _launch("attention_bwd", (q, k, v, g, dq, dk, dv, _bwd_scratch(q)), q)
     return dq, dk, dv
 
 

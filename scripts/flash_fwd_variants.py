@@ -67,7 +67,8 @@ def build(name: str, subs) -> tuple:
     src.write_text(text)
     lib = OUT / f"{name}.so"
     proc = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)],
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(SRC.parent), "-o", str(lib),
+         str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode != 0:

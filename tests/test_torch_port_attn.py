@@ -134,6 +134,37 @@ def test_function_grads_match_autograd_of_the_plain_forward(shape):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5)
 
 
+
+def _bf16_terms(x: torch.Tensor, terms: int):
+    """x = t0 + t1 + ... with t_i = bf16(x - t0 - ... - t_{i-1}), each term
+    widened back to fp32 (csrc/hopper.cuh: split3)."""
+    out, rest = [], x
+    for _ in range(terms):
+        t = rest.bfloat16().float()
+        out.append(t)
+        rest = rest - t
+    return out
+
+
+def test_three_bf16_terms_keep_fp32_fidelity_of_products_with_p():
+    """The Hopper instance's premise: P (fp32 softmax rows) times a
+    bf16-valued operand, as three bf16-term products summed in fp32, is as
+    close to the fp64 product as the fp32 product is; one term alone is not
+    (rounding P once to bf16 misses by ~1e-3)."""
+    rs = np.random.RandomState(0)
+    logits = torch.from_numpy(rs.randn(64, 256).astype(np.float32)) * 2.0
+    p = torch.softmax(logits, dim=-1)
+    v = torch.from_numpy(rs.randn(256, 1024).astype(np.float32)).bfloat16().float()
+    exact = p.double() @ v.double()
+
+    def rel(got):
+        return float(torch.linalg.vector_norm(got.double() - exact) / torch.linalg.vector_norm(exact))
+
+    fp32 = rel(p @ v)
+    three = rel(sum(t @ v for t in _bf16_terms(p, 3)))
+    assert three <= 1e-6 and fp32 <= 1e-6, (three, fp32)
+    assert rel(_bf16_terms(p, 1)[0] @ v) >= 1e-4
+
 def test_function_passes_gradcheck_in_float64():
     q, k, v = (torch.from_numpy(a).double().requires_grad_(True)
                for a in _arrays(4, (2, 20, 12), 3))

@@ -398,3 +398,70 @@ def test_attention_wrappers_raise_on_the_card_instead_of_falling_back(gen):
     with pytest.raises(TypeError):
         at.fused_attention_bwd(q, q, q, q.bfloat16())
     assert at.launches == before
+
+
+# the Hopper instance (bf16, c % 64 == 0, n <= 256): the 128² BaseVAE's
+# (64, 256, 1024), its narrower level, b down to 1, and n ragged against the
+# 64-row tiles and the 256-key rows
+WGMMA_ATTN_SHAPES = [(64, 256, 1024), (64, 256, 512), (1, 256, 1024), (8, 256, 1024), (3, 196, 128)]
+# the instance each of ATTN_SHAPES takes in bf16 (fp32 always takes "fma"):
+# c = 96 and 2870 are not multiples of 64, n = 863 is past 256
+ATTN_INSTANCE = {(64, 256, 1024): "wgmma_tma", (64, 256, 512): "wgmma_tma", (2, 144, 64): "wgmma_tma",
+                 (3, 196, 96): "fma", (2, 863, 64): "fma", (2, 128, 2870): "fma"}
+
+
+def test_attention_instance_names_each_shape(gen):
+    assert set(ATTN_INSTANCE) == set(ATTN_SHAPES)
+    for (b, n, c), want in ATTN_INSTANCE.items():
+        assert at.attention_instance(n, c, torch.bfloat16) == want, (b, n, c)
+        assert at.attention_instance(n, c, torch.float32) == "fma", (b, n, c)
+    for _, n, c in WGMMA_ATTN_SHAPES:
+        assert at.attention_instance(n, c, torch.bfloat16) == "wgmma_tma"
+
+
+def test_attention_wgmma_operand_forms_match_matmul(gen):
+    """One tile of each operand form of the Hopper instance
+    (attention.cu: medvae_attention_wgmma_selftest): x·yᵀ on m64n128 with
+    both operands K-major, x·z with A K-major and B MN-major, xᵀ·z with A
+    read transposed (MN-major), and the three bf16 terms of the fp32 x·yᵀ
+    from registers times z, which must keep fp32 fidelity."""
+    from medvae_tpu_torch.ops import _build
+
+    x = torch.randn((64, 64), generator=gen, device="cuda").bfloat16()
+    y = torch.randn((128, 64), generator=gen, device="cuda").bfloat16()
+    z = torch.randn((64, 64), generator=gen, device="cuda").bfloat16()
+    s = torch.empty((64, 128), device="cuda")
+    o_k, o_t, o_r = (torch.empty((64, 64), device="cuda") for _ in range(3))
+    fn = _build.load("attention").medvae_attention_wgmma_selftest
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 8, ctypes.c_int
+    err = fn(*(t.data_ptr() for t in (x, y, z, s, o_k, o_t, o_r)), torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"CUDA error {err}"
+    torch.cuda.synchronize()
+    xd, yd, zd = x.double(), y.double(), z.double()
+    for name, got, want in (("s", s, xd @ yd.T), ("o_k", o_k, xd @ zd), ("o_t", o_t, xd.T @ zd),
+                            ("o_r", o_r, s.double()[:, :64] @ zd)):
+        assert _rel(got, want) <= 1e-6, (name, _rel(got, want))
+
+
+@pytest.mark.parametrize("shape", WGMMA_ATTN_SHAPES)
+def test_attention_wgmma_instance_matches_plain_versions(gen, shape):
+    _, n, c = shape
+    assert at.attention_instance(n, c, torch.bfloat16) == "wgmma_tma"
+    q, k, v, g = _qkv(gen, shape, torch.bfloat16, 4)
+    before = dict(at.launches)
+    o = at.fused_attention_fwd(q, k, v)
+    grads = at.fused_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert at.launches == {k_: v_ + 1 for k_, v_ in before.items()}
+    _assert_attn_fwd_close(o, at.fused_attention_fwd_plain(q, k, v), torch.bfloat16)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, at.fused_attention_bwd_plain(q, k, v, g)):
+        assert got.dtype == torch.bfloat16
+        _assert_attn_grad_close(got, want, torch.bfloat16, name)
+
+
+def test_attention_wgmma_instance_repeats_bit_for_bit(gen):
+    """B4 and B5 on the Hopper instance: no atomics, fixed-order sums."""
+    q, k, v, g = _qkv(gen, (8, 256, 1024), torch.bfloat16, 4)
+    assert torch.equal(at.fused_attention_fwd(q, k, v), at.fused_attention_fwd(q, k, v))
+    for a, b_ in zip(at.fused_attention_bwd(q, k, v, g), at.fused_attention_bwd(q, k, v, g)):
+        assert torch.equal(a, b_)

@@ -116,6 +116,19 @@ def test_build_targets_hopper_into_a_hashed_ignored_path():
     assert "build/" in (REPO / ".gitignore").read_text().split()
 
 
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh names a new library for every source, so no
+    source is served from a stale build of a header it includes."""
+    (tmp_path / "a.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("a")
+    assert _build._target("a") == before
+    (tmp_path / "hopper.cuh").write_text("// two\n")
+    assert _build._target("a") != before
+    assert {p.name for p in (REPO / "medvae_tpu_torch/ops/csrc").glob("*.cuh")} == {"hopper.cuh"}
+
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
     return root in ("jax", "jaxlib", "flax", "orbax", "optax") or root == "medvae_tpu"
