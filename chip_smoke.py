@@ -5,7 +5,9 @@
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   env      torch, CUDA, nvcc, and the card's name and power limit;
   build    compiles the kernels of medvae_tpu_torch/ops/csrc, one nvcc per
-           source, all started together (timed);
+           source, all started together (timed), with ptxas's registers and
+           spills for the Hopper backward's kernels and whether ptxas
+           serialized any wgmma;
   kernel   the flash-attention forward kernel B1 against its plain PyTorch
            version on the card (bf16: max abs 4e-3 and relative L2 1e-2 at
            (32,3136,512), (2,784,1024), (2,1000,512), (3,1000,256); fp32: max abs
@@ -14,14 +16,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            the rest, fp32_fma), a bitwise repeat at (32,3136,512), and its time
            beside its bound, the plain version's and
            scaled_dot_product_attention's; then B1's lse (max abs 1e-4) and the
-           backward kernels B2 (dK, dV) and B3 (dQ) against their plain versions at
-           the same shapes (bf16: relative L2 1e-2 and max abs 15 % of the
-           gradient's std; fp32: 1e-4 for both), the autograd Function against
-           autograd through the plain forward, and their times at (32,3136,512)
-           bf16 beside their bounds and the plain versions'; the library
-           yardsticks are the efficient-attention forward asked for its lse
-           (B1 with lse) and the backward of scaled_dot_product_attention, which
-           computes dq, dk and dv at once and so stands against B2 + B3;
+           backward (B2: dK, dV; B3: dQ) through `flash_bwd` against its plain
+           versions at the same shapes (bf16: relative L2 1e-2 and max abs 15 %
+           of the gradient's std; fp32: 1e-4 for both), each line naming the
+           instance that took it (wgmma_tma: the Hopper instance's two passes,
+           every bf16 shape; fp32_fma: kernels B2 then B3), a bitwise repeat
+           at (32,3136,512), the autograd Function against autograd through
+           the plain forward, and the times at (32,3136,512) bf16 beside the
+           bounds (10 b n² c operations; bytes with and without the P and dS
+           planes) and the plain versions'; the library yardsticks are the
+           efficient-attention forward asked for its lse (B1 with lse) and the
+           backward of scaled_dot_product_attention, which computes dq, dk and
+           dv at once as `flash_bwd` does;
   serve    the full-width 224² flagship DisentangledConditionalVAE (random
            weights from a seed, bf16) behind InferenceEngine(buckets 1/8/32):
            reconstruct/encode/decode/sample requests with mixed modalities,
@@ -44,13 +50,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            MEDVAE_FUSED_GN=1 (50 B6 launches a chunk, derived from the model,
            beside B1's 5) and then off on the same engine, and after the train
            phase 2 warmup and 5 timed train steps with it on (50/50 B6/B7 and
-           5/5/5 B1/B2/B3 a step): ms, img/s, peak memory, a profile;
+           5/5 B1/flash_bwd a step): ms, img/s, peak memory, a profile;
   train    the full-width 224² flagship's training step (fp32 params, bf16
            compute, the full-scale experiment's loss with fp32 LPIPS and
            CLIP-ViT towers from fixed seeds, adamw lr 1e-4 constant, clip 1.0,
            bench.py's synthetic bs-32 batch, augment on, switch off): 2 warmup
-           and 10 timed steps, each with its loss terms, grad norm and B1/B2/B3
-           launches (5/5/5 or it raises), then ms per step, img/s, peak memory
+           and 10 timed steps, each with its loss terms, grad norm and B1 and
+           flash_bwd launches (5/5 or it raises), then ms per step, img/s, peak memory
            and a torch.profiler breakdown of one step;
   train_parity  one fp32 step of the same model on the card against the CPU
            (bs 2, same weights, batch and noise, augment off: loss relative
@@ -274,14 +280,26 @@ def phase_env() -> str:
     return smi
 
 
+# the Hopper backward's kernels, by a fragment of their mangled names
+BWD_KERNELS = {"flash_planes_kernel": "flash_planes_kernel (pass a)",
+               "flash_grads_kernelILi256E": "flash_grads_kernel<256> (pass b)",
+               "flash_grads_kernelILi128E": "flash_grads_kernel<128> (pass b)",
+               "flash_grads_kernelILi64E": "flash_grads_kernel<64> (pass b)"}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, in parallel
         paths = list(pool.map(_build.build, KERNEL_SOURCES))
     for name in KERNEL_SOURCES:
         _build.load(name)
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libraries": [p.name for p in paths]})
+    seconds = round(time.perf_counter() - t0, 3)
+    stats = _build.ptxas_stats("flash_bwd")
+    emit({"phase": "build", "seconds": seconds, "libraries": [p.name for p in paths],
+          "flash_bwd_ptxas": {label: next((s for k, s in stats.items() if frag in k), None)
+                              for frag, label in BWD_KERNELS.items()},
+          # ptxas warning C7520: a wgmma serialized
+          "wgmma_serialized": [name for name in KERNEL_SOURCES if "C7520" in _build.report(name)]})
 
 
 def phase_kernel() -> dict:
@@ -403,8 +421,9 @@ def efficient_lse_ms(q, k, v, lse):
 
 
 def phase_backward() -> dict:
-    """B1's lse, B2 and B3 against their plain versions, the autograd
-    Function against autograd through the plain forward, and their times."""
+    """B1's lse and the backward (B2, B3) against their plain versions, the
+    autograd Function against autograd through the plain forward, and their
+    times."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def randn(shape, dtype, count):
@@ -417,21 +436,28 @@ def phase_backward() -> dict:
         _, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
         lse_err = (lse - lse_ref).abs().max().item()
         delta = (g.float() * o.float()).sum(-1)
-        dk, dv = fa.flash_dkv(q, k, v, g, lse, delta)
-        dq = fa.flash_dq(q, k, v, g, lse, delta)
+        before = dict(fa.launches)
+        dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta)
         torch.cuda.synchronize()
+        count = fa.launches["flash_bwd"] - before["flash_bwd"]
+        instance = fa.flash_bwd_instance(shape[2], dtype)
         ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, g, lse, delta)
         ref_dq = fa.flash_dq_plain(q, k, v, g, lse, delta)
         rows = [grad_check("dq", dq, ref_dq, dtype), grad_check("dk", dk, ref_dk, dtype),
                 grad_check("dv", dv, ref_dv, dtype)]
-        emit({"phase": "kernel", "kernels": "flash_fwd lse, flash_dkv, flash_dq",
-              "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+        emit({"phase": "kernel", "kernels": "flash_fwd lse, flash_bwd", "instance": instance,
+              "launches": count, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
               "lse_max_abs_err": lse_err, "lse_bar": LSE_TOLERANCE, "grads": rows})
-        if not lse_err <= LSE_TOLERANCE or not all(r["ok"] for r in rows):
-            raise AssertionError(f"backward kernels {shape} {dtype}: lse {lse_err}, {rows}")
+        if not lse_err <= LSE_TOLERANCE or not all(r["ok"] for r in rows) or count != 1:
+            raise AssertionError(f"backward {shape} {dtype} ({instance}): lse {lse_err}, {rows}, {count} launches")
         if shape == (32, 3136, 512):
             worst = {"flash_fwd_lse": lse_err, "flash_dkv": max(rows[1]["max_abs_err"], rows[2]["max_abs_err"]),
                      "flash_dq": rows[0]["max_abs_err"]}
+            # the Hopper backward repeats bit for bit (no atomics)
+            repeat = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), fa.flash_bwd(q, k, v, g, lse, delta)))
+            emit({"phase": "kernel", "kernel": "flash_bwd", "shape": list(shape), "repeat_bitwise": repeat})
+            if not repeat:
+                raise AssertionError("flash_bwd (32, 3136, 512): two launches differ")
         del q, k, v, g, o, lse, dk, dv, dq, ref_dk, ref_dv, ref_dq
         torch.cuda.empty_cache()
 
@@ -454,18 +480,20 @@ def phase_backward() -> dict:
     library_ms, backend, refused = sdpa_backward_ms(q, k, v, g)
     lse_library_ms, lse_library_check = efficient_lse_ms(q, k, v, lse)
     el = q.element_size()
+    n_pad = fa.plane_shape(b, n)[2]
+    plane_bytes = b * n_pad * n_pad * el  # one of the two planes
     work = {  # operations; bytes with each input read once and each output written once
         "flash_fwd_lse": (4.0 * b * n * n * c, 4.0 * b * n * c * el + 4.0 * b * n),
-        "flash_dkv": (8.0 * b * n * n * c, 6.0 * b * n * c * el + 8.0 * b * n),
-        "flash_dq": (6.0 * b * n * n * c, 5.0 * b * n * c * el + 8.0 * b * n),
+        # five n x n x c products (S, dP, dV, dK, dQ); q, k, v, dO, lse, delta
+        # in, dq, dk, dv out
+        "flash_bwd": (10.0 * b * n * n * c, 7.0 * b * n * c * el + 8.0 * b * n),
     }
     calls = {
         "flash_fwd_lse": (lambda: fa.flash_attention_fwd(q, k, v),
                           lambda: fa.flash_attention_fwd_plain(q, k, v)),
-        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, g, lse, delta),
-                      lambda: fa.flash_dkv_plain(q, k, v, g, lse, delta)),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, g, lse, delta),
-                     lambda: fa.flash_dq_plain(q, k, v, g, lse, delta)),
+        "flash_bwd": (lambda: fa.flash_bwd(q, k, v, g, lse, delta),
+                      lambda: fa.flash_bwd_grads_plain(fa.flash_bwd_planes_plain(q, k, v, g, lse, delta),
+                                                       q, k, g)),
     }
     rows = {}
     for name, (kernel, plain) in calls.items():
@@ -476,21 +504,23 @@ def phase_backward() -> dict:
             "shape": [b, n, c], "dtype": "bfloat16", "ms": ms, "plain_ms": cuda_ms(plain),
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes, "tflops_per_s": flops / ms / 1e9,
-            "max_abs_err": worst[name],
         }
     rows["flash_fwd_lse"].update(
-        library_ms=lse_library_ms, library="aten._scaled_dot_product_efficient_attention, lse on",
+        max_abs_err=worst["flash_fwd_lse"], library_ms=lse_library_ms,
+        library="aten._scaled_dot_product_efficient_attention, lse on",
         library_lse_max_abs_diff_or_refusal=lse_library_check)
-    # one SDPA backward computes dq, dk and dv: it stands against B2 + B3
-    backward_ms = rows["flash_dkv"]["ms"] + rows["flash_dq"]["ms"]
-    for name in ("flash_dkv", "flash_dq"):
-        rows[name].update(library_ms=library_ms, library_covers="dq, dk and dv: compare backward_ms",
-                          backward_ms=backward_ms)
+    # the design's own traffic: the planes written once and read three times
+    # (dS by dQ and dK, P by dV)
+    bytes_with_planes = rows["flash_bwd"]["bytes"] + 5.0 * plane_bytes
+    rows["flash_bwd"].update(
+        instance=fa.flash_bwd_instance(c, q.dtype), max_abs_err_dkv=worst["flash_dkv"],
+        max_abs_err_dq=worst["flash_dq"], bytes_with_planes=bytes_with_planes,
+        bound_with_planes_ms=max(rows["flash_bwd"]["bound_ms"], bytes_with_planes / H100_BYTES_PER_S * 1e3),
+        # one SDPA backward computes dq, dk and dv, as flash_bwd does
+        library_ms=library_ms, library="scaled_dot_product_attention backward",
+        library_backend=backend, library_refused=refused)
     for name, row in rows.items():
-        emit({"phase": "kernel", "kernel": name, **row,
-              **({} if name == "flash_fwd_lse" else {"library": "scaled_dot_product_attention backward",
-                                                    "library_backend": backend,
-                                                    "library_refused": refused})})
+        emit({"phase": "kernel", "kernel": name, **row})
     return rows
 
 
@@ -687,7 +717,7 @@ def phase_serve(engine) -> int:
                 f"{method}({n}): {got} flash launches, want {PER_CHUNK[method]} x {chunks}"
             )
     main_path_launches = dict(fa.launches)  # the main path ends here
-    if main_path_launches["flash_dkv"] or main_path_launches["flash_dq"]:
+    if main_path_launches["flash_bwd"]:
         raise AssertionError(f"serving launched backward kernels: {main_path_launches}")
 
     for b in engine.buckets:
@@ -765,8 +795,8 @@ _CATEGORIES = (
     ("gn_swish_apply", "gn_swish_fwd (B6)"),
     ("gn_bwd", "gn_swish_bwd (B7)"),
     ("flash_fwd", "flash_fwd (B1)"),
-    ("flash_dkv", "flash_dkv (B2)"),
-    ("flash_dq", "flash_dq (B3)"),
+    ("flash_planes_kernel", "flash_bwd (B2 + B3)"),  # the Hopper instance's two passes
+    ("flash_grads_kernel", "flash_bwd (B2 + B3)"),
     ("Nhwc", "cudnn layout transforms"),
     ("Nchw", "cudnn layout transforms"),
     ("fprop", "convolution"),
@@ -835,7 +865,7 @@ TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 32, 2, 10
 # kernels would be ~3e-3
 ATTN_GRAD_REL = 1e-3
 CARD = "cuda"  # the train phases' device
-PER_TRAIN_STEP = {"flash_fwd": 5, "flash_dkv": 5, "flash_dq": 5}  # the five 56² blocks
+PER_TRAIN_STEP = {"flash_fwd": 5, "flash_bwd": 5}  # the five 56² blocks
 
 
 def bench_optimizer():
@@ -963,7 +993,7 @@ def phase_flagship_fused_serve(engine) -> dict:
 
 def phase_flagship_fused_train(state_dict) -> dict:
     """The flagship's train step with MEDVAE_FUSED_GN on: B6/B7 at every
-    GroupNorm+SiLU next to B1-B3's 5/5/5; ms, img/s, peak memory and a
+    GroupNorm+SiLU next to B1's and flash_bwd's 5/5; ms, img/s, peak memory and a
     profile of one step, beside the `train` phase's switch-off numbers."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1738,15 +1768,15 @@ def main() -> int:
     attn_launches["trainer128"] = phase_trainer128()
     print(smi, flush=True)
     source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
-              "flash_dkv": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
-              "flash_dq": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
+              "flash_bwd (B2: dK, dV)": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
+              "flash_bwd (B3: dQ)": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
               "gn_swish_fwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu",
               "gn_swish_bwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu",
               "attention_fwd": "medvae_tpu_torch/ops/csrc/attention.cu",
               "attention_bwd": "medvae_tpu_torch/ops/csrc/attention.cu"}
     replaces = {"flash_fwd": "medvae_tpu/ops/flash_attention.py:208",
-                "flash_dkv": "medvae_tpu/ops/flash_attention.py:279",
-                "flash_dq": "medvae_tpu/ops/flash_attention.py:341",
+                "flash_bwd (B2: dK, dV)": "medvae_tpu/ops/flash_attention.py:279",
+                "flash_bwd (B3: dQ)": "medvae_tpu/ops/flash_attention.py:341",
                 "gn_swish_fwd": "medvae_tpu/ops/groupnorm_swish.py:106",
                 "gn_swish_bwd": "medvae_tpu/ops/groupnorm_swish.py:154",
                 "attention_fwd": "medvae_tpu/ops/attention.py:94",
@@ -1761,11 +1791,15 @@ def main() -> int:
                library_ms_with_lse=backward["flash_fwd_lse"]["library_ms"],
                max_abs_err_lse=backward["flash_fwd_lse"]["max_abs_err"])
     rows = [{"name": "flash_fwd", **fwd}]
-    for name in ("flash_dkv", "flash_dq"):
-        r = backward[name]
-        rows.append({"name": name, "launches": train_launches[name],
-                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "library_covers", "backward_ms")}})
+    # B2 and B3 are computed by one launch of flash_bwd (the Hopper
+    # instance's two passes), so both rows carry that launch's numbers
+    r = backward["flash_bwd"]
+    for name, err in (("flash_bwd (B2: dK, dV)", r["max_abs_err_dkv"]), ("flash_bwd (B3: dQ)", r["max_abs_err_dq"])):
+        rows.append({"name": name, "launches": train_launches["flash_bwd"], "max_abs_err": err,
+                     "covers": "dq, dk and dv in one launch",
+                     **{k: r[k] for k in ("instance", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "bound_with_planes_ms", "library_ms",
+                                          "library")}})
     for name in ("gn_swish_fwd", "gn_swish_bwd"):
         r = gn_kernel[name]
         # launches: the main path's, bench.py's default step with the switch

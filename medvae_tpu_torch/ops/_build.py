@@ -8,7 +8,8 @@ into `build/medvae_tpu_torch/<name>-<hash>.so` beside the package, where the
 hash covers the source, the shared headers `csrc/*.cuh` and the flags, so an
 edited kernel or header is rebuilt and an unchanged one is reused. The
 sources expose a plain C interface (no PyTorch headers), which keeps a build
-to seconds.
+to seconds. ptxas's report of each kernel (registers, spills) is kept beside
+the library as `<name>-<hash>.log` and read by `ptxas_stats`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "medvae_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -71,8 +73,40 @@ def build(name: str) -> Path:
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)  # before the library, which marks the build done
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     return out
+
+
+def parse_ptxas(report: str) -> Dict[str, dict]:
+    """Registers and spill-store bytes by (mangled) kernel name from
+    `nvcc -Xptxas -v` output: ptxas names a function ("Compiling entry
+    function", "Function properties for") and then gives its spills and
+    registers."""
+    stats: Dict[str, dict] = {}
+    current = None
+    for line in report.splitlines():
+        named = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if named:
+            current = named[1]
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores")):
+            found = re.search(pattern, line)
+            if found and current:
+                stats.setdefault(current, {}).setdefault(key, int(found[1]))
+    return stats
+
+
+def report(name: str) -> str:
+    """nvcc's output (ptxas's report) of the build of csrc/<name>.cu, built
+    first if needed."""
+    build(name)
+    return _target(name).with_suffix(".log").read_text()
+
+
+def ptxas_stats(name: str) -> Dict[str, dict]:
+    """`parse_ptxas` of csrc/<name>.cu's build report."""
+    return parse_ptxas(report(name))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -497,8 +497,6 @@ constexpr uint32_t kRowsStage = kBox64 + kBox256;
 constexpr uint32_t kOExchange = 2 * 2 * 64 * 64 * 4;  // 2 buffers x 2 consumers of 64 x 64 fp32
 constexpr uint32_t kReduce = 3 * 2 * 64 * 4;          // row max, sum, delta of both consumers
 
-__host__ __device__ constexpr int pad64(int n) { return (n + 63) / 64 * 64; }
-
 constexpr size_t rows_smem_bytes(bool fwd) {
   return 1024 + kHStages * kRowsStage + (fwd ? kOExchange : 0) + kReduce + 2 * kHStages * 8;
 }
@@ -509,24 +507,11 @@ __host__ __device__ constexpr uint32_t cols_stage_bytes() { return 3 * kBox64 + 
 template <int NBW>
 constexpr size_t cols_smem_bytes() { return 1024 + kHStages * cols_stage_bytes<NBW>() + 2 * kHStages * 8; }
 
-// A ring of kHStages stages: full[s] completes when its TMA bytes land,
-// empty[s] when both consumer warpgroups (256 threads) are done with it.
-struct Ring {
-  uint32_t bars;
-  __device__ uint32_t full(int s) const { return bars + 8 * s; }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (kHStages + s); }
-  __device__ void init() const {
-    for (int s = 0; s < kHStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), 256);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-};
+using HRing = Ring<kHStages>;  // the ring of hopper.cuh
 
 // pass (a)'s one chunked product: d(64 x 128 keys of consumer wg) = X Y^T over
 // nch 64-channel stages starting at ring position *it.
-__device__ __forceinline__ void rows_product(float* d, const Ring& ring, uint32_t stages, int nch,
+__device__ __forceinline__ void rows_product(float* d, const HRing& ring, uint32_t stages, int nch,
                                              int wg, int* it) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
@@ -580,7 +565,7 @@ attention_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t stages = (raw + 1023u) & ~1023u;
   const uint32_t ox = stages + kHStages * kRowsStage;
   const uint32_t red = ox + (kFwd ? kOExchange : 0);
-  const Ring ring{red + kReduce};
+  const HRing ring{red + kReduce};
   float* oxs = reinterpret_cast<float*>(smem_raw + (ox - raw));
   float* red_m = reinterpret_cast<float*>(smem_raw + (red - raw));
   float* red_l = red_m + 128;
@@ -771,7 +756,7 @@ attention_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // A terms (K-major when TA = 0, transposed when TA = 1) times the B box at
 // byte offset boff[x] of each stage, from ring position *it on.
 template <int NBW, int TA>
-__device__ __forceinline__ void cols_mainloop(float (*acc)[32], const Ring& ring, uint32_t stages,
+__device__ __forceinline__ void cols_mainloop(float (*acc)[32], const HRing& ring, uint32_t stages,
                                               uint32_t stage_bytes, int chunks, const uint32_t* boff,
                                               int* it) {
 #pragma unroll
@@ -836,7 +821,7 @@ attention_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tm_s,
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t stages = (raw + 1023u) & ~1023u;
-  const Ring ring{stages + kHStages * STAGE};
+  const HRing ring{stages + kHStages * STAGE};
   const int nbox = c / 64;
   const int chunks = pad64(n) / 64;
   if (threadIdx.x == 0) ring.init();
@@ -1001,16 +986,6 @@ attention_selftest_kernel(const __grid_constant__ CUtensorMap tm_x,
 // n <= 256 (kHKeys), any b the grid allows.
 bool takes_wgmma(int b, int n, int c) {
   return b >= 1 && b <= 65535 && n >= 1 && n <= kHKeys && c >= 64 && c % 64 == 0;
-}
-
-// The blocks of a persistent grid over `tiles` tiles: one an SM, each walking
-// its tiles (kernels loop t = blockIdx.x, blockIdx.x + gridDim.x, ...).
-cudaError_t grid_blocks(long long tiles, int* blocks) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  *blocks = (int)(tiles < sms ? tiles : sms);
-  return err;
 }
 
 template <bool kFwd>

@@ -11,52 +11,47 @@
 // before the products that take them (dV = P^T dO, dK = dS^T Q, dQ = dS K), which
 // accumulate in fp32; outputs come back in the input type.
 //
-// Bound: B2 does four products of n x n x c per batch element (S, dP, dV, dK),
-// 8 b n^2 c operations; B3 three (S, dP, dQ), 6 b n^2 c. At the flagship shape
-// (b 32, n 3136, c 512) that is 1.3e12 and 9.7e11 operations against 6 and 5
-// (b, n, c) bf16 tensors moved (about 0.6 GB), far above the H100's ~295
-// operations per byte: both are bound by tensor-core throughput. What this
-// design does about it: every product runs on the tensor cores and no (n, n)
-// tile leaves the SM; it does not yet keep the tensor cores fed (synchronous
-// loads, one block per SM, S and dP recomputed by both kernels, fragments
-// gathered with plain shared-memory loads). wgmma with TMA-fed tiles is the
-// next design.
+// Bound: the function needs five products of n x n x c per batch element (S,
+// dP, dV, dK, dQ), 10 b n^2 c operations, against 7 (b, n, c) bf16 tensors
+// and 2 (b, n) fp32 rows moved. At the flagship shape (b 32, n 3136, c 512)
+// that is 1.6e12 operations over 0.72 GB, far above the H100's ~295
+// operations per byte: tensor-core throughput bounds it (1.63 ms at 989
+// TFLOP/s).
 //
-// Design (simple first). The head dim c (512 on the flagship, up to 1024) is
-// far larger than stock FlashAttention's <= 256, so the fp32 accumulators do
-// not fit one warp: as in flash_fwd.cu, warp w owns columns [64w, 64w + 64) of
-// the accumulators in registers, c / 64 warps a block.
-//  * Tiles of T = 32 query rows and 32 key rows for c <= 512, 16 above. At
-//    c = 512 the two fp32 accumulators of B2 (T x c each) take 128 registers a
-//    thread over 8 warps, and the four c-wide bf16 tiles (Q, dO, K, V) 133 KB
-//    of shared memory: inside the 227 KB a block may use (64-row tiles would
-//    need 266 KB and the whole register file).
-//  * B2: one block per (key tile, batch); K and V stay resident and the loop
-//    runs over query tiles. B3: one block per (query tile, batch); Q, dO, lse
-//    and delta stay resident and the loop runs over key tiles.
-//  * Each (16 x 8) tile of S and dP is computed by one warp over all of c
-//    (mma.sync m16n8k16, bf16 in, fp32 accumulate), turned into P and dS in
-//    registers, and stored to shared memory in bf16: transposed in B2, so that
-//    P^T and dS^T are row-major A operands of the dV and dK products, and as is
-//    in B3.
-//  * The fp32 instance uses CUDA-core FMAs in full fp32 (no TF32), as the JAX
-//    fp32 dot does: tiles of 16 rows (8 above c = 512), one logit per thread,
-//    each thread owning c T / 256 accumulator elements. It is the parity path.
-//  * Any n: K, V, Q and dO tiles are zero-filled past n, keys past n are
-//    masked to P = 0, query rows past n read lse = +inf (so P = 0) and
-//    delta = 0, and rows past n are not stored.
+// Two instances; the Python wrapper picks one by dtype, with no
+// try-and-fall-back:
+//  * bf16 (every c the wrapper takes: multiples of 64 up to 1024): the Hopper
+//    instance (medvae_flash_bwd_bf16, its own comment below). S and dP are
+//    formed once into bf16 P and dS planes (10 b n^2 c operations, where a
+//    key-tile kernel for dK/dV beside a query-tile kernel for dQ forms them
+//    twice: 14), then dQ, dK and dV are wgmma products over them on TMA-fed
+//    tiles.
+//  * fp32: CUDA-core FMAs in full fp32 (no TF32), as the JAX fp32 dot does;
+//    the parity path. B2 (dK, dV) holds a tile of 16 keys (8 above c = 512)
+//    and loops over query tiles, B3 (dQ) holds a tile of queries and loops
+//    over key tiles, each forming S and dP for its tile: one logit per thread,
+//    each thread owning c T / 256 accumulator elements. Any n: K, V, Q and dO
+//    tiles are zero-filled past n, keys past n are masked to P = 0, query rows
+//    past n read lse = +inf (so P = 0) and delta = 0, and rows past n are not
+//    stored.
 //
-// C interface (bound with ctypes; returns cudaGetLastError() after the launch):
-//   int medvae_flash_dkv_bf16(q, k, v, g, lse, delta, dk, dv, b, n, c, scale, stream)
-//   int medvae_flash_dkv_f32 (q, k, v, g, lse, delta, dk, dv, b, n, c, scale, stream)
-//   int medvae_flash_dq_bf16 (q, k, v, g, lse, delta, dq, b, n, c, scale, stream)
-//   int medvae_flash_dq_f32  (q, k, v, g, lse, delta, dq, b, n, c, scale, stream)
-// where g is dO.
+// C interface (bound with ctypes; each returns cudaGetLastError() after its
+// launches):
+//   int medvae_flash_bwd_bf16(q, k, v, g, lse, delta, dq, dk, dv, planes, b, n, c, scale, stream)
+//   int medvae_flash_bwd_f32 (q, k, v, g, lse, delta, dq, dk, dv, planes, b, n, c, scale, stream)
+//   int medvae_flash_bwd_selftest(x, z, o256, o256t, o128, o128t, st, stream)
+// where g is dO and planes the Hopper instance's (2, b, pad64(n), pad64(n))
+// bf16 scratch (not read by the fp32 instance).
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // descriptors, mbarriers, the ring, TMA, the wgmma products
 
 namespace {
 
@@ -93,292 +88,6 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// D += A B for one m16n8k16 tile: A row-major 16x16, B column-major 16x8,
-// bf16 operands, fp32 accumulator (PTX ISA fragment layouts).
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// D += A B where A (16 x 16) is row-major at a with row stride lda and B
-// (16 x 8) is row-major at b with row stride ldb, i.e. B[k][j] = b[k * ldb + j].
-__device__ __forceinline__ void mma_rows(float* d, const bf16* a, int lda, const bf16* b,
-                                         int ldb) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const bf16* pa = a + g * lda + t4 * 2;
-  const bf16* pb = b + (t4 * 2) * ldb + g;
-  mma_bf16(d, ld32(pa), ld32(pa + 8 * lda), ld32(pa + 8), ld32(pa + 8 * lda + 8),
-           pack2(pb[0], pb[ldb]), pack2(pb[8 * ldb], pb[9 * ldb]));
-}
-
-// For the (16 x 8) tile (mt, nt) of the block of query rows held in Qs / Gs
-// (Q and dO) against the key rows held in Ks / Vs, whose first key is k0:
-// S = Q K^T * scale and dP = dO V^T over all of c on the tensor cores, then
-// p = exp(S - lse) and ds = p (dP - delta) scale in fp32, with keys at or past
-// n masked to p = 0. Element e of p and ds is row mt*16 + g + 8 (e >> 1),
-// column nt*8 + t4*2 + (e & 1) of the block (the mma accumulator layout).
-__device__ __forceinline__ void p_ds_tile(const bf16* Qs, const bf16* Gs, const bf16* Ks,
-                                          const bf16* Vs, int ld, int c,
-                                          const float* lse_s, const float* delta_s, int mt,
-                                          int nt, int k0, int n, float scale, float* p,
-                                          float* ds) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  float dp[4] = {0.f, 0.f, 0.f, 0.f};
-  const bf16* qa = Qs + (mt * 16 + g) * ld + t4 * 2;
-  const bf16* ga = Gs + (mt * 16 + g) * ld + t4 * 2;
-  const bf16* kb = Ks + (nt * 8 + g) * ld + t4 * 2;
-  const bf16* vb = Vs + (nt * 8 + g) * ld + t4 * 2;
-  for (int kk = 0; kk < c; kk += 16) {
-    mma_bf16(s, ld32(qa + kk), ld32(qa + 8 * ld + kk), ld32(qa + kk + 8),
-             ld32(qa + 8 * ld + kk + 8), ld32(kb + kk), ld32(kb + kk + 8));
-    mma_bf16(dp, ld32(ga + kk), ld32(ga + 8 * ld + kk), ld32(ga + kk + 8),
-             ld32(ga + 8 * ld + kk + 8), ld32(vb + kk), ld32(vb + kk + 8));
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = mt * 16 + g + 8 * (e >> 1);
-    const int j = nt * 8 + t4 * 2 + (e & 1);
-    const float sv = s[e] * scale;
-    const float pv = k0 + j < n ? expf(sv - lse_s[r]) : 0.f;
-    p[e] = pv;
-    ds[e] = pv * (dp[e] - delta_s[r]) * scale;
-  }
-}
-
-template <int T>
-constexpr int bf16_threads() { return T == 32 ? 256 : 512; }
-
-template <int T>
-size_t bf16_smem_bytes(int c) {
-  const size_t ld = c + 8;
-  return 4 * T * ld * sizeof(bf16) + 2 * T * (T + 8) * sizeof(bf16) + 2 * T * sizeof(float);
-}
-
-// Store rows [row0, row0 + rows) of the warp's accumulator columns, cast to bf16.
-template <int MT>
-__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[MT][8][4], int row0,
-                                          int n, int c, int col0) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r0 = row0 + mt * 16 + g;
-    const int r1 = r0 + 8;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = col0 + nt * 8 + t4 * 2;
-      if (r0 < n) {
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * c + col) =
-            __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
-      }
-      if (r1 < n) {
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r1 * c + col) =
-            __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
-      }
-    }
-  }
-}
-
-// B2: dK, dV for one tile of T keys of one batch element.
-template <int T>
-__global__ void __launch_bounds__(bf16_threads<T>(), 1)
-flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ g,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int c,
-                      float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int MT = T / 16;  // 16-row mma tiles in T rows
-  constexpr int NT = T / 8;   // 8-column mma tiles in T columns
-  constexpr int LDT = T + 8;  // row stride of the transposed P and dS tiles
-  const int ld = c + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + T * ld;
-  bf16* Qs = Vs + T * ld;
-  bf16* Gs = Qs + T * ld;
-  bf16* PT = Gs + T * ld;    // PT[key][query] = P[query][key]
-  bf16* dST = PT + T * LDT;  // dST[key][query] = dS[query][key]
-  float* lse_s = reinterpret_cast<float*>(dST + T * LDT);
-  float* delta_s = lse_s + T;
-
-  const size_t base = (size_t)blockIdx.y * n * c;
-  q += base;
-  k += base;
-  v += base;
-  g += base;
-  dk += base;
-  dv += base;
-  lse += (size_t)blockIdx.y * n;
-  delta += (size_t)blockIdx.y * n;
-  const int k0 = blockIdx.x * T;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gr = lane >> 2;
-  const int t4 = lane & 3;
-  const int col0 = warp * 64;  // this warp's 64 columns of dK and dV
-
-  load_tile(Ks, ld, k, k0, T, n, c);
-  load_tile(Vs, ld, v, k0, T, n, c);
-
-  float dk_acc[MT][8][4];
-  float dv_acc[MT][8][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dk_acc[mt][nt][e] = 0.f;
-        dv_acc[mt][nt][e] = 0.f;
-      }
-
-  for (int q0 = 0; q0 < n; q0 += T) {
-    __syncthreads();  // the previous step is done with Qs, Gs, PT and dST
-    load_tile(Qs, ld, q, q0, T, n, c);
-    load_tile(Gs, ld, g, q0, T, n, c);
-    load_row_stats(lse_s, delta_s, lse, delta, q0, T, n);
-    __syncthreads();
-
-    for (int t = warp; t < MT * NT; t += nw) {
-      const int mt = t / NT;
-      const int nt = t % NT;
-      float p[4], ds[4];
-      p_ds_tile(Qs, Gs, Ks, Vs, ld, c, lse_s, delta_s, mt, nt, k0, n, scale, p, ds);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = mt * 16 + gr + 8 * (e >> 1);  // query
-        const int j = nt * 8 + t4 * 2 + (e & 1);    // key
-        PT[j * LDT + i] = __float2bfloat16(p[e]);
-        dST[j * LDT + i] = __float2bfloat16(ds[e]);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q on this warp's columns, contracted over
-    // the T queries of the step.
-#pragma unroll
-    for (int kk = 0; kk < T; kk += 16) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          mma_rows(dv_acc[mt][nt], PT + mt * 16 * LDT + kk, LDT,
-                   Gs + kk * ld + col0 + nt * 8, ld);
-          mma_rows(dk_acc[mt][nt], dST + mt * 16 * LDT + kk, LDT,
-                   Qs + kk * ld + col0 + nt * 8, ld);
-        }
-      }
-    }
-  }
-
-  store_acc<MT>(dk, dk_acc, k0, n, c, col0);
-  store_acc<MT>(dv, dv_acc, k0, n, c, col0);
-}
-
-// B3: dQ for one tile of T queries of one batch element.
-template <int T>
-__global__ void __launch_bounds__(bf16_threads<T>(), 1)
-flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ g,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, int n, int c, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int MT = T / 16;
-  constexpr int NT = T / 8;
-  constexpr int LDT = T + 8;  // row stride of the dS tile
-  const int ld = c + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + T * ld;
-  bf16* Ks = Gs + T * ld;
-  bf16* Vs = Ks + T * ld;
-  bf16* dS = Vs + T * ld;  // dS[query][key]
-  float* lse_s = reinterpret_cast<float*>(dS + 2 * T * LDT);
-  float* delta_s = lse_s + T;
-
-  const size_t base = (size_t)blockIdx.y * n * c;
-  q += base;
-  k += base;
-  v += base;
-  g += base;
-  dq += base;
-  lse += (size_t)blockIdx.y * n;
-  delta += (size_t)blockIdx.y * n;
-  const int q0 = blockIdx.x * T;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gr = lane >> 2;
-  const int t4 = lane & 3;
-  const int col0 = warp * 64;  // this warp's 64 columns of dQ
-
-  load_tile(Qs, ld, q, q0, T, n, c);
-  load_tile(Gs, ld, g, q0, T, n, c);
-  load_row_stats(lse_s, delta_s, lse, delta, q0, T, n);
-
-  float acc[MT][8][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += T) {
-    __syncthreads();  // the previous step is done with Ks, Vs and dS
-    load_tile(Ks, ld, k, k0, T, n, c);
-    load_tile(Vs, ld, v, k0, T, n, c);
-    __syncthreads();
-
-    for (int t = warp; t < MT * NT; t += nw) {
-      const int mt = t / NT;
-      const int nt = t % NT;
-      float p[4], ds[4];
-      p_ds_tile(Qs, Gs, Ks, Vs, ld, c, lse_s, delta_s, mt, nt, k0, n, scale, p, ds);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = mt * 16 + gr + 8 * (e >> 1);
-        const int j = nt * 8 + t4 * 2 + (e & 1);
-        dS[i * LDT + j] = __float2bfloat16(ds[e]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K on this warp's columns, contracted over the T keys of the step.
-#pragma unroll
-    for (int kk = 0; kk < T; kk += 16) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          mma_rows(acc[mt][nt], dS + mt * 16 * LDT + kk, LDT, Ks + kk * ld + col0 + nt * 8,
-                   ld);
-        }
-      }
-    }
-  }
-
-  store_acc<MT>(dq, acc, q0, n, c, col0);
-}
-
 // ---------------------------------------------------------------- fp32 ---- //
 
 constexpr int kF32Threads = 256;
@@ -390,8 +99,8 @@ size_t f32_smem_bytes(int c) {
   return (4 * T * ld + 2 * T * (T + 1) + 2 * T) * sizeof(float);
 }
 
-// s = q . k and dp = g . v over c in fp32 FMAs; returns p and ds as the bf16
-// tiles do.
+// s = q . k and dp = g . v over c in fp32 FMAs; returns p = exp(s scale -
+// lse) (0 for a key past n) and ds = p (dp - delta) scale.
 __device__ __forceinline__ void p_ds_f32(const float* qa, const float* ga, const float* kb,
                                          const float* vb, int c, float scale, float lse,
                                          float delta, bool key_in, float& p, float& ds) {
@@ -578,6 +287,497 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------------ //
+// The Hopper instance: S and dP formed once into bf16 P and dS planes, then  //
+// dQ, dK and dV as wgmma products over them (bf16, c % 64 == 0, c <= 1024).  //
+// ------------------------------------------------------------------------ //
+//
+// The TPU kernels cast P and dS to the input type before every product that
+// takes them, so two bf16 (b, np, np) planes (np = n rounded up to 64) hold
+// exactly the operands those products multiply. The (2, b, np, np) scratch
+// is the caller's: plane 0 is P, plane 1 dS, rows are queries and columns
+// keys. Pass (a) writes every element of it, zeros outside n x n.
+//
+// Both passes run a persistent grid, one block of 384 threads an SM: a
+// producer warpgroup whose one thread issues every TMA load into a ring of
+// kBStages stages (setmaxnreg gives its registers to the others), and two
+// consumer warpgroups, each of which keeps one group of wgmmas in flight
+// (it releases a stage when the next one's products are issued). The ring
+// runs on from tile to tile, so the next tile's loads overlap this one's
+// epilogue. No atomics: every sum runs in a fixed order, so a call repeats
+// bit for bit.
+//
+// Pass (a), a tile per (batch element, 128 query rows, 128 keys); consumer w
+// owns query rows [64 w, 64 w + 64) of it against all 128 keys. A stage is
+// one 64-channel chunk: the two consumers' 64-row boxes of Q (then dO) and a
+// 128-row box of K (then V).
+//  * S = Q K^T and dP = dO V^T: wgmma m64n128k16, both operands K-major, over
+//    all of c (64 fp32 registers a thread each). Each consumer contracts the
+//    full c for its own rows, so no exchange is needed.
+//  * P = exp(S scale - lse), keys at or past n masked to 0; dS = P (dP -
+//    delta) scale, in fp32 as the TPU kernels form them. Rows at or past n
+//    read lse = +inf and delta = 0 (P = dS = 0 there). The exp is exp2f of
+//    the argument times log2(e), as B1 takes it: it rounds apart from expf
+//    by ~1e-6 relative, far below the bf16 cast that follows, and took a
+//    call at the flagship shape from 3.19 to 2.91 ms on an H100 80GB HBM3 at
+//    700 W (scripts/flash_bwd_variants.py, its `expf` variant).
+//  * P and dS are cast to bf16 into the consumer's four swizzled 64 x 64
+//    staging boxes and leave by TMA stores (whole 128-byte lines), which clip
+//    at the planes' edge.
+//
+// Pass (b), a tile per (batch element, product, 128 output rows, NW output
+// columns), NW = 256 where c % 256 == 0, else 128 where c % 128 == 0, else
+// 64; consumer w owns output
+// rows [64 w, 64 w + 64) over all NW columns (128 fp32 registers a thread at
+// NW = 256). A stage is one 64-token chunk of the contraction over np: the
+// two consumers' 64 x 64 boxes of a plane and NW / 64 boxes (64 tokens x 64
+// channels) of the B operand. One wgmma m64nNWk16 a k16 slice:
+//    dQ = dS K     A = dS rows, K-major; B = K, MN-major;
+//    dK = dS^T Q   A = the dS boxes at (keys, queries) read MN-major
+//                  (transposed A); B = Q, MN-major;
+//    dV = P^T dO   likewise over the P plane; B = dO.
+// B spans NW / 64 boxes side by side, kBox bytes apart (the descriptor's LBO).
+// Rows and tokens past n are zero in both operands, so the padded chunk adds
+// nothing; rows past n are not stored.
+//
+// Shared memory: pass (a) 4 x 32 KB of ring and 64 KB of staging, pass (b)
+// 4 x 48 KB of ring at NW = 256.
+
+constexpr int kBThreads = 384;
+constexpr int kBStages = 4;
+constexpr uint32_t kBox = 64 * 128;                    // a 64-row, 64-column bf16 box
+constexpr int kPTile = 128;                            // pass (a): query rows and keys a tile
+constexpr uint32_t kPStage = 2 * kBox + kPTile * 128;  // two 64-row boxes, one 128-row box
+constexpr uint32_t kPStaging = 2 * 4 * kBox;           // per consumer: P and dS, two boxes each
+constexpr int kGRows = 128;                            // pass (b): output rows a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr size_t planes_smem_bytes() { return 1024 + kBStages * kPStage + kPStaging + 2 * kBStages * 8; }
+
+template <int NW>
+__host__ __device__ constexpr uint32_t grads_stage_bytes() { return (2 + NW / 64) * kBox; }
+
+template <int NW>
+constexpr size_t grads_smem_bytes() { return 1024 + kBStages * grads_stage_bytes<NW>() + 2 * kBStages * 8; }
+
+using BRing = Ring<kBStages>;
+
+// Release the stage whose products were the group issued before the last
+// one, once that group is done; returns the last group's stage.
+__device__ __forceinline__ int retire_previous(const BRing& ring, int prev, int s) {
+  if (prev >= 0) {
+    wgmma_wait<1>();
+    mbar_arrive(ring.empty(prev));
+  }
+  return s;
+}
+
+// Pass (a)'s product: d (this consumer's 64 rows x 128 keys) = X Y^T over nch
+// 64-channel stages from ring position *it on.
+__device__ __forceinline__ void planes_product(float* d, const BRing& ring, uint32_t stages, int nch,
+                                               int wg, int* it) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  int prev = -1;
+  for (int ch = 0; ch < nch; ++ch, ++*it) {
+    const int s = *it % kBStages;
+    mbar_wait(ring.full(s), (*it / kBStages) & 1);
+    const uint32_t x = stages + s * kPStage + wg * kBox;
+    const uint32_t y = stages + s * kPStage + 2 * kBox;
+    fence_regs<64>(d);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_m64n128_ss(d, sw128_desc(x + 32 * k), sw128_desc(y + 32 * k));
+    wgmma_commit();
+    prev = retire_previous(ring, prev, s);
+  }
+  wgmma_wait<0>();
+  mbar_arrive(ring.empty(prev));
+  fence_regs<64>(d);
+}
+
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_planes_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_planes, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int b, int n, int nch, int tiles, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t stages = (raw + 1023u) & ~1023u;
+  const uint32_t staging = stages + kBStages * kPStage;
+  const BRing ring{staging + kPStaging};
+  const int np = pad64(n);
+  const int row_tiles = (np + kPTile - 1) / kPTile;
+  const int key_tiles = row_tiles;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int key0 = t % key_tiles * kPTile;
+        const int m0 = t / key_tiles % row_tiles * kPTile;
+        const int batch = t / key_tiles / row_tiles;
+        // consumer 1's rows start past the planes only in a last tile of 64
+        // rows; it then reads consumer 0's rows again and stores nothing
+        const int m1 = m0 + 64 < np ? m0 + 64 : m0;
+        auto issue = [&](const CUtensorMap* x, const CUtensorMap* y, int ch) {
+          const int s = it % kBStages;
+          mbar_wait(ring.empty(s), ((it / kBStages) & 1) ^ 1);
+          const uint32_t dst = stages + s * kPStage;
+          mbar_expect_tx(ring.full(s), kPStage);  // full boxes, also where zero-filled past n
+          tma_load_3d(dst, x, ring.full(s), ch * 64, m0, batch);
+          tma_load_3d(dst + kBox, x, ring.full(s), ch * 64, m1, batch);
+          tma_load_3d(dst + 2 * kBox, y, ring.full(s), ch * 64, key0, batch);
+          ++it;
+        };
+        for (int ch = 0; ch < nch; ++ch) issue(&tm_q, &tm_k, ch);
+        for (int ch = 0; ch < nch; ++ch) issue(&tm_g, &tm_v, ch);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8 of its 64
+  const uint32_t mine = staging + wg * (kPStaging / 2);  // P boxes 0, 1, then dS boxes 0, 1
+  unsigned char* box = smem_raw + (mine - raw);
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int key0 = t % key_tiles * kPTile;
+    const int m0 = t / key_tiles % row_tiles * kPTile + wg * 64;  // this consumer's first row
+    const int batch = t / key_tiles / row_tiles;
+    float row_lse[2], row_delta[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + r0 + 8 * h;
+      row_lse[h] = row < n ? lse[(size_t)batch * n + row] : INFINITY;
+      row_delta[h] = row < n ? delta[(size_t)batch * n + row] : 0.f;
+    }
+    float s[64];
+    planes_product(s, ring, stages, nch, wg, &it);  // S = Q K^T
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key_in = key0 + 8 * j + 2 * t4 + (e & 1) < n;
+        s[4 * j + e] = key_in ? exp2f((s[4 * j + e] * scale - row_lse[e >> 1]) * kLog2e) : 0.f;
+      }
+    float d[64];
+    planes_product(d, ring, stages, nch, wg, &it);  // dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[4 * j + e] = s[4 * j + e] * (d[4 * j + e] - row_delta[e >> 1]) * scale;
+
+    // the staging boxes are free once this consumer's last stores have read them
+    if (tid == 0) tma_store_wait_read();
+    warpgroup_sync(wg);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = 8 * j + 2 * t4;  // of the tile's 128
+        unsigned char* pb = box + (key >> 6) * kBox;
+        put_swizzled_pair(pb, r0 + 8 * h, key & 63, s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+        put_swizzled_pair(pb + 2 * kBox, r0 + 8 * h, key & 63, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      }
+    fence_async_shared();
+    warpgroup_sync(wg);
+    if (tid == 0 && m0 < np) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        if (key0 + 64 * x >= np) continue;
+        tma_store_3d(&tm_planes, mine + x * kBox, key0 + 64 * x, m0, batch);
+        tma_store_3d(&tm_planes, mine + (2 + x) * kBox, key0 + 64 * x, m0, b + batch);
+      }
+      tma_store_commit();
+    }
+  }
+  if (tid == 0) tma_store_wait_all();
+}
+
+// Pass (b)'s main loop: acc (this consumer's 64 rows x NW columns) = the sum
+// over the 64-token chunks of A (K-major when TA = 0, transposed when TA = 1)
+// times the chunk's B boxes, from ring position *it on.
+template <int NW, int TA>
+__device__ __forceinline__ void grads_mainloop(float* acc, const BRing& ring, uint32_t stages, int chunks,
+                                               int wg, int* it) {
+  constexpr uint32_t STAGE = grads_stage_bytes<NW>();
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int ch = 0; ch < chunks; ++ch, ++*it) {
+    const int s = *it % kBStages;
+    mbar_wait(ring.full(s), (*it / kBStages) & 1);
+    const uint32_t a = stages + s * STAGE + wg * kBox;
+    const uint32_t bb = stages + s * STAGE + 2 * kBox;
+    fence_regs<NW / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = sw128_desc(TA ? a + kk * 2048 : a + kk * 32);
+      const uint64_t db = sw128_desc(bb + kk * 2048, kBox);
+      if constexpr (NW == 256) {
+        wgmma_m64n256_ss_t<TA>(acc, da, db);
+      } else if constexpr (NW == 128) {
+        wgmma_m64n128_ss_t<TA>(acc, da, db);
+      } else {
+        wgmma_m64n64_ss_t<TA>(acc, da, db);  // one box: the LBO is not read
+      }
+    }
+    wgmma_commit();
+    prev = retire_previous(ring, prev, s);
+  }
+  wgmma_wait<0>();
+  mbar_arrive(ring.empty(prev));
+  fence_regs<NW / 2>(acc);
+}
+
+// Pass (b)'s tile t: the column block varies fastest, then the row tile, the
+// product (0 dQ, 1 dK, 2 dV) and the batch element, so that the blocks in
+// flight share a batch element's plane rows and B operand in L2.
+struct GradsTile {
+  int batch, product, m0, col0;
+  __device__ GradsTile(int t, int np, int c, int nw) {
+    const int col_blocks = c / nw;
+    const int row_tiles = (np + kGRows - 1) / kGRows;
+    col0 = t % col_blocks * nw;
+    t /= col_blocks;
+    m0 = t % row_tiles * kGRows;
+    t /= row_tiles;
+    product = t % 3;
+    batch = t / 3;
+  }
+};
+
+template <int NW>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_grads_kernel(const __grid_constant__ CUtensorMap tm_planes, const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_g,
+                   bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int b, int n, int c,
+                   int tiles) {
+  constexpr uint32_t STAGE = grads_stage_bytes<NW>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t stages = (raw + 1023u) & ~1023u;
+  const BRing ring{stages + kBStages * STAGE};
+  const int np = pad64(n);
+  const int chunks = np / 64;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  int it = 0;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const GradsTile tile(t, np, c, NW);
+        const CUtensorMap* bmap = tile.product == 0 ? &tm_k : tile.product == 1 ? &tm_q : &tm_g;
+        const int z = (tile.product == 2 ? 0 : b) + tile.batch;  // the P or the dS plane
+        // as in pass (a), consumer 1 reads consumer 0's rows again where its
+        // own start past the planes
+        const int m1 = tile.m0 + 64 < np ? tile.m0 + 64 : tile.m0;
+        for (int ch = 0; ch < chunks; ++ch, ++it) {
+          const int s = it % kBStages;
+          mbar_wait(ring.empty(s), ((it / kBStages) & 1) ^ 1);
+          const uint32_t dst = stages + s * STAGE;
+          mbar_expect_tx(ring.full(s), STAGE);
+          const int t0 = ch * 64;
+          if (tile.product == 0) {  // dS rows m0.., tokens (keys) t0..
+            tma_load_3d(dst, &tm_planes, ring.full(s), t0, tile.m0, z);
+            tma_load_3d(dst + kBox, &tm_planes, ring.full(s), t0, m1, z);
+          } else {  // the plane's tokens (queries) t0.. x keys m0..
+            tma_load_3d(dst, &tm_planes, ring.full(s), tile.m0, t0, z);
+            tma_load_3d(dst + kBox, &tm_planes, ring.full(s), m1, t0, z);
+          }
+          for (int x = 0; x < NW / 64; ++x)
+            tma_load_3d(dst + (2 + x) * kBox, bmap, ring.full(s), tile.col0 + 64 * x, t0, tile.batch);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const GradsTile tile(t, np, c, NW);
+    float acc[NW / 2];
+    if (tile.product == 0) {
+      grads_mainloop<NW, 0>(acc, ring, stages, chunks, wg, &it);
+    } else {
+      grads_mainloop<NW, 1>(acc, ring, stages, chunks, wg, &it);
+    }
+    bf16* out = tile.product == 0 ? dq : tile.product == 1 ? dk : dv;
+    const size_t row_base = (size_t)tile.batch * n;
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = tile.col0 + 8 * j + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = tile.m0 + wg * 64 + r0 + 8 * h;
+        if (row < n) {
+          *reinterpret_cast<__nv_bfloat162*>(out + (row_base + row) * c + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// The fp32 m64nN accumulator of a warpgroup to a row-major (64, N) array.
+template <int N>
+__device__ __forceinline__ void store_tile(float* dst, const float* acc, int r0, int t4) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[(r0 + 8 * (e >> 1)) * N + 8 * j + 2 * t4 + (e & 1)] = acc[4 * j + e];
+}
+
+// The self-test of the operand forms and the store path above, one
+// warpgroup: x (64 x 64) and z (64 x 256) bf16 arrive by TMA;
+//   o256 = x z, o256t = x^T z    m64n256k16, B MN-major over four boxes,
+//   o128 = x z[:, :128], o128t = x^T z[:, :128]    m64n128k16, two boxes,
+// A K-major, then MN-major (transposed), all fp32 out; and st (64 x 128 bf16)
+// = bf16(o128), staged in two swizzled boxes and written by TMA stores.
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_selftest_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_z,
+                          const __grid_constant__ CUtensorMap tm_st, float* o256, float* o256t,
+                          float* o128, float* o128t) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sx = (raw + 1023u) & ~1023u;
+  const uint32_t sz = sx + kBox;
+  const uint32_t sst = sz + 4 * kBox;
+  const uint32_t bar = sst + 2 * kBox;
+  unsigned char* st_box = smem_raw + (sst - raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 5 * kBox);
+    tma_load_3d(sx, &tm_x, bar, 0, 0, 0);
+    for (int x = 0; x < 4; ++x) tma_load_3d(sz + x * kBox, &tm_z, bar, 64 * x, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  const int lane = tid & 31, t4 = lane & 3;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  {
+    float acc[128];
+#pragma unroll
+    for (int ta = 0; ta < 2; ++ta) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      fence_regs<128>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = sw128_desc(sz + kk * 2048, kBox);
+        if (ta) wgmma_m64n256_ss_t<1>(acc, sw128_desc(sx + kk * 2048), db);
+        else wgmma_m64n256_ss_t<0>(acc, sw128_desc(sx + kk * 32), db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<128>(acc);
+      store_tile<256>(ta ? o256t : o256, acc, r0, t4);
+    }
+  }
+  float acc[64];
+#pragma unroll
+  for (int ta = 0; ta < 2; ++ta) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    fence_regs<64>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = sw128_desc(sz + kk * 2048, kBox);
+      if (ta) wgmma_m64n128_ss_t<1>(acc, sw128_desc(sx + kk * 2048), db);
+      else wgmma_m64n128_ss_t<0>(acc, sw128_desc(sx + kk * 32), db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<64>(acc);
+    store_tile<128>(ta ? o128t : o128, acc, r0, t4);
+    if (ta == 0) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = 8 * j + 2 * t4;
+          put_swizzled_pair(st_box + (col >> 6) * kBox, r0 + 8 * h, col & 63, acc[4 * j + 2 * h],
+                            acc[4 * j + 2 * h + 1]);
+        }
+      fence_async_shared();
+      __syncthreads();
+      if (tid == 0) {
+        for (int x = 0; x < 2; ++x) tma_store_3d(&tm_st, sst + x * kBox, 64 * x, 0, 0);
+        tma_store_commit();
+        tma_store_wait_all();
+      }
+    }
+  }
+}
+
+template <int NW>
+int launch_grads(const CUtensorMap& tp, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tg,
+                 void* dq, void* dk, void* dv, int b, int n, int c, cudaStream_t stream) {
+  constexpr size_t smem = grads_smem_bytes<NW>();
+  cudaError_t err = cudaFuncSetAttribute(flash_grads_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)b * 3 * ((pad64(n) + kGRows - 1) / kGRows) * (c / NW);
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  err = grid_blocks(tiles, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  flash_grads_kernel<NW><<<blocks, kBThreads, smem, stream>>>(tp, tq, tk, tg, static_cast<bf16*>(dq),
+                                                             static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                             b, n, c, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* g, const float* lse,
+                     const float* delta, void* dq, void* dk, void* dv, void* planes, int b, int n, int c,
+                     float scale, cudaStream_t stream) {
+  const int np = pad64(n);
+  CUtensorMap tq, tg, tk, tv, tk64, tp;
+  if (!encode_map(&tq, q, b, n, c, 64) || !encode_map(&tg, g, b, n, c, 64) ||
+      !encode_map(&tk, k, b, n, c, kPTile) || !encode_map(&tv, v, b, n, c, kPTile) ||
+      !encode_map(&tk64, k, b, n, c, 64) || !encode_map(&tp, planes, 2 * b, np, np, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = planes_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long row_tiles = (np + kPTile - 1) / kPTile;
+  const long long tiles = (long long)b * row_tiles * row_tiles;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  err = grid_blocks(tiles, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  flash_planes_kernel<<<blocks, kBThreads, smem, stream>>>(tq, tk, tg, tv, tp, lse, delta, b, n, c / 64,
+                                                          (int)tiles, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (c % 256 == 0) return launch_grads<256>(tp, tq, tk64, tg, dq, dk, dv, b, n, c, stream);
+  if (c % 128 == 0) return launch_grads<128>(tp, tq, tk64, tg, dq, dk, dv, b, n, c, stream);
+  return launch_grads<64>(tp, tq, tk64, tg, dq, dk, dv, b, n, c, stream);
+}
+
 // ------------------------------------------------------------- launch ---- //
 
 bool bad_shape(int b, int n, int c) {
@@ -588,35 +788,6 @@ template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-template <int T>
-int dkv_bf16(const void* q, const void* k, const void* v, const void* g, const void* lse,
-             const void* delta, void* dk, void* dv, int b, int n, int c, float scale,
-             cudaStream_t stream) {
-  const size_t smem = bf16_smem_bytes<T>(c);
-  cudaError_t err = allow_smem(flash_dkv_bf16_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_dkv_bf16_kernel<T><<<dim3((n + T - 1) / T, b), (c / 64) * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, c,
-      scale);
-  return (int)cudaGetLastError();
-}
-
-template <int T>
-int dq_bf16(const void* q, const void* k, const void* v, const void* g, const void* lse,
-            const void* delta, void* dq, int b, int n, int c, float scale,
-            cudaStream_t stream) {
-  const size_t smem = bf16_smem_bytes<T>(c);
-  cudaError_t err = allow_smem(flash_dq_bf16_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_dq_bf16_kernel<T><<<dim3((n + T - 1) / T, b), (c / 64) * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), n, c, scale);
-  return (int)cudaGetLastError();
 }
 
 template <int T>
@@ -651,42 +822,48 @@ int dq_f32(const void* q, const void* k, const void* v, const void* g, const voi
 
 }  // namespace
 
-extern "C" int medvae_flash_dkv_bf16(const void* q, const void* k, const void* v,
-                                     const void* g, const void* lse, const void* delta,
-                                     void* dk, void* dv, int b, int n, int c, float scale,
-                                     void* stream) {
+// The FMA instance (fp32): dk, dv (kernel B2), then dq (kernel B3); planes
+// is not read.
+extern "C" int medvae_flash_bwd_f32(const void* q, const void* k, const void* v, const void* g,
+                                    const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                    void* planes, int b, int n, int c, float scale, void* stream) {
   if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return c <= 512 ? dkv_bf16<32>(q, k, v, g, lse, delta, dk, dv, b, n, c, scale, s)
-                  : dkv_bf16<16>(q, k, v, g, lse, delta, dk, dv, b, n, c, scale, s);
-}
-
-extern "C" int medvae_flash_dkv_f32(const void* q, const void* k, const void* v,
-                                    const void* g, const void* lse, const void* delta,
-                                    void* dk, void* dv, int b, int n, int c, float scale,
-                                    void* stream) {
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return c <= 512 ? dkv_f32<16>(q, k, v, g, lse, delta, dk, dv, b, n, c, scale, s)
-                  : dkv_f32<8>(q, k, v, g, lse, delta, dk, dv, b, n, c, scale, s);
-}
-
-extern "C" int medvae_flash_dq_bf16(const void* q, const void* k, const void* v,
-                                    const void* g, const void* lse, const void* delta,
-                                    void* dq, int b, int n, int c, float scale,
-                                    void* stream) {
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return c <= 512 ? dq_bf16<32>(q, k, v, g, lse, delta, dq, b, n, c, scale, s)
-                  : dq_bf16<16>(q, k, v, g, lse, delta, dq, b, n, c, scale, s);
-}
-
-extern "C" int medvae_flash_dq_f32(const void* q, const void* k, const void* v,
-                                   const void* g, const void* lse, const void* delta,
-                                   void* dq, int b, int n, int c, float scale,
-                                   void* stream) {
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = c <= 512 ? dkv_f32<16>(q, k, v, g, lse, delta, dk, dv, b, n, c, scale, s)
+                           : dkv_f32<8>(q, k, v, g, lse, delta, dk, dv, b, n, c, scale, s);
+  if (err != 0) return err;
   return c <= 512 ? dq_f32<16>(q, k, v, g, lse, delta, dq, b, n, c, scale, s)
                   : dq_f32<8>(q, k, v, g, lse, delta, dq, b, n, c, scale, s);
+}
+
+// The Hopper instance (bf16): dq, dk, dv from q, k, v, g, lse, delta, with
+// `planes` a (2, b, pad64(n), pad64(n)) bf16 scratch the caller allocates
+// (pass (a) writes all of it). Two launches, pass (a) then pass (b), on
+// `stream`.
+extern "C" int medvae_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* g,
+                                     const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                     void* planes, int b, int n, int c, float scale, void* stream) {
+  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  return launch_bwd_wgmma(q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta), dq,
+                          dk, dv, planes, b, n, c, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The self-test of the Hopper instance's operand forms and TMA stores: x
+// (64, 64) and z (64, 256) bf16 in; o256, o256t (64, 256) and o128, o128t
+// (64, 128) fp32 and st (64, 128) bf16 out (see flash_bwd_selftest_kernel).
+extern "C" int medvae_flash_bwd_selftest(const void* x, const void* z, void* o256, void* o256t, void* o128,
+                                         void* o128t, void* st, void* stream) {
+  CUtensorMap tx, tz, tst;
+  if (!encode_map(&tx, x, 1, 64, 64, 64) || !encode_map(&tz, z, 1, 64, 256, 64) ||
+      !encode_map(&tst, st, 1, 64, 128, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = 1024 + 7 * kBox + 8;
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_selftest_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_selftest_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      tx, tz, tst, static_cast<float*>(o256), static_cast<float*>(o256t), static_cast<float*>(o128),
+      static_cast<float*>(o128t));
+  return (int)cudaGetLastError();
 }

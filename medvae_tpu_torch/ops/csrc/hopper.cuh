@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_fwd.cu's B1 instance, attention.cu's B4/B5 instance): shared-memory
-// descriptors of 128-byte-swizzled tiles, mbarriers, TMA loads through 3-D
-// tensor maps, and the wgmma products the kernels issue. Every tile is a
-// stack of TMA boxes 64 bf16 values (128 bytes) wide, so every operand is a
-// run of 1024-byte, 8-row swizzle atoms.
+// (flash_fwd.cu's B1 instance, flash_bwd.cu's B2/B3 instance, attention.cu's
+// B4/B5 instance): shared-memory descriptors of 128-byte-swizzled tiles,
+// mbarriers and a ring of them, TMA loads and stores through 3-D tensor maps,
+// and the wgmma products the kernels issue. Every tile is a stack of TMA boxes
+// 64 bf16 values (128 bytes) wide, so every operand is a run of 1024-byte,
+// 8-row swizzle atoms.
 
 #pragma once
 
@@ -23,12 +24,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // (1024-byte aligned atom base, plus a k offset inside the 128-byte row for
 // K-major operands). Every tile here is a stack of 8-row, 1024-byte atoms,
 // so the stride between 8-row groups (SBO) is 1024 bytes. The other stride
-// (LBO) is never read by these products: a K-major k16 step stays inside
-// one 128-byte row, and every MN-major operand (B1's V; B4/B5's V, K, Q, G
-// and the transposed P and dS) is 64 values (one atom) wide; it is set to
-// the same 1024 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+// (LBO) is read only by an MN-major operand wider than one 64-value atom: it
+// is the byte distance between its 64-column boxes (B2/B3's B operands of
+// 128 and 256 columns). A K-major k16 step stays inside one 128-byte row and
+// every other MN-major operand (B1's V; B4/B5's V, K, Q, G and the
+// transposed P and dS; B2/B3's transposed P and dS) is one atom wide, so
+// there it is left at 1024 bytes and never read.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 1024) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -73,6 +76,28 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One TMA box of a 3-D (c, n, b) map from shared memory to device memory, in
+// the issuing thread's bulk group; parts of the box past the map's bounds are
+// not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int row,
+                                             int batch) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(row), "r"(batch)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// The issuing thread's committed stores have read their shared memory (it may
+// be written again).
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// The issuing thread's committed stores are complete.
+__device__ __forceinline__ void tma_store_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// Make this thread's shared-memory writes visible to TMA (the async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -81,6 +106,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pin registers that an asynchronous wgmma reads or writes, so the compiler
@@ -94,6 +124,15 @@ __device__ __forceinline__ void fence_regs(float* r) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The bf16 pair (lo, hi) at (row, col), col even, of a 64 x 64 bf16 box laid
+// out as TMA's 128-byte swizzle lays it (1024-byte aligned box): the 16-byte
+// chunk col / 8 of row `row` sits at chunk (col / 8) ^ (row % 8).
+__device__ __forceinline__ void put_swizzled_pair(unsigned char* box, int row, int col, float lo,
+                                                  float hi) {
+  const uint32_t off = row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2));
+  *reinterpret_cast<uint32_t*>(box + off) = pack_bf16(lo, hi);
 }
 
 // The bf16 A fragments of P for the k16 slice kk of a 32-key tile, from the
@@ -245,7 +284,114 @@ __device__ __forceinline__ void split3(float lo, float hi, uint32_t* t) {
   }
 }
 
+// D(64 x 128, fp32) += A(64 x 16, smem) B(16 x 128, smem, MN-major: 2 boxes of 64
+// columns side by side, `lbo` bytes apart in B's descriptor), with A K-major
+// (TA = 0) or MN-major (TA = 1: A is read transposed).
+template <int TA>
+__device__ __forceinline__ void wgmma_m64n128_ss_t(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+}
+
+// D(64 x 256, fp32) += A(64 x 16, smem) B(16 x 256, smem, MN-major: 4 boxes of 64
+// columns side by side, `lbo` bytes apart in B's descriptor), with A K-major
+// (TA = 0) or MN-major (TA = 1: A is read transposed).
+template <int TA>
+__device__ __forceinline__ void wgmma_m64n256_ss_t(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+}
+
 // Synchronise the two consumer warpgroups (threads 0-255) on named barrier 1.
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+// Synchronise the 128 threads of consumer warpgroup wg (0 or 1) on named
+// barrier 2 + wg.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+__host__ __device__ constexpr int pad64(int n) { return (n + 63) / 64 * 64; }
+
+// A ring of S stages: full[s] completes when its TMA bytes land, empty[s]
+// when both consumer warpgroups (256 threads) are done with it.
+template <int S>
+struct Ring {
+  uint32_t bars;
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (S + s); }
+  __device__ void init() const {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// The blocks of a persistent grid over `tiles` tiles: one an SM, each walking
+// its tiles (kernels loop t = blockIdx.x, blockIdx.x + gridDim.x, ...).
+cudaError_t grid_blocks(long long tiles, int* blocks) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *blocks = (int)(tiles < sms ? tiles : sms);
+  return err;
+}
 
 }  // namespace

@@ -7,10 +7,15 @@ Counterparts of medvae_tpu/ops/flash_attention.py:
     (b, n, 128) carrier is not copied). bf16 with c % 128 == 0 and c <= 512
     takes its Hopper instance (wgmma, TMA), other bf16 shapes its mma.sync
     one (`flash_fwd_instance` says which);
-  * B2 `_flash_dkv_kernel` -> csrc/flash_bwd.cu: dK, dV;
-  * B3 `_flash_dq_kernel`  -> csrc/flash_bwd.cu: dQ;
+  * B2 `_flash_dkv_kernel` (dK, dV) and B3 `_flash_dq_kernel` (dQ) ->
+    csrc/flash_bwd.cu, both behind one wrapper, `flash_bwd`, one count. bf16
+    takes the Hopper instance ("wgmma_tma"): pass (a) forms S and dP once
+    into bf16 P and dS planes (a (2, b, n_pad, n_pad) scratch the wrapper
+    allocates, `plane_shape`), pass (b) forms dQ, dK and dV as wgmma
+    products over them. fp32 takes the FMA kernels B2 then B3 ("fp32_fma");
+    `flash_bwd_instance` says which;
   * the `jax.custom_vjp` around them -> `FlashAttention`: forward B1 with lse,
-    backward delta = rowsum(dO * O) in plain PyTorch, then B2, then B3.
+    backward delta = rowsum(dO * O) in plain PyTorch, then `flash_bwd`.
 The kernels are built by ops/_build.py at first use.
 
 Every wrapper takes (b, n, c) tensors. On CUDA tensors it launches its kernel
@@ -28,15 +33,14 @@ import torch
 
 # kernel launches by kernel; chip_smoke.py resets and reads them around the
 # main path
-launches = {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
+launches = {"flash_fwd": 0, "flash_bwd": 0}
 _count_lock = threading.Lock()
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
 # kernel -> (csrc library, C symbol prefix, number of pointer arguments)
 _KERNELS = {
     "flash_fwd": ("flash_fwd", "medvae_flash_fwd", 5),
-    "flash_dkv": ("flash_bwd", "medvae_flash_dkv", 8),
-    "flash_dq": ("flash_bwd", "medvae_flash_dq", 7),
+    "flash_bwd": ("flash_bwd", "medvae_flash_bwd", 10),
 }
 _fns = {}
 
@@ -213,28 +217,66 @@ def flash_dq_plain(q, k, v, g, lse, delta) -> torch.Tensor:
     return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
 
 
-def flash_dkv(q, k, v, g, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) through kernel B2; g is dO, lse from B1, delta = rowsum(dO·O)."""
+def plane_shape(b: int, n: int) -> Tuple[int, int, int, int]:
+    """Shape of the Hopper instance's scratch: the P and dS planes of b batch
+    elements, n padded to a multiple of 64 both ways (rows are queries,
+    columns keys)."""
+    n_pad = (n + 63) // 64 * 64
+    return (2, b, n_pad, n_pad)
+
+
+def flash_bwd_planes_plain(q, k, v, g, lse, delta) -> torch.Tensor:
+    """Pass (a) of the Hopper instance in PyTorch: P and dS as B2 and B3 form
+    them, cast to the input dtype into a `plane_shape` tensor, zero outside
+    n x n."""
+    b, n, _ = q.shape
+    p, ds = _p_ds_plain(q, k, v, g, lse, delta)
+    planes = torch.zeros(plane_shape(b, n), dtype=q.dtype, device=q.device)
+    planes[0, :, :n, :n] = p
+    planes[1, :, :n, :n] = ds
+    return planes
+
+
+def flash_bwd_grads_plain(planes, q, k, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass (b) of the Hopper instance in PyTorch: (dQ, dK, dV) = (dS·K,
+    dSᵀ·Q, Pᵀ·dO) from the planes, fp32 accumulation, outputs in the input
+    dtype. Composed with `flash_bwd_planes_plain` it is `flash_dq_plain` and
+    `flash_dkv_plain` bit for bit: the same fp32 products of the same
+    operands, laid out alike."""
+    n, dt = q.shape[1], q.dtype
+    p = planes[0, :, :n, :n].float().contiguous()
+    ds = planes[1, :, :n, :n].float().contiguous()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.transpose(-1, -2), g.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_bwd_instance(c: int, dtype: torch.dtype) -> str:
+    """Which instance of the backward a CUDA call takes: "wgmma_tma" (the
+    Hopper instance) for bf16, "fp32_fma" for fp32, at every c the kernels
+    take (`_check`)."""
+    return "wgmma_tma" if dtype == torch.bfloat16 else "fp32_fma"
+
+
+def flash_bwd(q, k, v, g, lse, delta) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of B2 and B3; g is dO, lse from B1, delta = rowsum(dO·O).
+    On CUDA tensors one launch of the instance `flash_bwd_instance` names.
+    The Hopper instance writes P and dS to a transient `plane_shape` scratch
+    of q's dtype: 4·b·pad64(n)² bytes, quadratic in n (1.26 GB at (32, 3136,
+    512)), where the fp32 instance needs none. On the CPU the two passes'
+    plain versions."""
     if _on_cpu(q, k, v, g, lse, delta):
-        return flash_dkv_plain(q, k, v, g, lse, delta)
+        return flash_bwd_grads_plain(flash_bwd_planes_plain(q, k, v, g, lse, delta), q, k, g)
     _check(q, k, v, g)
     _check_rows(q, lse=lse, delta=delta)
     _cuda_only(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_dkv", (q, k, v, g, lse, delta, dk, dv), q)
-    return dk, dv
-
-
-def flash_dq(q, k, v, g, lse, delta) -> torch.Tensor:
-    """dQ through kernel B3."""
-    if _on_cpu(q, k, v, g, lse, delta):
-        return flash_dq_plain(q, k, v, g, lse, delta)
-    _check(q, k, v, g)
-    _check_rows(q, lse=lse, delta=delta)
-    _cuda_only(q)
-    dq = torch.empty_like(q)
-    _launch("flash_dq", (q, k, v, g, lse, delta, dq), q)
-    return dq
+    planes = None
+    if q.dtype == torch.bfloat16:
+        planes = torch.empty(plane_shape(*q.shape[:2]), dtype=q.dtype, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd", (q, k, v, g, lse, delta, dq, dk, dv, planes), q)
+    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
@@ -254,6 +296,4 @@ class FlashAttention(torch.autograd.Function):
         # need not be contiguous; the kernels take contiguous operands
         do = do.to(q.dtype).contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta)
-        dq = flash_dq(q, k, v, do, lse, delta)
-        return dq, dk, dv
+        return flash_bwd(q, k, v, do, lse, delta)

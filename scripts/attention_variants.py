@@ -4,7 +4,7 @@ side by side on one card, at the 128² BaseVAE's (64, 256, 1024) bf16 shape.
     python scripts/attention_variants.py
 
 Each variant is the committed source with a few literal substitutions
-(VARIANTS below), built by nvcc with the port's flags plus -Xptxas -v into
+(VARIANTS below), built by nvcc with the port's flags (which hold -Xptxas -v) into
 build/attention_variants/, loaded with ctypes and timed with CUDA events
 (median of 20 launches a round, rounds in turn so that clocks drift alike).
 Beside them, from the committed build, the FMA instance at the same shape
@@ -17,24 +17,13 @@ imports no JAX.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import re
-import statistics
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+import _variants  # puts the repo's root on sys.path
 
-from medvae_tpu_torch.ops import _build  # noqa: E402
-
-SRC = ROOT / "medvae_tpu_torch" / "ops" / "csrc" / "attention.cu"
-OUT = ROOT / "build" / "attention_variants"
 KERNELS = ("attention_rows_wgmma_kernelILb1E", "attention_rows_wgmma_kernelILb0E",
            "attention_cols_wgmma_kernelILi2E")
 # committed: the rows and columns passes on persistent grids (one block an
@@ -49,7 +38,9 @@ VARIANTS = {
     # pass (b) with 128-column tiles (one box a consumer) at every c
     "cols_128_wide": [("return c % 256 == 0 ? launch_cols<2>", "return false ? launch_cols<2>")],
     # one block a tile in both passes instead of persistent grids
-    "block_a_tile": [("  *blocks = (int)(tiles < sms ? tiles : sms);", "  *blocks = (int)tiles;")],
+    "block_a_tile": [("  err = grid_blocks((long long)b * ((n + kHRows - 1) / kHRows), &blocks);",
+                      "  blocks = (int)((long long)b * ((n + kHRows - 1) / kHRows));"),
+                     ("  err = grid_blocks(tiles, &blocks);", "  blocks = (int)tiles;")],
     # one wgmma group kept in flight across stages in both passes' main loops
     # (a stage is freed once the group after it is issued)
     "in_flight": [(WAIT_STAGE,
@@ -62,94 +53,40 @@ VARIANTS = {
 }
 
 
-def build(name: str, subs) -> tuple:
-    text = SRC.read_text()
-    for old, new in subs:
-        if old not in text:
-            raise KeyError(f"variant {name}: {old[:60]!r} not in {SRC.name}")
-        text = text.replace(old, new)
-    src = OUT / f"{name}.cu"
-    src.write_text(text)
-    lib = OUT / f"{name}.so"
-    proc = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(SRC.parent), "-o", str(lib),
-         str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stdout}")
-    # ptxas -v names a kernel ("Compiling entry function", "Function
-    # properties for") and then gives its spills and registers
-    stats, current = {}, None
-    for line in proc.stdout.splitlines():
-        named = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
-        if named:
-            current = next((k for k in KERNELS if k in named[1]), None)
-        for key, pattern in (("registers", r"Used (\d+) registers"),
-                             ("spill_store_bytes", r"(\d+) bytes spill stores")):
-            found = re.search(pattern, line)
-            if found and current:
-                stats.setdefault(current, {}).setdefault(key, int(found[1]))
-    return str(lib), stats, "C7520" in proc.stdout
-
-
-def bind(lib: str, symbol: str, n_ptrs: int):
-    fn = getattr(ctypes.CDLL(lib), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("attention_variants: no CUDA device", file=sys.stderr)
         return 2
-    OUT.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(lambda kv: build(*kv), VARIANTS.items())))
+    built = _variants.build_variants("attention.cu", VARIANTS, KERNELS)
     b, n, c = 64, 256, 1024
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, g = (torch.randn((b, n, c), generator=gen, device="cuda").bfloat16() for _ in range(4))
     stream = torch.cuda.current_stream().cuda_stream
     scratch = torch.empty((6 * b * n * 256 * 2,), dtype=torch.uint8, device="cuda")
     committed = built["committed"][0]
-    calls = {}
-    for name, (lib, _, _) in built.items():
-        calls[name] = (bind(lib, "medvae_attention_fwd_bf16", 4), bind(lib, "medvae_attention_bwd_bf16", 8))
-    calls["fma_instance"] = (bind(committed, "medvae_attention_fwd_bf16_fma", 4),
-                             bind(committed, "medvae_attention_bwd_bf16_fma", 8))
+    calls = {name: (_variants.bind(lib, "medvae_attention_fwd_bf16", 4),
+                    _variants.bind(lib, "medvae_attention_bwd_bf16", 8)) for name, (lib, _, _) in built.items()}
+    calls["fma_instance"] = (_variants.bind(committed, "medvae_attention_fwd_bf16_fma", 4),
+                             _variants.bind(committed, "medvae_attention_bwd_bf16_fma", 8))
     outs = {name: [torch.empty_like(q) for _ in range(4)] for name in calls}
 
-    def launch(name, which):
+    def launch(key):
+        name, which = key
         o, dq, dk, dv = outs[name]
         fwd, bwd = calls[name]
         args = ((q, k, v, o) if which == "fwd" else (q, k, v, g, dq, dk, dv, scratch))
-        err = (fwd if which == "fwd" else bwd)(*(t.data_ptr() for t in args), b, n, c, c ** -0.5, stream)
-        if err:
-            raise RuntimeError(f"variant {name} {which}: CUDA error {err}")
+        _variants.check((fwd if which == "fwd" else bwd)(*(t.data_ptr() for t in args), b, n, c, c ** -0.5, stream),
+                        f"variant {name} {which}")
 
-    times = {(name, which): [] for name in calls for which in ("fwd", "bwd")}
-    for _ in range(3):
-        for key in times:
-            launch(*key)
-            torch.cuda.synchronize()
-            for _ in range(20):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                launch(*key)
-                end.record()
-                end.synchronize()
-                times[key].append(start.elapsed_time(end))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    times = _variants.time_rounds([(name, which) for name in calls for which in ("fwd", "bwd")], launch, calls=20)
+    smi = _variants.gpu()
     ref = [t.float() for t in outs["committed"]]
     for name in calls:
         _, stats, serialized = built.get(name, (None, None, None))
         print(json.dumps({
             "variant": name, "shape": [b, n, c], "gpu": smi, "ptxas": stats,
             "wgmma_serialized_warning": serialized,
-            "fwd_ms": statistics.median(times[(name, "fwd")]),
-            "bwd_ms": statistics.median(times[(name, "bwd")]),
+            "fwd_ms": times[(name, "fwd")], "bwd_ms": times[(name, "bwd")],
             "max_abs_diff_from_committed": [(o.float() - r).abs().max().item()
                                             for o, r in zip(outs[name], ref)],
         }), flush=True)

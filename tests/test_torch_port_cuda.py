@@ -81,11 +81,9 @@ def test_flash_lse_and_backward_kernels_match_plain_versions(gen, shape, dtype):
     assert (o.double() - o_ref.double()).abs().max().item() <= tol_abs
     delta = (g.float() * o.float()).sum(-1)
     before = dict(fa.launches)
-    dk, dv = fa.flash_dkv(q, k, v, g, lse, delta)
-    dq = fa.flash_dq(q, k, v, g, lse, delta)
+    dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta)
     torch.cuda.synchronize()
-    assert fa.launches["flash_dkv"] == before["flash_dkv"] + 1
-    assert fa.launches["flash_dq"] == before["flash_dq"] + 1
+    assert fa.launches["flash_bwd"] == before["flash_bwd"] + 1
     dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse, delta)
     dq_ref = fa.flash_dq_plain(q, k, v, g, lse, delta)
     for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
@@ -196,17 +194,106 @@ def test_backward_wrappers_raise_on_the_card_instead_of_falling_back(gen):
     q = torch.randn((1, 64, 128), generator=gen, device="cuda")
     rows = torch.zeros((1, 64), device="cuda")
     before = dict(fa.launches)
-    for fn in (fa.flash_dkv, fa.flash_dq):
-        with pytest.raises(TypeError):
-            fn(q, q, q, q.bfloat16(), rows, rows)
-        with pytest.raises(ValueError, match="fp32"):
-            fn(q, q, q, q, rows.double(), rows)
-        with pytest.raises(ValueError, match="contiguous"):
-            fn(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2), rows, rows)
-        with pytest.raises(ValueError, match="multiple of 64"):
-            wide = torch.zeros((1, 64, 96), device="cuda")
-            fn(wide, wide, wide, wide, rows, rows)
+    fn = fa.flash_bwd
+    with pytest.raises(TypeError):
+        fn(q, q, q, q.bfloat16(), rows, rows)
+    with pytest.raises(ValueError, match="fp32"):
+        fn(q, q, q, q, rows.double(), rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2), rows, rows)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        wide = torch.zeros((1, 64, 96), device="cuda")
+        fn(wide, wide, wide, wide, rows, rows)
     assert fa.launches == before
+
+
+def test_flash_bwd_operand_forms_and_stores_match_matmul(gen):
+    """The Hopper backward's operand forms and store path (flash_bwd.cu:
+    medvae_flash_bwd_selftest): x·z and xᵀ·z on m64n256 and m64n128 with B
+    MN-major over 4 and 2 boxes side by side (pass (b)'s products, A K-major
+    then read transposed), and bf16(x·z[:, :128]) written through swizzled
+    staging boxes and TMA stores (pass (a)'s planes)."""
+    from medvae_tpu_torch.ops import _build
+
+    x = torch.randn((64, 64), generator=gen, device="cuda").bfloat16()
+    z = torch.randn((64, 256), generator=gen, device="cuda").bfloat16()
+    o256, o256t = torch.empty((64, 256), device="cuda"), torch.empty((64, 256), device="cuda")
+    o128, o128t = torch.empty((64, 128), device="cuda"), torch.empty((64, 128), device="cuda")
+    st = torch.zeros((64, 128), device="cuda", dtype=torch.bfloat16)
+    fn = _build.load("flash_bwd").medvae_flash_bwd_selftest
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 8, ctypes.c_int
+    err = fn(*(t.data_ptr() for t in (x, z, o256, o256t, o128, o128t, st)),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"CUDA error {err}"
+    torch.cuda.synchronize()
+    xz, xtz = x.double() @ z.double(), x.double().T @ z.double()
+    for got, want, what in ((o256, xz, "x z n256"), (o256t, xtz, "x^T z n256"),
+                            (o128, xz[:, :128], "x z n128"), (o128t, xtz[:, :128], "x^T z n128")):
+        assert _rel(got, want) <= 1e-5, (what, _rel(got, want))
+    assert torch.equal(st, o128.bfloat16())
+
+
+# chip_smoke.py's bf16 shapes that are not its timed one, ragged n against the
+# planes' 64-row padding and the 128-row tiles, and every column block of pass
+# (b) (256, 128 and 64 columns)
+WGMMA_BWD_SHAPES = [(2, 1000, 512), (3, 1000, 256), (2, 784, 1024), (1, 63, 128), (2, 200, 384),
+                    (1, 130, 64), (1, 300, 192), (1, 3136, 512)]
+
+
+@pytest.mark.parametrize("shape", WGMMA_BWD_SHAPES)
+def test_flash_bwd_wgmma_instance_matches_plain_versions(gen, shape):
+    b, n, c = shape
+    assert fa.flash_bwd_instance(c, torch.bfloat16) == "wgmma_tma"
+    q, k, v, g = _qkv(gen, shape, torch.bfloat16, 4)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (g.float() * o.float()).sum(-1)
+    before = dict(fa.launches)
+    dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.launches == {**before, "flash_bwd": before["flash_bwd"] + 1}
+    # the same launch into a NaN-filled scratch: pass (a) writes every element
+    # of the planes, zeros outside n x n, and the gradients are the wrapper's
+    planes = torch.full(fa.plane_shape(b, n), float("nan"), dtype=torch.bfloat16, device="cuda")
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    fa._launch("flash_bwd", (q, k, v, g, lse, delta, *grads, planes), q)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(grads, (dq, dk, dv)))
+    assert torch.count_nonzero(planes[:, :, n:]) == 0 and torch.count_nonzero(planes[:, :, :, n:]) == 0
+    want_planes = fa.flash_bwd_planes_plain(q, k, v, g, lse, delta)
+    for i, name in enumerate(("P", "dS")):
+        _assert_grad_close(planes[i, :, :n, :n], want_planes[i, :, :n, :n], torch.bfloat16, name)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse, delta)
+    dq_ref = fa.flash_dq_plain(q, k, v, g, lse, delta)
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert got.dtype == torch.bfloat16
+        _assert_grad_close(got, want, torch.bfloat16, name)
+
+
+def test_flash_bwd_wgmma_instance_repeats_bit_for_bit(gen):
+    q, k, v, g = _qkv(gen, (4, 1000, 512), torch.bfloat16, 4)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (g.float() * o.float()).sum(-1)
+    first = fa.flash_bwd(q, k, v, g, lse, delta)
+    second = fa.flash_bwd(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_bwd_instance_names_each_head_dim(gen):
+    assert [fa.flash_bwd_instance(c, torch.bfloat16) for c in (256, 512, 1024)] == ["wgmma_tma"] * 3
+    assert fa.flash_bwd_instance(512, torch.float32) == "fp32_fma"
+    # the FMA instance: one launch, no planes
+    q, k, v, g = _qkv(gen, (1, 100, 256), torch.float32, 4)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (g.float() * o.float()).sum(-1)
+    before = dict(fa.launches)
+    dq, dk, dv = fa.flash_bwd(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.launches == {**before, "flash_bwd": before["flash_bwd"] + 1}
+    dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, g, lse, delta)
+    for name, got, want in (("dq", dq, fa.flash_dq_plain(q, k, v, g, lse, delta)), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref)):
+        _assert_grad_close(got, want, torch.float32, name)
 
 
 # ---------------------------------------------------------------- B6, B7 ---- #

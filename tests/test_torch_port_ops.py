@@ -9,6 +9,7 @@ it against flash_attention_plain there.
 """
 
 import ast
+import importlib
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -128,6 +129,22 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "hopper.cuh").write_text("// two\n")
     assert _build._target("a") != before
     assert {p.name for p in (REPO / "medvae_tpu_torch/ops/csrc").glob("*.cuh")} == {"hopper.cuh"}
+
+
+@pytest.mark.parametrize("script, source", [("flash_fwd_variants", "flash_fwd.cu"),
+                                            ("flash_bwd_variants", "flash_bwd.cu"),
+                                            ("attention_variants", "attention.cu")])
+def test_kernel_variants_still_apply_to_the_committed_sources(script, source, monkeypatch):
+    """Every literal substitution of a variants script matches the source it
+    edits, so each variant still builds from the committed tree."""
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    variants = importlib.import_module("_variants")
+    table = importlib.import_module(script).VARIANTS
+    original = (REPO / "medvae_tpu_torch/ops/csrc" / source).read_text()
+    assert table["committed"] == []
+    for name, subs in table.items():
+        assert (variants.substitute(source, name, subs) != original) == bool(subs), name
+
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]

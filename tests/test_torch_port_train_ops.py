@@ -1,5 +1,6 @@
 """The port's training ops against the JAX package: the flash-attention
-backward (plain path of kernels B1-lse, B2, B3 and the autograd Function), the
+backward (plain path of kernels B1-lse, B2, B3, the two passes of their
+Hopper instance, and the autograd Function), the
 optimizer chain and schedules, and the on-device augmentation.
 
 The JAX flash kernels run in Pallas interpret mode, as tests/test_flash_attention.py
@@ -95,11 +96,70 @@ def test_backward_wrappers_use_plain_versions_on_cpu_and_count_nothing():
     o, lse = tfa.flash_attention_fwd(q, k, v)
     delta = (g * o).sum(-1)
     before = dict(tfa.launches)
-    dk, dv = tfa.flash_dkv(q, k, v, g, lse, delta)
     ref_dk, ref_dv = tfa.flash_dkv_plain(q, k, v, g, lse, delta)
-    assert torch.equal(dk, ref_dk) and torch.equal(dv, ref_dv)
-    assert torch.equal(tfa.flash_dq(q, k, v, g, lse, delta), tfa.flash_dq_plain(q, k, v, g, lse, delta))
+    ref_dq = tfa.flash_dq_plain(q, k, v, g, lse, delta)
+    for got, want in zip(tfa.flash_bwd(q, k, v, g, lse, delta), (ref_dq, ref_dk, ref_dv)):
+        assert torch.equal(got, want)
     assert tfa.launches == before
+
+
+def _bwd_inputs(seed, shape, dtype):
+    q, k, v, g = (torch.from_numpy(a).to(dtype) for a in _arrays(seed, 4, shape))
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v)
+    return q, k, v, g, lse, (g.float() * o.float()).sum(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_plain_versions_equal_dkv_and_dq_plain_bit_for_bit(dtype):
+    """The Hopper backward's two passes in PyTorch (planes, then dQ, dK, dV
+    over them) are today's B2 and B3 plain versions bit for bit, at an n
+    ragged against the planes' 64-row padding."""
+    q, k, v, g, lse, delta = _bwd_inputs(4, (2, 100, 128), dtype)
+    planes = tfa.flash_bwd_planes_plain(q, k, v, g, lse, delta)
+    assert planes.shape == (2, 2, 128, 128) and planes.dtype == dtype
+    dq, dk, dv = tfa.flash_bwd_grads_plain(planes, q, k, g)
+    ref_dk, ref_dv = tfa.flash_dkv_plain(q, k, v, g, lse, delta)
+    for got, want in ((dq, tfa.flash_dq_plain(q, k, v, g, lse, delta)), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_pass_plain_versions_match_jax_backward_kernels(interpret, dtype):
+    q, k, v, g = _arrays(5, 4, (2, 96, 128))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(tdt) for a in (q, k, v, g))
+    o, lse = tfa.flash_attention_fwd_plain(tq, tk, tv)
+    delta = (tg.float() * o.float()).sum(-1)
+    jargs = [jnp.asarray(a, jdt) for a in (q, k, v, g)] + [
+        jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy())
+    ]
+    jdk, jdv = jfa._flash_dkv_kernel(*jargs)
+    jdq = jfa._flash_dq_kernel(*jargs)
+    planes = tfa.flash_bwd_planes_plain(tq, tk, tv, tg, lse, delta)
+    for got, want in zip(tfa.flash_bwd_grads_plain(planes, tq, tk, tg), (jdq, jdk, jdv)):
+        assert got.dtype == tdt
+        got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-5)
+        else:
+            assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want)
+
+
+def test_backward_instance_is_chosen_by_dtype_alone():
+    assert [tfa.flash_bwd_instance(c, torch.bfloat16) for c in (64, 192, 256, 512, 1024)] == ["wgmma_tma"] * 5
+    assert tfa.flash_bwd_instance(512, torch.float32) == "fp32_fma"
+
+
+@pytest.mark.parametrize("n, n_pad", [(1, 64), (63, 64), (64, 64), (100, 128), (1000, 1024), (3136, 3136)])
+def test_planes_pad_n_to_64_and_hold_zeros_outside_n(n, n_pad):
+    assert tfa.plane_shape(3, n) == (2, 3, n_pad, n_pad)
+    if n > 100:
+        return
+    q, k, v, g, lse, delta = _bwd_inputs(6, (1, n, 64), torch.bfloat16)
+    planes = tfa.flash_bwd_planes_plain(q, k, v, g, lse, delta)
+    assert planes.shape == (2, 1, n_pad, n_pad)
+    assert torch.count_nonzero(planes[:, :, n:]) == 0 and torch.count_nonzero(planes[:, :, :, n:]) == 0
+    assert torch.count_nonzero(planes[0, :, :n, :n]) == n * n  # P > 0 inside
 
 
 def test_attention_routes_grad_through_the_function_and_no_grad_to_serving(monkeypatch):
