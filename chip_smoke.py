@@ -39,13 +39,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   profile  device time by kernel and by layer for one bs-32 reconstruct
            (torch.profiler), and the card's idle share during it;
   gn kernel the fused GroupNorm+SiLU kernels B6 (forward) and B7 (backward)
-           against their plain versions at GN_SHAPES (B6: fp32 relative L2 1e-5
-           and max abs 1e-4, bf16 one rounding apart elementwise and relative L2
-           2e-3; B7: fp32 relative L2 1e-4 for dx, dgamma, dbeta; bf16 dx by
-           GRAD_REL and GRAD_ABS_OF_STD, dgamma/dbeta relative L2 1e-3), the
-           autograd Function against autograd through the plain forward, and
-           their times at GN_TIMED beside bound, plain and F.group_norm +
-           F.silu (two calls; for B7 their autograd backward);
+           against their plain versions at GN_SHAPES, each line naming the
+           instances that took them (resident, cluster or streamed; B6: fp32
+           relative L2 1e-5 and max abs 1e-4, bf16 one rounding apart
+           elementwise and relative L2 2e-3; B7: fp32 relative L2 1e-4 for
+           dx, dgamma, dbeta; bf16 dx by GRAD_REL and GRAD_ABS_OF_STD and
+           within GN_DX_ROUNDINGS of one rounding of the plain version's fp32
+           dx, dgamma/dbeta relative L2 1e-3), a bitwise repeat of B6 and B7 at
+           GN_REPEAT, the autograd Function against autograd through the
+           plain forward, and their times at every distinct bf16 shape of
+           cvae28_train and flagship_fused_gn (found by a forward on the meta
+           device) beside bound, the streamed instance (the first design's) and
+           F.group_norm + F.silu (two calls; for B7 their autograd backward),
+           the plain version at GN_TIMED, and each path's per-step sums;
   flagship_fused_gn  the flagship's bucket-32 reconstruct with
            MEDVAE_FUSED_GN=1 (50 B6 launches a chunk, derived from the model,
            beside B1's 5) and then off on the same engine, and after the train
@@ -118,6 +124,7 @@ Then the card line from nvidia-smi, the kernels line, and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import ctypes
@@ -132,6 +139,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -144,6 +152,7 @@ try:
     from medvae_tpu_torch.config.models import CVAE_BENCH, FLAGSHIP, build_model, init_weights
     from medvae_tpu_torch.data.medmnist import MedMNISTDataModule
     from medvae_tpu_torch.data.pipeline import DeviceFeeder
+    from medvae_tpu_torch.nn import blocks
     from medvae_tpu_torch.nn.blocks import AttnBlock, ResnetBlock
     from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder
     from medvae_tpu_torch.ops import _build
@@ -525,19 +534,26 @@ def phase_backward() -> dict:
 
 
 # B6/B7 against their plain versions: the 28² CVAE's bs-4096 levels (cg = 1;
-# h·w = 49, not a multiple of the vector width), the flagship's widest level
-# at bs 32 and at bs 1 (the split reduction), an fp32 flagship level, and a
-# ragged fp32 shape with cg = 3
+# h·w = 49), the flagship's widest level at bs 32 and at bs 1 (clusters), an
+# fp32 flagship level, a ragged fp32 shape with cg = 3 and a ragged bf16 one
+# (cg = 3, h·w = 49, L = 147)
 GN_SHAPES = [((4096, 32, 28, 28), torch.bfloat16), ((4096, 128, 7, 7), torch.bfloat16),
              ((32, 128, 224, 224), torch.bfloat16), ((1, 128, 224, 224), torch.bfloat16),
-             ((2, 1024, 28, 28), torch.float32), ((3, 96, 9, 9), torch.float32)]
+             ((2, 1024, 28, 28), torch.float32), ((3, 96, 9, 9), torch.float32),
+             ((512, 96, 7, 7), torch.bfloat16)]
 GN_TIMED = [(4096, 32, 28, 28), (32, 128, 224, 224)]  # bf16; the first is the main path's
+GN_REPEAT = [(4096, 32, 28, 28), (32, 128, 224, 224)]  # bf16, a bitwise repeat of B6 and B7 each
+CVAE_BATCH, FLAGSHIP_BATCH = 4096, 32  # cvae28_train's, flagship_fused_gn's
 # B6: fp32 relative L2 and max abs; bf16 one rounding apart elementwise
 # (2^-7 |p| + 1e-6) and relative L2. B7: fp32 relative L2 for dx, dgamma and
 # dbeta; bf16 dx by GRAD_REL and GRAD_ABS_OF_STD, dgamma/dbeta relative L2.
 GN_FWD_BARS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, None)}
 GN_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
-GN_OPS_PER_ELEMENT = {"gn_swish_fwd": 11, "gn_swish_bwd": 32}  # fp32, counted from the source
+# bf16 dx is one rounding of its fp32 value: its relative L2 from the plain
+# version's fp32 dx at most this many times that of the rounding alone (one
+# more bf16 rounding, of dz, gives about 1.41)
+GN_DX_ROUNDINGS = 1.1
+GN_OPS_PER_ELEMENT = {"gn_swish_fwd": 11, "gn_swish_bwd": 45}  # fp32, counted from the source (B7 forms dz twice)
 
 
 def gn_inputs(gen, shape, dtype):
@@ -556,10 +572,108 @@ def gn_library(x, w, b, groups):
         torch.nn.functional.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype), 1e-6))
 
 
+GN_PASSES = {"gn_swish_fwd (B6)": "gn_swish_fwd", "gn_swish_bwd (B7)": "gn_swish_bwd"}
+
+
+def gn_device_ms(calls: dict, reps: int = 10) -> dict:
+    """Device time a call of each of `calls` (kernel name -> call), from the
+    kernels torch.profiler sees over `reps` calls of each, sorted into B6 and
+    B7 by name (`_category`): the card's time without the host's launch
+    overhead, which single-call event times include at small shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(calls, 0.0)
+    for e in prof.key_averages():
+        name = GN_PASSES.get(_category(e.key))
+        if e.device_type == DeviceType.CUDA and name in totals:
+            totals[name] += e.self_device_time_total / 1e3 / reps
+    return totals
+
+
+def gn_swish_shapes(model, *inputs, **kwargs) -> collections.Counter:
+    """(shape, groups) -> GroupNorm+SiLU sites of one forward of `model`,
+    from a forward on the meta device (shapes only; attention through
+    reference_attention, which the meta device runs)."""
+    seen = collections.Counter()
+
+    def record(x, weight, bias, num_groups, eps):
+        seen[(tuple(x.shape), num_groups)] += 1
+        return None
+
+    with mock.patch.object(blocks, "fused_group_norm_swish_or_none", record), \
+            mock.patch.object(blocks, "attention", reference_attention):
+        model(*inputs, **kwargs)
+    return seen
+
+
+def main_path_gn_shapes(with_base128: bool = False) -> dict:
+    """Path -> (shape, groups) -> sites a step, for the two paths that run
+    B6/B7 (the bs-4096 CVAE step and the flagship's bs-32 step) and, with
+    `with_base128`, the 128² BaseVAE's bs-64 step."""
+    cvae = build_model(CVAE_BENCH, "bf16", "meta", train=True)
+    flagship = build_model(FLAGSHIP, "bf16", "meta", train=True)
+    meta = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device="meta")
+    out = {"cvae28_train": gn_swish_shapes(cvae, meta(CVAE_BATCH, 28, 28, 3),
+                                           condition=meta(CVAE_BATCH, cvae.cond_dim)),
+           "flagship_fused_gn": gn_swish_shapes(
+               flagship, meta(FLAGSHIP_BATCH, 224, 224, 3),
+               modality_indices=meta(FLAGSHIP_BATCH, dtype=torch.long))}
+    if with_base128:
+        cfg = base128_config()
+        base = build_model(cfg["model"], "bf16", "meta", train=True)
+        out["base128_train"] = gn_swish_shapes(base, meta(BASE128_BATCH, 128, 128, 1))
+    return out
+
+
+def gn_check(y, y_ref, dx, dx_ref, dw, dw_ref, db, db_ref, dtype):
+    """B6's output and B7's gradients against the plain versions: (fwd ok,
+    fwd max abs, fwd relative L2, one_rounding, gradient rows)."""
+    fwd_err = (y.double() - y_ref.double()).abs()
+    fwd_rel = torch_rel_l2(y, y_ref)
+    rel_bar, abs_bar = GN_FWD_BARS[dtype]
+    if dtype == torch.float32:
+        fwd_ok = fwd_rel <= rel_bar and fwd_err.max().item() <= abs_bar
+        one_rounding = None
+    else:
+        one_rounding = bool((fwd_err <= 2.0**-7 * y_ref.double().abs() + 1e-6).all())
+        fwd_ok = one_rounding and fwd_rel <= rel_bar
+    fwd_ok = fwd_ok and bool(torch.isfinite(y).all())
+
+    def rel_row(n, a, r):
+        return {"name": n, "rel_l2": torch_rel_l2(a, r), "rel_l2_bar": GN_BWD_REL[dtype],
+                "max_abs_err": (a.double() - r.double()).abs().max().item(),
+                "ok": torch_rel_l2(a, r) <= GN_BWD_REL[dtype] and bool(torch.isfinite(a).all())}
+
+    if dtype == torch.float32:
+        rows = [rel_row(n, a, r) for n, a, r in (("dx", dx, dx_ref), ("dgamma", dw, dw_ref),
+                                                 ("dbeta", db, db_ref))]
+    else:
+        rows = [grad_check("dx", dx, dx_ref, dtype)] + [
+            rel_row(n, a, r) for n, a, r in (("dgamma", dw, dw_ref), ("dbeta", db, db_ref))]
+    return fwd_ok, fwd_err.max().item(), fwd_rel, one_rounding, rows
+
+
+def gn_instances(shape, dtype=torch.bfloat16) -> dict:
+    return {"fwd_instance": gs.gn_swish_instance(shape, dtype),
+            "bwd_instance": gs.gn_swish_instance(shape, dtype, backward=True)}
+
+
 def phase_gn_kernel() -> dict:
-    """B6 and B7 against their plain versions at GN_SHAPES, the autograd
+    """B6 and B7 against their plain versions at GN_SHAPES (each line naming
+    the instances), a bitwise repeat of each at GN_REPEAT, the autograd
     Function against autograd through the plain forward, and their times at
-    GN_TIMED beside bound, plain and the two-call library version."""
+    every distinct bf16 shape of cvae28_train and flagship_fused_gn beside
+    the bytes bound, the streamed instance and the two-call library version
+    (and the plain version at GN_TIMED), then each path's per-step sums."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {"gn_swish_fwd": 0.0, "gn_swish_bwd": 0.0}
     for shape, dtype in GN_SHAPES:
@@ -569,41 +683,44 @@ def phase_gn_kernel() -> dict:
         torch.cuda.synchronize()
         y_ref, mean_ref, rstd_ref = gs.group_norm_swish_fwd_plain(x, w, b, groups, 1e-6)
         dx_ref, dw_ref, db_ref = gs.group_norm_swish_bwd_plain(x, w, b, g, mean, rstd)
-        fwd_err = (y.double() - y_ref.double()).abs()
-        fwd_rel = torch_rel_l2(y, y_ref)
-        rel_bar, abs_bar = GN_FWD_BARS[dtype]
-        if dtype == torch.float32:
-            fwd_ok = fwd_rel <= rel_bar and fwd_err.max().item() <= abs_bar
-            one_rounding = None
-        else:
-            one_rounding = bool((fwd_err <= 2.0**-7 * y_ref.double().abs() + 1e-6).all())
-            fwd_ok = one_rounding and fwd_rel <= rel_bar
-        fwd_ok = fwd_ok and bool(torch.isfinite(y).all())
+        fwd_ok, fwd_max, fwd_rel, one_rounding, rows = gn_check(y, y_ref, dx, dx_ref, dw, dw_ref,
+                                                                db, db_ref, dtype)
         stats_rel = max(torch_rel_l2(mean, mean_ref), torch_rel_l2(rstd, rstd_ref))
-        if dtype == torch.float32:
-            rows = [{"name": n, "rel_l2": torch_rel_l2(a, r), "rel_l2_bar": GN_BWD_REL[dtype],
-                     "max_abs_err": (a.double() - r.double()).abs().max().item(),
-                     "ok": torch_rel_l2(a, r) <= GN_BWD_REL[dtype] and bool(torch.isfinite(a).all())}
-                    for n, a, r in (("dx", dx, dx_ref), ("dgamma", dw, dw_ref), ("dbeta", db, db_ref))]
-        else:
-            rows = [grad_check("dx", dx, dx_ref, dtype)] + [
-                {"name": n, "rel_l2": torch_rel_l2(a, r), "rel_l2_bar": GN_BWD_REL[dtype],
-                 "max_abs_err": (a.double() - r.double()).abs().max().item(),
-                 "ok": torch_rel_l2(a, r) <= GN_BWD_REL[dtype] and bool(torch.isfinite(a).all())}
-                for n, a, r in (("dgamma", dw, dw_ref), ("dbeta", db, db_ref))]
+        dx_roundings = None
+        if dtype == torch.bfloat16:
+            dx32 = gs.group_norm_swish_bwd_plain(x.float(), w, b, g.float(), mean, rstd)[0]
+            dx_roundings = torch_rel_l2(dx, dx32) / torch_rel_l2(dx32.to(dtype), dx32)
+            del dx32
+        rel_bar, abs_bar = GN_FWD_BARS[dtype]
         emit({"phase": "kernel", "kernels": "gn_swish_fwd (B6), gn_swish_bwd (B7)",
               "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-              "fwd_max_abs_err": fwd_err.max().item(), "fwd_rel_l2": fwd_rel,
+              **gn_instances(shape, dtype),
+              "fwd_max_abs_err": fwd_max, "fwd_rel_l2": fwd_rel,
               "fwd_rel_l2_bar": rel_bar, "fwd_max_abs_bar": abs_bar,
               "fwd_within_one_rounding": one_rounding, "stats_rel_l2": stats_rel,
-              "grads": rows})
-        if not fwd_ok or not stats_rel <= 1e-5 or not all(r["ok"] for r in rows):
+              "dx_roundings": dx_roundings, "dx_roundings_bar": GN_DX_ROUNDINGS, "grads": rows})
+        if (not fwd_ok or not stats_rel <= 1e-5 or not all(r["ok"] for r in rows)
+                or not (dx_roundings is None or dx_roundings <= GN_DX_ROUNDINGS)):
             raise AssertionError(f"gn_swish kernels {shape} {dtype}: fwd rel {fwd_rel}, "
-                                 f"stats rel {stats_rel}, {rows}")
+                                 f"stats rel {stats_rel}, dx roundings {dx_roundings}, {rows}")
         if tuple(shape) == GN_TIMED[0]:
-            worst = {"gn_swish_fwd": fwd_err.max().item(),
-                     "gn_swish_bwd": max(r["max_abs_err"] for r in rows)}
-        del x, g, y, dx, y_ref, dx_ref, fwd_err
+            worst = {"gn_swish_fwd": fwd_max, "gn_swish_bwd": max(r["max_abs_err"] for r in rows)}
+        del x, g, y, dx, y_ref, dx_ref
+        torch.cuda.empty_cache()
+
+    for shape in GN_REPEAT:
+        x, w, b, g, groups = gn_inputs(gen, shape, torch.bfloat16)
+        first = (*gs.group_norm_swish_fwd(x, w, b, groups, 1e-6),)
+        first += gs.group_norm_swish_bwd(x, w, b, g, first[1], first[2])
+        second = (*gs.group_norm_swish_fwd(x, w, b, groups, 1e-6),)
+        second += gs.group_norm_swish_bwd(x, w, b, g, second[1], second[2])
+        same = [bool(torch.equal(p, q)) for p, q in zip(first, second)]
+        emit({"phase": "kernel", "kernels": "gn_swish_fwd (B6), gn_swish_bwd (B7) bitwise repeat",
+              "shape": list(shape), "dtype": "bfloat16", **gn_instances(shape),
+              "fwd_equal": same[:3], "bwd_equal": same[3:]})
+        if not all(same):
+            raise AssertionError(f"gn_swish kernels {shape}: a repeat differs ({same})")
+        del x, g, first, second
         torch.cuda.empty_cache()
 
     for shape, dtype in (((8, 128, 56, 56), torch.bfloat16), ((2, 96, 9, 9), torch.float32)):
@@ -620,44 +737,73 @@ def phase_gn_kernel() -> dict:
         if not all(r["rel_l2"] <= bar for r in rows):
             raise AssertionError(f"GroupNormSwish grads {shape} {dtype}: {rows}")
 
+    paths = main_path_gn_shapes()
+    for path, want in (("cvae28_train", 28), ("flagship_fused_gn", 50)):
+        if sum(paths[path].values()) != want:
+            raise AssertionError(f"{path}: {sum(paths[path].values())} GroupNorm+SiLU sites, not {want}")
+    shapes = sorted({shape for sites in paths.values() for shape, _ in sites},
+                    key=lambda s: (-s[0], s))
     timed = {}
-    for shape in GN_TIMED:
+    for shape in shapes:
         x, w, b, g, groups = gn_inputs(gen, shape, torch.bfloat16)
         _, mean, rstd = gs.group_norm_swish_fwd(x, w, b, groups, 1e-6)
         xl = x.clone().requires_grad_(True)
         wl, bl = (t.to(x.dtype).requires_grad_(True) for t in (w, b))
         lib_out = torch.nn.functional.silu(torch.nn.functional.group_norm(xl, groups, wl, bl, 1e-6))
+        streamed = {"fwd": gs.plan_for(x, groups, instance="streamed"),
+                    "bwd": gs.plan_for(x, groups, backward=True, instance="streamed")}
         n, el, c = x.numel(), x.element_size(), shape[1]
         work = {  # bytes with each input read once and each output written once
-            "gn_swish_fwd": 2.0 * n * el + 2 * c * 4,
+            "gn_swish_fwd": 2.0 * n * el + 2 * c * 4 + 2 * shape[0] * groups * 4,
             "gn_swish_bwd": 3.0 * n * el + 4 * c * 4 + 2 * shape[0] * groups * 4,
         }
         calls = {
             "gn_swish_fwd": (lambda: gs.group_norm_swish_fwd(x, w, b, groups, 1e-6),
+                             lambda: gs.group_norm_swish_fwd(x, w, b, groups, 1e-6, plan=streamed["fwd"]),
                              lambda: gs.group_norm_swish_fwd_plain(x, w, b, groups, 1e-6),
                              lambda: gn_library(x, w, b, groups)),
             "gn_swish_bwd": (lambda: gs.group_norm_swish_bwd(x, w, b, g, mean, rstd),
+                             lambda: gs.group_norm_swish_bwd(x, w, b, g, mean, rstd, plan=streamed["bwd"]),
                              lambda: gs.group_norm_swish_bwd_plain(x, w, b, g, mean, rstd),
                              lambda: torch.autograd.grad(lib_out, (xl, wl, bl), g, retain_graph=True)),
         }
-        for name, (kernel, plain, library) in calls.items():
+        device = gn_device_ms({name: fns[0] for name, fns in calls.items()})
+        streamed_device = gn_device_ms({name: fns[1] for name, fns in calls.items()})
+        for name, (kernel, streamed_call, plain, library) in calls.items():
             flops = GN_OPS_PER_ELEMENT[name] * float(n)
             t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, work[name] / H100_BYTES_PER_S * 1e3
             ms = cuda_ms(kernel)
-            row = {"shape": list(shape), "dtype": "bfloat16", "ms": ms, "plain_ms": cuda_ms(plain),
+            row = {"shape": list(shape), "dtype": "bfloat16",
+                   "instance": gs.gn_swish_instance(shape, torch.bfloat16, name == "gn_swish_bwd"),
+                   "sites": {path: sites[(shape, groups)] for path, sites in paths.items()
+                             if (shape, groups) in sites},
+                   "ms": ms, "streamed_ms": cuda_ms(streamed_call),
+                   "device_ms": device[name], "streamed_device_ms": streamed_device[name],
+                   "plain_ms": cuda_ms(plain) if shape in GN_TIMED else None,
                    "library_ms": cuda_ms(library),
                    "library": "F.group_norm + F.silu, two calls" + (", autograd backward"
                                                                     if name == "gn_swish_bwd" else ""),
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "bytes": work[name], "flops": flops, "gb_per_s": work[name] / ms / 1e6}
+                   "bytes": work[name], "flops": flops, "gb_per_s": work[name] / ms / 1e6,
+                   "bound_share_of_device_ms": max(t_ops, t_bytes) / device[name]}
             emit({"phase": "kernel", "kernel": name, **row})
-            timed[(name, tuple(shape))] = row
+            timed[(name, shape)] = row
         del x, g, xl, lib_out
         torch.cuda.empty_cache()
+    for path, sites in paths.items():
+        per_step = {}
+        for name in ("gn_swish_fwd", "gn_swish_bwd"):
+            rows = [(timed[(name, shape)], k) for (shape, _), k in sites.items()]
+            per_step[name] = {key: sum(r[key] * k for r, k in rows)
+                              for key in ("ms", "device_ms", "streamed_ms", "streamed_device_ms",
+                                          "bound_ms", "library_ms")}
+        emit({"phase": "kernel", "gn_per_step": path, "sites": sum(sites.values()),
+              "shapes": len(sites), **per_step})
     return {name: dict(timed[(name, GN_TIMED[0])], max_abs_err=worst[name],
                        at_224={k: timed[(name, GN_TIMED[1])][k]
-                               for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")})
+                               for k in ("shape", "instance", "ms", "device_ms", "streamed_ms",
+                                         "plain_ms", "library_ms", "bound_ms")})
             for name in worst}
 
 
@@ -790,10 +936,11 @@ _CATEGORIES = (
     ("attention_rows_wgmma_kernelILb1E", "attention_fwd (B4)"),
     ("attention_rows_wgmma", "attention_bwd (B5)"),
     ("attention_cols_wgmma", "attention_bwd (B5)"),
-    ("gn_row_stats", "gn_swish_fwd (B6)"),
+    ("gn_fwd_", "gn_swish_fwd (B6)"),  # gn_fwd_resident, gn_fwd_cluster
+    ("gn_row_stats", "gn_swish_fwd (B6)"),  # the streamed instance's three
     ("gn_group_stats", "gn_swish_fwd (B6)"),
     ("gn_swish_apply", "gn_swish_fwd (B6)"),
-    ("gn_bwd", "gn_swish_bwd (B7)"),
+    ("gn_bwd", "gn_swish_bwd (B7)"),  # gn_bwd_{resident,cluster,reduce,row,apply}
     ("flash_fwd", "flash_fwd (B1)"),
     ("flash_planes_kernel", "flash_bwd (B2 + B3)"),  # the Hopper instance's two passes
     ("flash_grads_kernel", "flash_bwd (B2 + B3)"),
@@ -1808,7 +1955,8 @@ def main() -> int:
                      "launches_cvae28_serve": cvae_serve_launches[name],
                      "launches_flagship_fused_serve": fused_serve_launches[name],
                      "launches_flagship_fused_train": fused_train_launches[name],
-                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     **{k: r[k] for k in ("instance", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "streamed_ms", "streamed_device_ms",
                                           "library_ms", "library", "shape", "at_224")}})
     for name in ("attention_fwd", "attention_bwd"):
         r = attn_kernel[name]

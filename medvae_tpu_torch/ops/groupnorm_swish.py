@@ -11,20 +11,27 @@ Counterparts of medvae_tpu/ops/groupnorm_swish.py:
     repeatable bit for bit;
   * the `jax.custom_vjp` -> `GroupNormSwish` (saves x, γ, β and the stats);
   * `fused_group_norm_swish_or_none` -> the same name, the gate.
-The kernels are built by ops/_build.py at first use.
+The kernels are built by ops/_build.py at first use. `gn_swish_plan` picks
+how they run at a shape (the instance: a group resident in one block's shared
+memory, spread over a thread-block cluster, or streamed from device memory
+twice) and `gn_swish_instance` names it; B6 is one launch, B7 two (one for
+the streamed instance's three kernels each way).
 
 The port's activations are NCHW, so the wrappers take (b, c, h, w) x, where
 the JAX package takes NHWC. On CUDA tensors a wrapper launches its kernel
 (bf16 or fp32 x; fp32 (c,) γ, β) or raises; it uses the plain PyTorch version
-only for tensors on the CPU. Each launch adds one to that kernel's count in
-`launches`.
+only for tensors on the CPU. Each wrapper call adds one to that kernel's
+count in `launches` where it launches the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
 import threading
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import torch
@@ -42,11 +49,51 @@ _KERNELS = {
 }
 _fns = {}
 
-# a row (one image's channel, h·w elements) is cut into pieces, each
-# reduced by one warp, until about this many warps are in flight (64 a
+# streamed: a row (one image's channel, h·w elements) is cut into pieces,
+# each reduced by one warp, until about this many warps are in flight (64 a
 # streaming multiprocessor) or a piece would fall under MIN_PIECE elements
 _WARPS_PER_SM = 64
 _MIN_PIECE = 1024
+
+# the plan's limits, as csrc/groupnorm_swish.cu has them
+INSTANCES = ("resident", "cluster", "streamed")
+SMEM_MAX = 232_448  # 227 KB, a block's most on sm_90
+_HEADER = 3072  # mbarriers, reduction scratch, per-channel and the cluster's partials
+_MAX_CLUSTER = 8  # the portable cluster size
+_MAX_CG = 32  # channels of a group a block reduces (its partials sit in the header)
+_MAX_STAGES = 8
+_SPAN_MAX = 64 * 1024  # resident: a span of the fewest whole groups holds at most this
+_SPAN_TARGET = 32 * 1024  # resident: spans are grown towards this
+# resident: the threads that reduce one group, by its length (up to 256, 1024
+# and 2048 elements: a segment of 8, 16 or 32 lanes of a warp; past that the
+# block's 256)
+_LANES = ((256, 8), (1024, 16), (2048, 32))
+_SLICE_TARGET = 55 * 1024  # cluster: a slice this small lets four blocks share an SM
+_THREADS = 256  # the reducing threads of a block
+_WARPS = _THREADS // 32
+
+
+@dataclass(frozen=True)
+class GnPlan:
+    """How B6 or B7 runs at one shape (csrc/groupnorm_swish.cu's `Plan`):
+    the instance; resident: whole groups a span, ring stages, threads a group
+    (8, 16 or 32 lanes of a warp, or the block's 256); cluster: blocks a
+    cluster; streamed: pieces a row; and the dynamic shared memory a block
+    uses (`plan_smem`), which the kernel checks against its own count. The
+    resident instance's persistent grid is sized at launch, by the occupancy
+    the kernel's registers and this shared memory allow."""
+
+    instance: str
+    groups_per_span: int = 0
+    stages: int = 0
+    cluster: int = 0
+    splits: int = 0
+    lanes: int = 0
+    smem_bytes: int = 0
+
+    def args(self) -> tuple:
+        return (INSTANCES.index(self.instance), self.groups_per_span, self.stages, self.cluster,
+                self.splits, self.lanes, self.smem_bytes)
 
 
 def reset_launches() -> None:
@@ -57,9 +104,102 @@ def reset_launches() -> None:
 
 def splits_for(rows: int, hw: int, sms: int) -> int:
     """How many pieces each of `rows` rows of `hw` elements is cut into for
-    the reductions, on a card of `sms` streaming multiprocessors."""
+    the streamed instance's reductions, on a card of `sms` streaming
+    multiprocessors."""
     want = -(-(sms * _WARPS_PER_SM) // rows)
     return max(1, min(want, hw // _MIN_PIECE))
+
+
+def _slice_len(length: int, n: int) -> int:
+    return (-(-length // n) + 7) // 8 * 8
+
+
+def plan_smem(plan: GnPlan, length: int, elem_bytes: int, backward: bool) -> int:
+    """The dynamic shared memory `plan`'s kernel uses at groups of `length`
+    elements of `elem_bytes` bytes (x; x and g for B7), as the CUDA source
+    counts it; the card tests and scripts/gn_variants.py recount a plan they
+    change with `dataclasses.replace`."""
+    nbuf = 2 if backward else 1
+    if plan.instance == "resident":
+        return _HEADER + plan.stages * plan.groups_per_span * length * elem_bytes * nbuf
+    if plan.instance == "cluster":
+        return _HEADER + _slice_len(length, plan.cluster) * elem_bytes * nbuf
+    return 0
+
+
+def _instance_for(length: int, cg: int, elem_bytes: int, backward: bool) -> str:
+    """resident, if a span of the fewest whole groups whose bytes are a
+    multiple of 16 holds at most 64 KB (and a group of more than 2048
+    elements, which the whole block reduces, has at most 32 channels);
+    cluster, else, if the group has at most 32 channels and a slice of a
+    cluster of 8 fits a block; streamed, else."""
+    nbuf = 2 if backward else 1
+    k_min = 16 // math.gcd(length * elem_bytes, 16)
+    if k_min * length * elem_bytes * nbuf <= _SPAN_MAX and (length <= _LANES[-1][0] or cg <= _MAX_CG):
+        return "resident"
+    if cg <= _MAX_CG and _HEADER + _slice_len(length, _MAX_CLUSTER) * elem_bytes * nbuf <= SMEM_MAX:
+        return "cluster"
+    return "streamed"
+
+
+def gn_swish_plan(shape, elem_bytes: int, num_groups: int, sms: int, backward: bool = False,
+                  instance: Optional[str] = None) -> GnPlan:
+    """The plan of B6 (or B7 with `backward`) at NCHW `shape` of elements of
+    `elem_bytes` bytes, on a card of `sms` SMs. A group is L = (c / G)·h·w
+    contiguous elements, held in shared memory once (x; x and g for B7); the
+    instance is `_instance_for`'s, or `instance` where the caller forces one
+    (chip_smoke times the streamed instance beside the others):
+      * resident: spans grown towards 32 KB (but no more than two stages of
+        them fit a block), two ring stages, a segment of 8, 16 or 32 lanes a
+        group up to 256, 1024 or 2048 elements, else the block's 256
+        threads;
+      * cluster: the smallest cluster of 2, 4 or 8 whose slices hold at most
+        55 KB (four blocks an SM), or 8 if a slice fits a block;
+      * streamed: `splits_for`'s pieces a row.
+    A forced instance the kernels cannot take at this shape raises
+    ValueError."""
+    b, c = int(shape[0]), int(shape[1])
+    hw = int(shape[2]) * int(shape[3])
+    cg = c // num_groups
+    length = cg * hw
+    nbuf = 2 if backward else 1
+    instance = instance or _instance_for(length, cg, elem_bytes, backward)
+    if instance == "streamed":
+        return GnPlan("streamed", splits=splits_for(b * c, hw, sms))
+    if instance == "resident":
+        group_bytes = length * elem_bytes * nbuf
+        k_min = 16 // math.gcd(length * elem_bytes, 16)
+        lanes = next((n for top, n in _LANES if length <= top), _THREADS)
+        # segments: a span holds a group for each segment of the block
+        unit = max(k_min, _WARPS * 32 // lanes) if lanes <= 32 else k_min
+        span = unit * max(1, _SPAN_TARGET // (unit * group_bytes))
+        span = min(span, unit * -(-b * num_groups // unit),
+                   (SMEM_MAX - _HEADER) // (2 * group_bytes) // k_min * k_min)
+        plan = GnPlan("resident", groups_per_span=span, stages=2, lanes=lanes)
+        plan = replace(plan, smem_bytes=plan_smem(plan, length, elem_bytes, backward))
+        if span < 1 or plan.smem_bytes > SMEM_MAX or lanes == _THREADS and cg > _MAX_CG:
+            raise ValueError(f"gn_swish_plan: no resident plan at {tuple(shape)} "
+                             f"({plan.smem_bytes} bytes of shared memory, {cg} channels a group)")
+        return plan
+    if instance != "cluster":
+        raise ValueError(f"gn_swish_plan: unknown instance {instance!r}")
+    cluster = next((n for n in (2, 4, 8)
+                    if _slice_len(length, n) * elem_bytes * nbuf <= _SLICE_TARGET), _MAX_CLUSTER)
+    plan = GnPlan("cluster", cluster=cluster)
+    plan = replace(plan, smem_bytes=plan_smem(plan, length, elem_bytes, backward))
+    if cg > _MAX_CG or plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"gn_swish_plan: no cluster plan at {tuple(shape)} "
+                         f"({cg} channels a group, {plan.smem_bytes} bytes of shared memory)")
+    return plan
+
+
+def gn_swish_instance(shape, dtype: torch.dtype, backward: bool = False, num_groups: int = 32) -> str:
+    """The instance B6 (or B7) takes at `shape` in `dtype`: "resident",
+    "cluster" or "streamed"."""
+    groups = min(num_groups, int(shape[1]))
+    cg = int(shape[1]) // groups
+    elem = torch.empty((), dtype=dtype).element_size()
+    return _instance_for(cg * int(shape[2]) * int(shape[3]), cg, elem, backward)
 
 
 def _kernel(name: str, dtype: torch.dtype):
@@ -67,25 +207,31 @@ def _kernel(name: str, dtype: torch.dtype):
     if fn is None:
         from medvae_tpu_torch.ops import _build
 
-        symbol, n_ptrs, takes_eps = _KERNELS[name]
-        fn = getattr(_build.load("groupnorm_swish"),
-                     symbol + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
-                       + ([ctypes.c_float] if takes_eps else []) + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        fn = bind(_build.load("groupnorm_swish"), name, dtype)
         _fns[(name, dtype)] = fn
     return fn
 
 
-def _launch(name: str, tensors, x: torch.Tensor, num_groups: int, splits: int, *eps) -> None:
+def bind(lib: ctypes.CDLL, name: str, dtype: torch.dtype):
+    """Kernel `name`'s C entry for `dtype` in `lib` (the committed build, or
+    a variant's), with its argument types."""
+    symbol, n_ptrs, takes_eps = _KERNELS[name]
+    fn = getattr(lib, symbol + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * (4 + len(GnPlan("streamed").args()))
+                   + ([ctypes.c_float] if takes_eps else []) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, tensors, x: torch.Tensor, num_groups: int, plan: GnPlan, *eps) -> None:
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel(name, x.dtype)(
-            *(t.data_ptr() for t in tensors), b, c, h * w, num_groups, splits, *eps, stream,
+            *(t.data_ptr() for t in tensors), b, c, h * w, num_groups, *plan.args(), *eps, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed ({plan.instance}): CUDA error {err}")
     with _count_lock:
         launches[name] += 1
 
@@ -131,10 +277,29 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups
         raise ValueError("group_norm_swish: weight and bias must be contiguous")
 
 
-def _splits(x: torch.Tensor) -> int:
-    b, c, h, w = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return splits_for(b * c, h * w, sms)
+def plan_for(x: torch.Tensor, num_groups: int, backward: bool = False,
+             instance: Optional[str] = None) -> GnPlan:
+    """gn_swish_plan for x on its card, planned once a shape (a step calls
+    the wrappers at the same few shapes again and again)."""
+    return _plan_on(tuple(x.shape), x.element_size(), num_groups, backward, x.device.index, instance)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_on(shape: tuple, elem_bytes: int, num_groups: int, backward: bool, device: int,
+             instance: Optional[str]) -> GnPlan:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return gn_swish_plan(shape, elem_bytes, num_groups, sms, backward, instance)
+
+
+def _workspace(plan: GnPlan, x: torch.Tensor, num_groups: int, backward: bool) -> torch.Tensor:
+    """fp32 scratch: the streamed instance's row partials (and its (b, G)
+    group means in B7), or B7's (c, 2, b) per-channel sums."""
+    b, c = x.shape[:2]
+    if plan.instance == "streamed":
+        n = 2 * b * c * plan.splits + (2 * b * num_groups if backward else 0)
+    else:
+        n = 2 * b * c if backward else 0
+    return torch.empty((max(n, 1),), dtype=torch.float32, device=x.device)
 
 
 # ------------------------------------------------------------------ B6 ---- #
@@ -174,19 +339,21 @@ def group_norm_swish_plain(x, weight, bias, num_groups: int, eps: float) -> torc
 
 
 def group_norm_swish_fwd(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float,
+    plan: Optional[GnPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(y, mean, rstd) through kernel B6."""
+    """(y, mean, rstd) through kernel B6, on `plan` (`plan_for`'s by
+    default)."""
     if _on_cpu(x, weight, bias):
         return group_norm_swish_fwd_plain(x, weight, bias, num_groups, eps)
     _check(x, weight, bias, num_groups)
-    b, c, h, w = x.shape
-    splits = _splits(x)
+    b = x.shape[0]
+    plan = plan or plan_for(x, num_groups)
     y = torch.empty_like(x)
     mean = torch.empty((b, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    ws = torch.empty((2 * b * c * splits,), dtype=torch.float32, device=x.device)
-    _launch("gn_swish_fwd", (x, weight, bias, y, mean, rstd, ws), x, num_groups, splits, float(eps))
+    ws = _workspace(plan, x, num_groups, False)
+    _launch("gn_swish_fwd", (x, weight, bias, y, mean, rstd, ws), x, num_groups, plan, float(eps))
     return y, mean, rstd
 
 
@@ -222,9 +389,10 @@ def group_norm_swish_bwd_plain(
 
 def group_norm_swish_bwd(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
-    mean: torch.Tensor, rstd: torch.Tensor,
+    mean: torch.Tensor, rstd: torch.Tensor, plan: Optional[GnPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dγ, dβ) through kernel B7; mean and rstd are B6's (b, G) outputs."""
+    """(dx, dγ, dβ) through kernel B7, on `plan` (`plan_for`'s by default);
+    mean and rstd are B6's (b, G) outputs."""
     if _on_cpu(x, weight, bias, g, mean, rstd):
         return group_norm_swish_bwd_plain(x, weight, bias, g, mean, rstd)
     b, c, h, w = x.shape
@@ -237,13 +405,13 @@ def group_norm_swish_bwd(
                 f"group_norm_swish backward: {name} must be contiguous fp32 ({b}, {groups}) "
                 f"on {x.device}; got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
-    splits = _splits(x)
+    plan = plan or plan_for(x, groups, backward=True)
     dx = torch.empty_like(x)
     dgamma = torch.empty((c,), dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
-    ws = torch.empty((2 * b * c * splits + 2 * b * groups,), dtype=torch.float32, device=x.device)
+    ws = _workspace(plan, x, groups, True)
     _launch("gn_swish_bwd", (x, g, weight, bias, mean, rstd, dx, dgamma, dbeta, ws), x,
-            groups, splits)
+            groups, plan)
     return dx, dgamma, dbeta
 
 

@@ -8,6 +8,7 @@ JAX test harness:
 """
 
 import ctypes
+import dataclasses
 
 import pytest
 import torch
@@ -299,9 +300,9 @@ def test_flash_bwd_instance_names_each_head_dim(gen):
 # ---------------------------------------------------------------- B6, B7 ---- #
 
 # the shapes chip_smoke.py holds B6 and B7 to: the 28² CVAE's bs-4096 levels
-# (cg = 1 at 28²x32; h·w = 49, not a multiple of the vector width, at 7²x128),
-# the flagship's widest level at bs 32 and at bs 1 (the split reduction), an
-# fp32 level of the flagship, and a ragged fp32 shape with cg = 3
+# (cg = 1 at 28²x32; h·w = 49 at 7²x128), the flagship's widest level at bs 32
+# and at bs 1 (clusters), an fp32 level of the flagship, and a ragged fp32
+# shape with cg = 3
 GN_SHAPES = [((4096, 32, 28, 28), torch.bfloat16), ((4096, 128, 7, 7), torch.bfloat16),
              ((32, 128, 224, 224), torch.bfloat16), ((1, 128, 224, 224), torch.bfloat16),
              ((2, 1024, 28, 28), torch.float32), ((3, 96, 9, 9), torch.float32)]
@@ -392,6 +393,133 @@ def test_gn_swish_wrappers_raise_on_the_card_instead_of_falling_back(gen):
         gs.group_norm_swish_bwd(x, w, b, g.bfloat16(), mean, rstd)
     with pytest.raises(ValueError, match="fp32"):
         gs.group_norm_swish_bwd(x, w, b, g, mean.double(), rstd)
+    assert gs.launches == before
+
+
+# each instance at shapes it takes by default and on plans changed from the
+# default (an "instance" forced through plan_for, other fields by
+# dataclasses.replace): resident (8, 16 or 32 lanes a group: the CVAE's 28²
+# and 7² levels, several spans a block, vectors that straddle two rows at 7²
+# in bf16 and fp32; a ragged cg = 3 at odd h·w; a last span of plain loads
+# (60 groups of 25 elements), alone and after a ring of bulk loads (48012
+# groups, spans of 32); the block a group: the 128² BaseVAE's 16² x 1024
+# level; three stages wrapping round the ring; fp32 B7's spans cut to what
+# two stages hold), cluster (the flagship's 224² level at bs 1, its 56² x
+# 512 level, unaligned groups of plain loads, cluster 8 at 224² and cluster 2
+# at an fp32 112² level) and streamed (forced at a CVAE and a flagship shape)
+GN_INSTANCE_CASES = [
+    ((1024, 32, 28, 28), torch.bfloat16, {}),
+    ((2048, 128, 7, 7), torch.bfloat16, {}),
+    ((512, 64, 28, 28), torch.bfloat16, {}),
+    ((64, 128, 7, 7), torch.float32, {}),
+    ((8, 96, 7, 7), torch.bfloat16, {}),
+    ((5, 12, 5, 5), torch.bfloat16, {}),
+    ((5, 12, 5, 5), torch.float32, {}),
+    ((5, 12, 5, 5), torch.bfloat16, {"groups_per_span": 8}),
+    ((4001, 12, 5, 5), torch.bfloat16, {"groups_per_span": 32}),
+    ((4, 1024, 16, 16), torch.bfloat16, {}),
+    ((600, 96, 9, 9), torch.float32, {"stages": 3, "groups_per_span": 4}),
+    ((64, 32, 32, 32), torch.float32, {}),
+    ((1, 128, 224, 224), torch.bfloat16, {}),
+    ((2, 512, 56, 56), torch.bfloat16, {}),
+    ((2, 96, 123, 123), torch.float32, {}),
+    ((2, 96, 123, 123), torch.bfloat16, {}),
+    ((2, 128, 224, 224), torch.bfloat16, {"instance": "cluster", "cluster": 8}),
+    ((2, 128, 112, 112), torch.float32, {"instance": "cluster", "cluster": 2}),
+    ((1024, 32, 28, 28), torch.bfloat16, {"instance": "streamed"}),
+    ((2, 128, 224, 224), torch.bfloat16, {"instance": "streamed"}),
+]
+
+
+def _gn_direct(x, w, b, g, groups, fwd_plan, bwd_plan):
+    """B6 then B7 through `_launch` into outputs and workspace filled with
+    NaN, so that an element a kernel leaves unwritten shows."""
+    nan = lambda *shape: torch.full(shape, float("nan"), dtype=torch.float32, device="cuda")
+    bsz, c = x.shape[:2]
+    y, mean, rstd = torch.full_like(x, float("nan")), nan(bsz, groups), nan(bsz, groups)
+    ws = gs._workspace(fwd_plan, x, groups, False).fill_(float("nan"))
+    gs._launch("gn_swish_fwd", (x, w, b, y, mean, rstd, ws), x, groups, fwd_plan, 1e-6)
+    dx, dw, db = torch.full_like(x, float("nan")), nan(c), nan(c)
+    ws = gs._workspace(bwd_plan, x, groups, True).fill_(float("nan"))
+    gs._launch("gn_swish_bwd", (x, g, w, b, mean, rstd, dx, dw, db, ws), x, groups, bwd_plan)
+    torch.cuda.synchronize()
+    return y, mean, rstd, dx, dw, db
+
+
+def _gn_plans(x, groups, override):
+    """B6's and B7's plans for x: plan_for's (with its forced "instance"),
+    the other fields of `override` set by dataclasses.replace and the shared
+    memory recounted."""
+    fields = dict(override)
+    instance = fields.pop("instance", None)
+    length = x.shape[1] // groups * x.shape[2] * x.shape[3]
+    plans = []
+    for backward in (False, True):
+        plan = dataclasses.replace(gs.plan_for(x, groups, backward, instance), **fields)
+        plans.append(dataclasses.replace(plan, smem_bytes=gs.plan_smem(plan, length, x.element_size(),
+                                                                       backward)))
+    return tuple(plans)
+
+
+@pytest.mark.parametrize("shape, dtype, override", GN_INSTANCE_CASES)
+def test_gn_swish_instances_match_plain_versions(gen, shape, dtype, override):
+    x, w, b, g, groups = _gn_inputs(gen, shape, dtype)
+    fwd_plan, bwd_plan = _gn_plans(x, groups, override)
+    if "instance" in override:
+        assert fwd_plan.instance == bwd_plan.instance == override["instance"]
+    y, mean, rstd, dx, dw, db = _gn_direct(x, w, b, g, groups, fwd_plan, bwd_plan)
+    y_ref, mean_ref, rstd_ref = gs.group_norm_swish_fwd_plain(x, w, b, groups, 1e-6)
+    _assert_gn_fwd_close(y, y_ref, dtype)
+    assert _rel(mean, mean_ref) <= 1e-5 and _rel(rstd, rstd_ref) <= 1e-5
+    dx_ref, dw_ref, db_ref = gs.group_norm_swish_bwd_plain(x, w, b, g, mean, rstd)
+    if dtype == torch.float32:
+        for got, want in ((dx, dx_ref), (dw, dw_ref), (db, db_ref)):
+            assert torch.isfinite(got).all() and _rel(got, want) <= 1e-4
+    else:
+        _assert_grad_close(dx, dx_ref, dtype, "dx")
+        assert _rel(dw, dw_ref) <= 1e-3 and _rel(db, db_ref) <= 1e-3
+
+
+@pytest.mark.parametrize("shape, dtype, override", [GN_INSTANCE_CASES[i] for i in (0, 1, 7, 8, 9, 12, 14, 18)])
+def test_gn_swish_instances_repeat_bit_for_bit(gen, shape, dtype, override):
+    """No atomics, sums in a fixed order: B6 and B7 give the same bits twice."""
+    x, w, b, g, groups = _gn_inputs(gen, shape, dtype)
+    plans = _gn_plans(x, groups, override)
+    first = _gn_direct(x, w, b, g, groups, *plans)
+    second = _gn_direct(x, w, b, g, groups, *plans)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("shape, dtype, override", GN_INSTANCE_CASES)
+def test_gn_swish_instance_names_the_plan_the_wrapper_launches(gen, shape, dtype, override):
+    if override:
+        pytest.skip("a forced plan is not the default instance")
+    x = torch.empty(shape, dtype=dtype, device="cuda")
+    groups = min(32, shape[1])
+    for backward in (False, True):
+        assert gs.gn_swish_instance(shape, dtype, backward) == gs.plan_for(x, groups, backward).instance
+
+
+@pytest.mark.parametrize("shape, dtype, override", [c for c in GN_INSTANCE_CASES if c[1] == torch.bfloat16
+                                                     and c[2].get("instance") != "streamed"])
+def test_gn_swish_bf16_dx_is_one_rounding_of_fp32(gen, shape, dtype, override):
+    """B7 forms dx in fp32 and rounds it once: its relative L2 from the plain
+    version's fp32 dx stays within 1.1 times that of the rounding alone (a
+    second bf16 rounding inside, of dz, gives about 1.41)."""
+    x, w, b, g, groups = _gn_inputs(gen, shape, dtype)
+    y, mean, rstd, dx, _, _ = _gn_direct(x, w, b, g, groups, *_gn_plans(x, groups, override))
+    dx32 = gs.group_norm_swish_bwd_plain(x.float(), w, b, g.float(), mean, rstd)[0]
+    assert _rel(dx, dx32) <= 1.1 * _rel(dx32.to(dtype), dx32)
+
+
+def test_gn_swish_kernels_refuse_a_plan_whose_shared_memory_disagrees(gen):
+    x, w, b, g, groups = _gn_inputs(gen, (4, 64, 8, 8), torch.bfloat16)
+    plan = gs.plan_for(x, groups)
+    bad = dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16)
+    before = dict(gs.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gs.group_norm_swish_fwd(x, w, b, groups, 1e-6, plan=bad)
     assert gs.launches == before
 
 

@@ -133,7 +133,8 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("script, source", [("flash_fwd_variants", "flash_fwd.cu"),
                                             ("flash_bwd_variants", "flash_bwd.cu"),
-                                            ("attention_variants", "attention.cu")])
+                                            ("attention_variants", "attention.cu"),
+                                            ("gn_variants", "groupnorm_swish.cu")])
 def test_kernel_variants_still_apply_to_the_committed_sources(script, source, monkeypatch):
     """Every literal substitution of a variants script matches the source it
     edits, so each variant still builds from the committed tree."""
