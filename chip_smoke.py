@@ -117,7 +117,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            16"), then 3 epochs uninterrupted: the resumed params against those,
            launches counted (7 B4 a train step or eval batch, 7 B5 a train
            step), and the final checkpoint served (7 B4). Its work directory
-           is build/chip_smoke_work, removed at the end.
+           is build/chip_smoke_work, removed at the end;
+  gan224_train  the full-width 224² GAN experiment (experiment=multi_modal_cvae:
+           the concat ConditionalVAE, hidden 256, 906.3 M params, the PatchGAN
+           and LPIPS in fp32, adamw betas (0.5, 0.999), cosine) with its gate
+           at step 1 and MEDVAE_FUSED_GN=1, bs 24, fp32 params, bf16 compute,
+           augment on: 2 warmup and 5 timed steps with the loss terms and
+           d_weight, 50/50 B6/B7 a step (derived from the model); d_weight and
+           d_loss 0 at step 0 and > 0 after; ms, img/s, peak memory, a
+           profile (convolution split by type: bf16 the VAE's, fp32 the
+           towers' and D's) and the towers' and D's time alone. A batch that
+           does not fit halves, with the reason printed;
+  gan_parity  one fp32 GAN step past the gate of the quick GAN model at 28²
+           (no dropout), bs 4, card against CPU: each loss term relative 1e-4,
+           the generator's and D's gradients relative L2 1e-3, D's BatchNorm
+           statistics 1e-5, beside a repeat of the card's step and a 1e-6
+           nudge of the noise;
+  gan_trainer  cli/train.py on experiment=multi_modal_cvae_gan_quick with
+           MEDVAE_FUSED_GN=1 (2 epochs of 6 batches, the gate at step 3), then
+           resume +1 epoch, then 3 epochs uninterrupted: B6/B7 launches, the
+           adversarial terms past the gate, the resumed generator's and D's
+           params and statistics against the uninterrupted ones (RESUME_BAR,
+           beside the 2-epoch ones), and the final checkpoint served.
 Then the card line from nvidia-smi, the kernels line, and
 {"ok": true, "device": {...}} last.
 """
@@ -150,10 +171,12 @@ try:
     from medvae_tpu_torch.cli.serve import _b64_to_np, _np_to_b64, serve
     from medvae_tpu_torch.config.compose import compose
     from medvae_tpu_torch.config.models import CVAE_BENCH, FLAGSHIP, build_model, init_weights
+    from medvae_tpu_torch.config.instantiate import instantiate
     from medvae_tpu_torch.data.medmnist import MedMNISTDataModule
     from medvae_tpu_torch.data.pipeline import DeviceFeeder
     from medvae_tpu_torch.nn import blocks
     from medvae_tpu_torch.nn.blocks import AttnBlock, ResnetBlock
+    from medvae_tpu_torch.nn.discriminator import build_discriminator
     from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder
     from medvae_tpu_torch.ops import _build
     from medvae_tpu_torch.ops import attention as at
@@ -161,9 +184,10 @@ try:
     from medvae_tpu_torch.ops import groupnorm_swish as gs
     from medvae_tpu_torch.ops.attention import reference_attention
     from medvae_tpu_torch.serve.engine import InferenceEngine
-    from medvae_tpu_torch.train.optim import build_optimizer
+    from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
     from medvae_tpu_torch.train.state import create_train_state
-    from medvae_tpu_torch.train.step import build_loss_and_grads, build_train_step, make_frozen
+    from medvae_tpu_torch.train.step import (build_gan_grads, build_loss_and_grads, build_train_step,
+                                             make_frozen, make_gan_loss)
 except ImportError as e:
     print(f"chip_smoke: the medvae_tpu_torch package is missing here ({e})", file=sys.stderr)
     raise SystemExit(3)
@@ -615,9 +639,10 @@ def gn_swish_shapes(model, *inputs, **kwargs) -> collections.Counter:
     return seen
 
 
-def main_path_gn_shapes(with_base128: bool = False) -> dict:
-    """Path -> (shape, groups) -> sites a step, for the two paths that run
-    B6/B7 (the bs-4096 CVAE step and the flagship's bs-32 step) and, with
+def main_path_gn_shapes(with_base128: bool = False, with_gan224: bool = False) -> dict:
+    """Path -> (shape, groups) -> sites a step, for the paths that run B6/B7
+    (the bs-4096 CVAE step, the flagship's bs-32 step and, with
+    `with_gan224`, the full-width GAN experiment's bs-24 step) and, with
     `with_base128`, the 128² BaseVAE's bs-64 step."""
     cvae = build_model(CVAE_BENCH, "bf16", "meta", train=True)
     flagship = build_model(FLAGSHIP, "bf16", "meta", train=True)
@@ -631,6 +656,10 @@ def main_path_gn_shapes(with_base128: bool = False) -> dict:
         cfg = base128_config()
         base = build_model(cfg["model"], "bf16", "meta", train=True)
         out["base128_train"] = gn_swish_shapes(base, meta(BASE128_BATCH, 128, 128, 1))
+    if with_gan224:
+        gan = build_model(gan224_config()["model"], "bf16", "meta", train=True)
+        out["gan224_train"] = gn_swish_shapes(gan, meta(GAN224_BATCH, 224, 224, 3),
+                                              condition=meta(GAN224_BATCH, gan.cond_dim))
     return out
 
 
@@ -737,8 +766,8 @@ def phase_gn_kernel() -> dict:
         if not all(r["rel_l2"] <= bar for r in rows):
             raise AssertionError(f"GroupNormSwish grads {shape} {dtype}: {rows}")
 
-    paths = main_path_gn_shapes()
-    for path, want in (("cvae28_train", 28), ("flagship_fused_gn", 50)):
+    paths = main_path_gn_shapes(with_gan224=True)
+    for path, want in (("cvae28_train", 28), ("flagship_fused_gn", 50), ("gan224_train", 50)):
         if sum(paths[path].values()) != want:
             raise AssertionError(f"{path}: {sum(paths[path].values())} GroupNorm+SiLU sites, not {want}")
     shapes = sorted({shape for sites in paths.values() for shape, _ in sites},
@@ -964,9 +993,19 @@ def _category(name: str) -> str:
     return "elementwise / copy / other"
 
 
-def device_breakdown(fn, wall_ms: float) -> dict:
-    """Device time by kernel and by layer over one call of `fn`
-    (torch.profiler), beside the same call's unprofiled wall time."""
+def _conv_by_dtype(name: str) -> str:
+    """`_category`, with convolution split by the kernel's type: bf16 (the
+    VAE's convs) or the rest (the fp32 towers and discriminator)."""
+    cat = _category(name)
+    if cat == "convolution":
+        return "convolution (bf16)" if "bf16" in name else "convolution (fp32)"
+    return cat
+
+
+def device_breakdown(fn, wall_ms: float, category=None) -> dict:
+    """Device time by kernel and by layer (`category`, `_category` when
+    None) over one call of `fn` (torch.profiler), beside the same call's
+    unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -979,8 +1018,9 @@ def device_breakdown(fn, wall_ms: float) -> dict:
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     by_cat = {}
+    category = category or _category
     for ms, name, _ in kernels:
-        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
+        by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if kernels else "not measured",
             "idle_share": 1.0 - busy / wall_ms if kernels else "not measured",
@@ -1046,11 +1086,13 @@ def train_model(state_dict, precision: str, device, frozen_from=None):
     return model, frozen
 
 
-def run_steps(tag: str, step, state, batch, gen, warmup: int, timed: int, want: dict):
+def run_steps(tag: str, step, state, batch, gen, warmup: int, timed: int, want: dict,
+              history: list | None = None):
     """`warmup` + `timed` train steps, each a run of the main path: the
     counts are reset just before it and read just after, and must equal
-    `want`; every step's metrics must be finite. Returns (state, the timed
-    steps' ms, the counts summed over all steps)."""
+    `want`; every step's metrics must be finite (and are appended to
+    `history` when given). Returns (state, the timed steps' ms, the counts
+    summed over all steps)."""
     totals = dict.fromkeys(want, 0)
     times = []
     for i in range(warmup + timed):
@@ -1066,6 +1108,8 @@ def run_steps(tag: str, step, state, batch, gen, warmup: int, timed: int, want: 
               "launches": counts})
         if not all(np.isfinite(list(values.values()))):
             raise AssertionError(f"{tag} step {i}: non-finite metrics {values}")
+        if history is not None:
+            history.append(values)
         if counts != want:
             raise AssertionError(f"{tag} step {i}: launches {counts}, want {want}")
         for name in totals:
@@ -1881,6 +1925,328 @@ def phase_trainer128() -> dict:
     return totals
 
 
+
+# ------------------------------------------------------------ GAN path ---- #
+
+# configs/experiment/multi_modal_cvae.yaml (906.3 M params, bs 24 at 224²,
+# adamw betas (0.5, 0.999) on the cosine schedule, lpips_discriminator,
+# PatchGAN ndf 64 x 3 layers), its gate moved to step 1: step 0 lies before
+# it and every later step past it
+GAN224_OVERRIDES = ["experiment=multi_modal_cvae", "training.loss.discriminator_iter_start=1"]
+GAN224_BATCH, GAN224_TIMED = 24, 5
+# the cosine schedule's epoch in steps (the trainer takes it from the split;
+# seven steps barely move the schedule either way)
+GAN224_STEPS_PER_EPOCH = 1000
+# the quick GAN experiment (28², hidden 64); parity without dropout (the two
+# devices' generators draw different masks), gate at step 1
+GAN_QUICK_OVERRIDES = ["experiment=multi_modal_cvae_gan_quick"]
+GAN_PARITY_BATCH = 4
+GAN_PARITY_BARS = {"loss_rel": 1e-4, "grad_rel_l2": 1e-3, "batch_stats_rel_l2": 1e-5}
+
+
+def gan224_config():
+    return compose(cli_train.default_config_dir(), "config", GAN224_OVERRIDES)
+
+
+def gan_parts(cfg, device, precision: str, seed: int = 0):
+    """(model, discriminator, towers, loss config, optimizers) of a composed
+    GAN experiment, random weights from `seed` (D from seed + 7, the towers
+    from seed + 11, as the Trainer seeds them)."""
+    tcfg = cfg["training"]
+    loss_cfg = dict(tcfg["loss"])
+    model = init_weights(build_model(cfg["model"], precision, device, train=True), seed)
+    disc = build_discriminator(tcfg["discriminator"], device, seed=seed + 7)
+    frozen = make_frozen(loss_cfg, device, seed=seed)
+    opt = (dict(tcfg["optimizer"]), dict(tcfg["scheduler"]))
+    kw = dict(steps_per_epoch=GAN224_STEPS_PER_EPOCH, gradient_clip_val=tcfg["gradient_clip_val"])
+    return model, disc, frozen, loss_cfg, build_optimizer(*opt, **kw), discriminator_optimizer(*opt, **kw)
+
+
+def gan_component_ms(disc, frozen, loss_cfg, batch_size: int, size: int) -> dict:
+    """The card's time for the towers' and the discriminator's share of one
+    GAN step, each alone on random images of the step's shape (CUDA events):
+    LPIPS forward and backward twice (the adaptive weight's numerator and the
+    generator loss); D in eval mode forward and backward to its input twice
+    (the adaptive weight's and the generator's), then in train mode on the
+    real and the fake images with the backward to its params."""
+    lp = make_gan_loss(loss_cfg).perceptual_loss
+    d = copy.deepcopy(disc)
+    gen = torch.Generator(device=CARD).manual_seed(13)
+    x = torch.rand((batch_size, size, size, 3), generator=gen, device=CARD) * 2 - 1
+    rec = (torch.rand((batch_size, size, size, 3), generator=gen, device=CARD) * 2 - 1).requires_grad_(True)
+    params = list(d.parameters())
+
+    def towers():
+        for _ in range(2):
+            torch.autograd.grad(lp(frozen["lpips"], x, rec), rec)
+
+    def discriminator():
+        for _ in range(2):
+            torch.autograd.grad(-d(rec, train=False).mean(), rec)
+        loss = torch.relu(1.0 - d(x, train=True)).mean() + torch.relu(1.0 + d(rec.detach(), train=True)).mean()
+        torch.autograd.grad(loss, params)
+
+    return {"towers_ms": cuda_ms(towers, reps=5), "discriminator_ms": cuda_ms(discriminator, reps=5)}
+
+
+def phase_gan224_train() -> dict:
+    """2 warmup and 5 timed steps of the full-width GAN experiment
+    (GAN224_OVERRIDES) with MEDVAE_FUSED_GN=1: fp32 params, bf16 compute,
+    fp32 towers and discriminator, bench.py's synthetic uint8 batch at 224²,
+    augment on. B6/B7 at every GroupNorm+SiLU site of the model (derived
+    from it), the loss terms and d_weight each step; ms, img/s, peak memory,
+    a profile with the idle share and the towers' and D's time. A batch that
+    does not fit halves (never the width), and the row says why."""
+    cfg = gan224_config()
+    why = None
+    for batch_size in (GAN224_BATCH, GAN224_BATCH // 2):
+        gc.collect()  # a failed try's tensors, once its traceback is gone
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with fused_gn(True):
+                return _gan224_run(cfg, batch_size, why)
+        except torch.cuda.OutOfMemoryError as e:
+            why = f"bs {batch_size} did not fit the card: {str(e).splitlines()[0]}"
+            emit({"phase": "gan224_train", "batch": batch_size, "out_of_memory": why})
+    raise AssertionError(f"gan224_train: bs {GAN224_BATCH // 2} did not fit either ({why})")
+
+
+def _gan224_run(cfg, batch_size: int, why) -> dict:
+    model, disc, frozen, loss_cfg, tx, disc_tx = gan_parts(cfg, CARD, "bf16")
+    state = create_train_state(model, tx, frozen, disc=disc, disc_tx=disc_tx)
+    step = build_train_step(model, loss_cfg, tx, augment=True, max_channels=3, disc=disc, disc_tx=disc_tx)
+    batch = bench.synthetic_batch(batch_size, int(model.resolution), CARD)
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    sites = gn_swish_sites(model)
+    want = want_launches(gn_swish_fwd=sites, gn_swish_bwd=sites)
+    history = []
+    state, times, totals = run_steps("gan224_train", step, state, batch, gen, WARMUP_STEPS, GAN224_TIMED,
+                                     want, history)
+    after = history[1:]  # step 0 lies before the gate
+    if not (history[0]["d_weight"] == 0.0 and history[0]["d_loss"] == 0.0
+            and all(h["d_weight"] > 0 and h["d_loss"] > 0 for h in after)):
+        raise AssertionError(f"gan224_train: d_weight/d_loss {[(h['d_weight'], h['d_loss']) for h in history]}")
+    median = statistics.median(times)
+    emit({"phase": "gan224_train", "batch": batch_size, "resolution": int(model.resolution),
+          "halved_because": why, "gn_swish_sites": sites,
+          "ms_per_step_median": median, "ms_per_step_min": min(times), "ms_per_step_max": max(times),
+          "samples_ms": times, "images_per_sec": batch_size / median * 1e3,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "params": sum(p.numel() for p in state.params.values()),
+          "disc_params": sum(p.numel() for p in state.disc_params.values())})
+    emit({"phase": "gan224_train", "profile": "one step",
+          **device_breakdown(lambda: step(state, batch, gen), median, _conv_by_dtype)})
+    emit({"phase": "gan224_train", "components": "towers and discriminator alone",
+          **gan_component_ms(disc, frozen, loss_cfg, batch_size, int(model.resolution))})
+    del model, disc, frozen, state, step, batch
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_gan_parity() -> None:
+    """One fp32 GAN step past the gate (build_gan_grads at step 1) of the
+    quick GAN model at 28² without dropout, bs 4, card against CPU with the
+    same weights, batch and noise, augment off: each loss term relative
+    1e-4 (terms under 1e-2 in size against 1e-2), the generator's and the
+    discriminator's global gradients relative L2 1e-3, D's BatchNorm
+    statistics after its two calls relative L2 1e-5; beside two controls,
+    the card's step repeated and with the noise nudged by 1e-6."""
+    cfg = compose(cli_train.default_config_dir(), "config",
+                  [*GAN_QUICK_OVERRIDES, "model.dropout=0.0", "training.loss.discriminator_iter_start=1"])
+    model, disc, frozen_cpu, loss_cfg, _, _ = gan_parts(cfg, "cpu", "fp32")
+    weights, disc_weights = model.state_dict(), disc.state_dict()
+    res = int(model.resolution)
+    batch = bench.synthetic_batch(GAN_PARITY_BATCH, res, "cpu")
+    r = model.encoder_out_res
+    batch["noise"] = torch.from_numpy(
+        np.random.RandomState(14).randn(GAN_PARITY_BATCH, r, r, model.latent_dim).astype(np.float32))
+    jitter = torch.from_numpy(np.random.RandomState(15).randn(*batch["noise"].shape).astype(np.float32))
+
+    def one_step(device, noise_jitter=0.0):
+        m = build_model(cfg["model"], "fp32", device, train=True)
+        m.load_state_dict(weights)
+        d = build_discriminator(cfg["training"]["discriminator"], device, seed=0)
+        d.load_state_dict(disc_weights)
+        frozen = {k: copy.deepcopy(v).to(device) for k, v in frozen_cpu.items()}
+        tx = build_optimizer(dict(cfg["training"]["optimizer"]))
+        state = create_train_state(m, tx, frozen, disc=d, disc_tx=discriminator_optimizer(
+            dict(cfg["training"]["optimizer"])))
+        state.step = 1
+        run = {k: v.to(device) for k, v in batch.items()}
+        run["noise"] = run["noise"] * (1.0 + noise_jitter * jitter.to(device))
+        reset_launches()
+        t0 = time.perf_counter()
+        g, dg, logs = build_gan_grads(m, d, loss_cfg, max_channels=3)(state, run)
+        seconds = time.perf_counter() - t0
+        return ({k.split("/", 1)[1]: float(v) for k, v in logs.items()}, [t.float().cpu() for t in g],
+                [t.float().cpu() for t in dg], {k: v.cpu() for k, v in d.named_buffers()}, seconds,
+                launches())
+
+    def grad_rel(a_grads, b_grads):
+        diff = torch.sqrt(sum(((a - b).double() ** 2).sum() for a, b in zip(a_grads, b_grads)))
+        return float(diff / torch.sqrt(sum((b.double() ** 2).sum() for b in b_grads)))
+
+    card, card_g, card_d, card_stats, card_s, card_counts = one_step(CARD)
+    cpu, cpu_g, cpu_d, cpu_stats, cpu_s, _ = one_step("cpu")
+    _, rep_g, rep_d, _, _, _ = one_step(CARD)
+    _, jit_g, jit_d, _, _, _ = one_step(CARD, noise_jitter=1e-6)
+    loss_rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-2) for k in cpu}
+    stats_rel = max(torch_rel_l2(card_stats[k], cpu_stats[k]) for k in cpu_stats)
+    row = {"phase": "gan_parity", "batch": GAN_PARITY_BATCH, "resolution": res,
+           "card_losses": card, "cpu_losses": cpu, "loss_rel": loss_rel,
+           "loss_rel_max": max(loss_rel.values()),
+           "g_grad_rel_l2": grad_rel(card_g, cpu_g), "d_grad_rel_l2": grad_rel(card_d, cpu_d),
+           "g_grad_rel_l2_card_repeat": grad_rel(rep_g, card_g),
+           "d_grad_rel_l2_card_repeat": grad_rel(rep_d, card_d),
+           "g_grad_rel_l2_card_noise_jitter_1e-6": grad_rel(jit_g, card_g),
+           "d_grad_rel_l2_card_noise_jitter_1e-6": grad_rel(jit_d, card_d),
+           "batch_stats_rel_l2_max": stats_rel, "bars": GAN_PARITY_BARS, "card_launches": card_counts,
+           "card_seconds": card_s, "cpu_seconds": cpu_s}
+    emit(row)
+    bars = GAN_PARITY_BARS
+    if not (row["loss_rel_max"] <= bars["loss_rel"] and row["g_grad_rel_l2"] <= bars["grad_rel_l2"]
+            and row["d_grad_rel_l2"] <= bars["grad_rel_l2"] and stats_rel <= bars["batch_stats_rel_l2"]
+            and card["d_weight"] > 0 and card["d_loss"] > 0):
+        raise AssertionError(f"gan parity out of bars: {row}")
+
+
+GAN_TRAINER_BATCHES, GAN_TRAINER_GATE = 6, 3  # a run's batches an epoch; the gate in the first
+
+
+def gan_cli(work: str, epochs: int, *extra) -> tuple:
+    """One `python -m medvae_tpu_torch.cli.train` run of the quick GAN
+    experiment in `work` with MEDVAE_FUSED_GN=1: (stdout, metrics.jsonl
+    rows, seconds, B6/B7 launches)."""
+    import io
+
+    args = [*GAN_QUICK_OVERRIDES, f"device={CARD}", f"work_dir={work}", f"training.max_epochs={epochs}",
+            f"+training.limit_train_batches={GAN_TRAINER_BATCHES}", "training.log_every_n_steps=2",
+            f"training.loss.discriminator_iter_start={GAN_TRAINER_GATE}", "checkpointing.save_top_k=1",
+            "early_stopping.enabled=false", f"data_dir={os.path.join(WORK, 'data')}", *extra]
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with fused_gn(True), contextlib.redirect_stdout(out):
+        rc = cli_train.main(args)
+    seconds = time.perf_counter() - t0
+    counts = {k: launches()[k] for k in gs.launches}
+    if rc != 0:
+        raise AssertionError(f"cli.train (GAN) returned {rc}")
+    with open(os.path.join(work, "logs", "multi_modal_cvae_gan_quick", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return out.getvalue(), rows, seconds, counts
+
+
+def gan_snapshot(work: str, name: str = "multi_modal_cvae_gan_quick_final") -> dict:
+    """The generator's params and the discriminator's params and BatchNorm
+    statistics of a snapshot, by name."""
+    path = os.path.join(work, "logs", "checkpoints", "multi_modal_cvae_gan_quick", name, "checkpoint.pt")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    disc = ckpt["train_state"]["disc"]
+    return {**{f"G.{k}": v for k, v in ckpt["state_dict"].items()},
+            **{f"D.{k}": v for k, v in {**disc["params"], **disc["batch_stats"]}.items()}}
+
+
+def phase_gan_trainer() -> dict:
+    """cli/train.py on experiment=multi_modal_cvae_gan_quick with
+    MEDVAE_FUSED_GN=1 (2 epochs of GAN_TRAINER_BATCHES batches, the gate at
+    step GAN_TRAINER_GATE, validation and test on), the same command with one
+    more epoch and resume=true, then 3 epochs uninterrupted: B6/B7 launches
+    (B7 at every site a train step; B6 too, plus the decoder's sites again
+    for the adaptive weight's pass without dropout, and at every site an
+    eval batch), d_weight and d_loss past the gate, the resumed generator's
+    and discriminator's params and BatchNorm statistics against the
+    uninterrupted ones (RESUME_BAR, beside the 2-epoch ones as a control);
+    then the final checkpoint served through InferenceEngine (one
+    reconstruct, B6 at every site)."""
+    import shutil
+
+    cfg = compose(cli_train.default_config_dir(), "config", [*GAN_QUICK_OVERRIDES,
+                                                             f"data_dir={os.path.join(WORK, 'data')}"])
+    meta_model = build_model(cfg["model"], "bf16", "meta", train=True)
+    sites, dec_sites = gn_swish_sites(meta_model), gn_swish_sites(meta_model.decoder)
+    dm = instantiate(dict(cfg["data"]))
+    dm.setup(None)
+    bs = int(dm.batch_size)
+    val_batches = -(-len(dm.split("val")) // bs)
+    test_batches = -(-len(dm.split("test")) // bs)
+    split, whole = os.path.join(WORK, "gan_split"), os.path.join(WORK, "gan_whole")
+    for d in (split, whole):
+        shutil.rmtree(d, ignore_errors=True)
+    totals = dict.fromkeys(gs.launches, 0)
+
+    def check(tag, text, rows, seconds, counts, epochs_run):
+        steps = epochs_run * GAN_TRAINER_BATCHES
+        evals = epochs_run * val_batches + test_batches
+        want = {"gn_swish_fwd": steps * (sites + dec_sites) + evals * sites, "gn_swish_bwd": steps * sites}
+        train = [{k: r[k] for k in ("step", "train/total_loss", "train/d_weight", "train/d_loss",
+                                    "train/images_per_sec")} for r in rows if "train/d_weight" in r]
+        val = [{k: r[k] for k in ("step", "val/loss", "val/psnr", "val/d_loss", "epoch_time_sec")}
+               for r in rows if "val/loss" in r]
+        emit({"phase": "gan_trainer", "run": tag, "seconds": seconds, "train_steps": steps,
+              "launches": counts, "want_launches": want, "train_logs": train, "val_per_epoch": val,
+              "printed": [line for line in text.splitlines() if line.startswith(("Resum", "Final"))]})
+        finite = all(np.isfinite(v) for r in train + val for v in r.values())
+        if counts != want or not finite or not val:
+            raise AssertionError(f"gan_trainer {tag}: launches {counts}, want {want}; finite {finite}")
+        for k in totals:
+            totals[k] += counts[k]
+        return train
+
+    text, first_rows, seconds, counts = gan_cli(split, TRAINER_EPOCHS)
+    train = check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS)
+    past = [r for r in train if r["step"] > GAN_TRAINER_GATE]
+    if not past or not all(r["train/d_weight"] > 0 and r["train/d_loss"] > 0 for r in past):
+        raise AssertionError(f"gan_trainer: past the gate d_weight/d_loss {past}")
+    two_epochs = gan_snapshot(split)
+    gc.collect()
+    text, rows, seconds, counts = gan_cli(split, TRAINER_EPOCHS + 1, "resume=true")
+    resumed_at = TRAINER_EPOCHS * GAN_TRAINER_BATCHES
+    if f"Resuming at optimizer step {resumed_at}" not in text:
+        raise AssertionError(f"gan_trainer resume did not print 'Resuming at optimizer step {resumed_at}'")
+    check("resume +1 epoch", text, rows[len(first_rows):], seconds, counts, 1)
+    resumed = gan_snapshot(split)
+    final_dir = os.path.join(split, "logs", "checkpoints", "multi_modal_cvae_gan_quick",
+                             "multi_modal_cvae_gan_quick_final")
+    with fused_gn(True):
+        engine = InferenceEngine.from_checkpoint(final_dir, buckets=(8,), device=CARD)
+        res, c = int(engine.model.resolution), int(engine.model.input_channels)
+        images = np.random.RandomState(16).randint(0, 256, (8, res, res, c), np.uint8)
+        reset_launches()
+        rec = engine.reconstruct(images, modality=np.arange(8) % 5)
+        serve_counts = {k: launches()[k] for k in gs.launches}
+    del engine
+    gc.collect()
+    shutil.rmtree(split, ignore_errors=True)
+    text, rows, seconds, counts = gan_cli(whole, TRAINER_EPOCHS + 1)
+    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1)
+    whole_params = gan_snapshot(whole)
+    shutil.rmtree(WORK, ignore_errors=True)
+
+    def rel_to_whole(params, prefix):
+        keys = [k for k in whole_params if k.startswith(prefix)]
+        diff = torch.sqrt(sum(((params[k] - whole_params[k]).double() ** 2).sum() for k in keys))
+        return float(diff / torch.sqrt(sum((whole_params[k].double() ** 2).sum() for k in keys)))
+
+    row = {"phase": "gan_trainer", "bar": RESUME_BAR,
+           "generator_resumed_vs_uninterrupted_rel_l2": rel_to_whole(resumed, "G."),
+           "discriminator_resumed_vs_uninterrupted_rel_l2": rel_to_whole(resumed, "D."),
+           "control_generator_two_epochs_vs_three_rel_l2": rel_to_whole(two_epochs, "G."),
+           "control_discriminator_two_epochs_vs_three_rel_l2": rel_to_whole(two_epochs, "D."),
+           "served_final_checkpoint": {"shape": list(rec.shape), "finite": bool(np.isfinite(rec).all()),
+                                       "launches": serve_counts}}
+    emit(row)
+    ok = all(row[f"{w}_resumed_vs_uninterrupted_rel_l2"] <= RESUME_BAR
+             < row[f"control_{w}_two_epochs_vs_three_rel_l2"] for w in ("generator", "discriminator"))
+    if not (ok and np.isfinite(rec).all() and rec.shape == (8, res, res, c)
+            and serve_counts == {"gn_swish_fwd": sites, "gn_swish_bwd": 0}):
+        raise AssertionError(f"gan_trainer: {row}")
+    for k in totals:
+        totals[k] += serve_counts[k]
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -1913,6 +2279,9 @@ def main() -> int:
                      "base128_serve": phase_base128_serve(cfg["model"], base128_weights)}
     phase_base128_parity(cfg, base128_weights)
     attn_launches["trainer128"] = phase_trainer128()
+    gan_launches = {"gan224_train": phase_gan224_train()}
+    phase_gan_parity()
+    gan_launches["gan_trainer"] = phase_gan_trainer()
     print(smi, flush=True)
     source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
               "flash_bwd (B2: dK, dV)": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -1955,6 +2324,7 @@ def main() -> int:
                      "launches_cvae28_serve": cvae_serve_launches[name],
                      "launches_flagship_fused_serve": fused_serve_launches[name],
                      "launches_flagship_fused_train": fused_train_launches[name],
+                     **{f"launches_{path}": c[name] for path, c in gan_launches.items()},
                      **{k: r[k] for k in ("instance", "max_abs_err", "ms", "device_ms", "plain_ms",
                                           "bound_ms", "bound_by", "streamed_ms", "streamed_device_ms",
                                           "library_ms", "library", "shape", "at_224")}})

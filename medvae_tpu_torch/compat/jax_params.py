@@ -23,6 +23,12 @@ SimpleCLIPEncoder, CLIPViT, whose module names are the JAX package's):
 `from_jax_grads(grads, model)` maps a JAX gradient tree, which has the
 params' structure, onto the model's parameter names the same way.
 
+`from_jax_disc_variables(variables, disc)` takes a JAX PatchGAN's variables
+(`params` and, without `use_actnorm`, `batch_stats`) and returns the port
+discriminator's state_dict: the params by the rules above (`conv{n}` kernels
+HWIO -> OIHW, `norm{n}` scale -> weight), and each `norm{n}`'s batch-stat
+`mean` and `var` onto its `running_mean` and `running_var` buffers.
+
 Every JAX leaf is mapped exactly once and shape-checked against the model;
 an unmapped leaf, a target the model lacks, a shape mismatch or a model
 tensor left uncovered raises.
@@ -155,3 +161,20 @@ def from_jax_grads(grads: Mapping[str, Any], model: torch.nn.Module) -> Dict[str
     """{parameter name: fp32 CPU tensor} from a JAX gradient tree of the
     model's params, laid out as the port's parameters are."""
     return _convert(grads, {k: tuple(v.shape) for k, v in model.named_parameters()})
+
+
+def from_jax_disc_variables(variables: Mapping[str, Any], disc: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """state_dict (fp32 CPU tensors) for the port's NLayerDiscriminator from
+    a JAX NLayerDiscriminator's variables; see the module docstring."""
+    out = _convert(variables["params"], {k: tuple(v.shape) for k, v in disc.named_parameters()})
+    buffers = {k: tuple(v.shape) for k, v in disc.named_buffers()}
+    stats = {f"{'.'.join(path[:-1])}.running_{path[-1]}": value
+             for path, value in _flatten(variables.get("batch_stats", {}))}
+    if set(stats) != set(buffers):
+        raise KeyError(f"JAX batch_stats {sorted(stats)} vs port buffers {sorted(buffers)}")
+    for name, value in stats.items():
+        value = np.asarray(value, np.float32)
+        if value.shape != buffers[name]:
+            raise ValueError(f"{name}: shape {value.shape} vs port {buffers[name]}")
+        out[name] = torch.tensor(value)
+    return out

@@ -17,20 +17,18 @@ default `tower_dtype`) whatever the dtype of the images they are given. Module
 and parameter names are the JAX package's (`alex.conv1`, `lin0`, `Conv_0`,
 `Dense_1`, …). NHWC in.
 
-The resizes are built by hand as jax.image.resize builds them (a weight matrix
-per spatial axis from the triangle or Keys cubic kernel with a = −0.5,
-half-pixel centres, weights normalized over the taps inside the image):
-F.interpolate's bicubic uses a = −0.75 and gives other numbers.
+The resizes are core/resize.py's, built by hand as jax.image.resize builds
+them: F.interpolate's bicubic uses a = −0.75 and gives other numbers.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from medvae_tpu_torch.core.precision import configure_backends
+from medvae_tpu_torch.core.resize import resize
 from medvae_tpu_torch.losses.clip_vit import CLIPViT
 
 _LPIPS_SHIFT = (-0.030, -0.088, -0.188)
@@ -46,45 +44,6 @@ def _to_rgb(x: torch.Tensor) -> torch.Tensor:
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
-
-
-def _triangle(x: np.ndarray) -> np.ndarray:
-    return np.maximum(np.float32(0), np.float32(1) - np.abs(x))
-
-
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    out = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1.0)
-    out = np.where(x >= 1.0, ((np.float32(-0.5) * x + np.float32(2.5)) * x - np.float32(4.0)) * x
-                   + np.float32(2.0), out)
-    return np.where(x >= 2.0, np.float32(0), out).astype(np.float32)
-
-
-def resize_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
-    """(n_in, n_out) fp32 weights of jax.image.resize along one axis
-    (compute_weight_mat, antialias on, no translation)."""
-    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
-    inv_scale = np.float32(1.0 / (n_out / n_in))
-    kernel_scale = max(inv_scale, np.float32(1.0))
-    sample_f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
-    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = kernel(x.astype(np.float32))
-    total = w.sum(axis=0, keepdims=True)
-    eps = 1000.0 * float(np.finfo(np.float32).eps)
-    w = np.where(np.abs(total) > eps, w / np.where(total != 0, total, 1), 0)
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
-
-
-def resize(x: torch.Tensor, size: int, method: str) -> torch.Tensor:
-    """jax.image.resize of NHWC x to (size, size) on the spatial axes."""
-    _, h, w, _ = x.shape
-    if h != size:
-        m = torch.from_numpy(resize_matrix(h, size, method)).to(x.device, x.dtype)
-        x = torch.einsum("bhwc,hH->bHwc", x, m)
-    if w != size:
-        m = torch.from_numpy(resize_matrix(w, size, method)).to(x.device, x.dtype)
-        x = torch.einsum("bhwc,wW->bhWc", x, m)
-    return x
 
 
 @torch.no_grad()

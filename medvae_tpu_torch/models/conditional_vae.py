@@ -3,10 +3,11 @@
 
 The one-hot condition goes through `condition_proj` (Linear cond_dim → C·8·8,
 in the compute dtype) and a ReLU, is viewed as a (C, 8, 8) image in torch
-Unflatten order, resized bilinearly to the input's h × w (align_corners
-False, as jax.image.resize's "linear" upsampling) and concatenated after the
-image's channels before the encoder, whose conv_in therefore takes 2·C. The
-decoder is unconditional. `num_modalities` is accepted and ignored, as in
+Unflatten order, resized bilinearly to the input's h × w by core/resize.py
+in fp32 (jax.image.resize's "linear"; F.interpolate's bilinear backward adds
+with atomics on the card, so two identical steps could differ) and
+concatenated after the image's channels before the encoder, whose conv_in
+therefore takes 2·C. The decoder is unconditional. `num_modalities` is accepted and ignored, as in
 the JAX package. The `inject` and `film` methods are not ported yet.
 """
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from medvae_tpu_torch.core.resize import resize
 from medvae_tpu_torch.models.base_vae import BaseVAE, to_nchw, to_nhwc
 
 DEFAULT_MODALITIES: Tuple[str, ...] = (
@@ -78,9 +80,8 @@ class ConditionalVAE(BaseVAE):
         w = self.condition_proj.weight.to(dt)
         b = self.condition_proj.bias.to(dt)
         cmap = F.relu(F.linear(condition.to(device=w.device, dtype=dt), w, b))
-        cmap = cmap.view(condition.shape[0], self.input_channels, 8, 8)
-        cmap = F.interpolate(cmap, size=(height, width), mode="bilinear", align_corners=False)
-        return to_nhwc(cmap)
+        cmap = to_nhwc(cmap.view(condition.shape[0], self.input_channels, 8, 8))
+        return resize(cmap.float(), (height, width), "linear").to(dt)
 
     def encode(
         self, x: torch.Tensor, condition: Optional[torch.Tensor] = None,

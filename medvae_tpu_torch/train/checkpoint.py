@@ -11,8 +11,11 @@ renamed into place, so a kill mid-save leaves the previous snapshot whole.
 A `checkpoint.pt` is a port checkpoint (cli/common.py: `state_dict`, `model`,
 `precision`, so `load_model` and the serving engine take it) plus
 `train_state`: the step, the plateau lr_scale, the optimizer's count and
-moments and the EMA, all on the CPU in fp32. `restore` copies them back into
-a TrainState in place, which makes a resumed run continue bit for bit.
+moments and the EMA, and on the GAN path `disc` (the discriminator's params,
+BatchNorm buffers and its optimizer's count and moments), all on the CPU in
+fp32. `state_dict` holds the generator alone, so a GAN run's checkpoint
+serves as any other. `restore` copies them back into a TrainState in place,
+which makes a resumed run continue bit for bit.
 """
 
 from __future__ import annotations
@@ -78,6 +81,13 @@ class CheckpointManager:
                 "nu": [_cpu(v) for v in state.opt_state.nu],
                 "ema": None if state.ema_params is None
                 else {k: _cpu(e) for k, e in state.ema_params.items()},
+                "disc": None if state.disc_params is None else {
+                    "params": {k: _cpu(p) for k, p in state.disc_params.items()},
+                    "batch_stats": {k: _cpu(b) for k, b in state.disc_batch_stats.items()},
+                    "count": int(state.disc_opt_state.count),
+                    "mu": [_cpu(m) for m in state.disc_opt_state.mu],
+                    "nu": [_cpu(v) for v in state.disc_opt_state.nu],
+                },
             },
         }
         tmp = os.path.join(path, f"{FILE}.tmp.{os.getpid()}")
@@ -122,5 +132,18 @@ class CheckpointManager:
             if state.ema_params is not None and ts["ema"] is not None:
                 for k, e in state.ema_params.items():
                     e.copy_(ts["ema"][k])
+            disc = ts.get("disc")
+            if (state.disc_params is None) != (disc is None):
+                raise ValueError(f"{name}: the snapshot {'lacks' if disc is None else 'has'} a "
+                                 "discriminator and the run does not match")
+            if disc is not None:
+                for mine, saved in ((state.disc_params, disc["params"]),
+                                    (state.disc_batch_stats, disc["batch_stats"])):
+                    for k, t in mine.items():
+                        t.copy_(saved[k])
+                opt = state.disc_opt_state
+                for dst, src in zip(opt.mu + opt.nu, disc["mu"] + disc["nu"]):
+                    dst.copy_(src)
+                opt.count = int(disc["count"])
         state.opt_state.count = int(ts["count"])
         return dataclasses.replace(state, step=int(ts["step"]), lr_scale=float(ts["lr_scale"]))

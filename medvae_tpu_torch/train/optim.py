@@ -126,12 +126,17 @@ def build_optimizer(
     scheduler_cfg: Optional[Dict[str, Any]] = None,
     steps_per_epoch: int = 1,
     gradient_clip_val: Optional[float] = 1.0,
+    lr_scale: float = 1.0,
+    betas_override: Optional[Tuple[float, float]] = None,
 ) -> Optimizer:
+    """`lr_scale` multiplies the configured lr before the schedule is built,
+    so a cosine's `eta_min` stays absolute (alpha = eta_min / scaled lr);
+    `betas_override` replaces the configured betas."""
     kind = str(optimizer_cfg.get("type", "adamw")).lower()
     if kind not in ("adam", "adamw"):
         raise ValueError(f"optimizer type {kind!r} is not ported (adam, adamw)")
-    lr = float(optimizer_cfg.get("lr", 1e-4))
-    betas = tuple(optimizer_cfg.get("betas", (0.9, 0.999)))
+    lr = float(optimizer_cfg.get("lr", 1e-4)) * lr_scale
+    betas = tuple(betas_override or optimizer_cfg.get("betas", (0.9, 0.999)))
     return Optimizer(
         kind=kind,
         schedule=build_schedule(scheduler_cfg, lr, steps_per_epoch),
@@ -141,3 +146,15 @@ def build_optimizer(
         weight_decay=float(optimizer_cfg.get("weight_decay", 0.0)),
         clip=float(gradient_clip_val) if gradient_clip_val else None,
     )
+
+
+def discriminator_optimizer(
+    optimizer_cfg: Dict[str, Any],
+    scheduler_cfg: Optional[Dict[str, Any]] = None,
+    steps_per_epoch: int = 1,
+    gradient_clip_val: Optional[float] = 1.0,
+) -> Optimizer:
+    """The GAN discriminator's optimizer: the generator's at lr·0.5 with
+    betas (0.5, 0.999) and the same clip (medvae_tpu/train/optim.py:103-117)."""
+    return build_optimizer(optimizer_cfg, scheduler_cfg, steps_per_epoch, gradient_clip_val,
+                           lr_scale=0.5, betas_override=(0.5, 0.999))

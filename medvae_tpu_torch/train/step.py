@@ -21,9 +21,27 @@ batch's `valid`, as `val/<name>` fp32 scalars on the device; plus the sums a
 whole-split validation needs: `val/_weight`, `val/_psnr_by_mod`,
 `val/_count_by_mod` and, for the flagship, `val/_zmod_sum_by_mod`.
 
-Not ported yet (later slices): `accumulate_grad_batches` > 1, the GAN path
-(`lpips_discriminator`) and the tower-only loss types (`lpips`, `biomedclip`)
-raise NotImplementedError.
+The GAN path (`lpips_discriminator`, medvae_tpu/train/step.py:273-400,
+544-657): `build_train_step(..., disc=, disc_tx=)` runs the generator and
+the discriminator update in one step, in the JAX package's order. (1) The
+generator forward in train mode and the KL per sample. (2) D in eval mode
+(its params and running stats from before the step) on the reconstruction.
+(3) The adaptive weight from the gradients of `rec_for_adaptive` and of
+−mean D(x̂) with respect to the decoder's `conv_out` weight alone: on the
+main graph when the model has no dropout (the same numbers as the JAX
+package's decoder pass on the detached z), else from a decoder pass on the
+detached z without dropout, as JAX does. (4) The generator's gradients,
+taken with respect to its own params only, so none land on D. (5) D in
+train mode on x, then on the detached x̂, its BatchNorm statistics updated
+after each call, and the hinge loss × d_valid's gradients. (6) Both updates,
+each with its own optimizer and clip and both scaled by `lr_scale`; the EMA
+follows the generator. Before `discriminator_iter_start` every adversarial
+term is multiplied by 0, so D still runs and moves its statistics, and adamw
+still decays its params, as in the JAX package. Metrics are the loss's log
+(`train/total_loss` … `train/logits_fake`), without a grad norm.
+
+`accumulate_grad_batches` > 1 is not ported yet and raises
+NotImplementedError, on the GAN path too.
 """
 
 from __future__ import annotations
@@ -35,53 +53,77 @@ import torch
 
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import preprocess
-from medvae_tpu_torch.losses.elbo import DisentangledVAELoss, VAELoss
+from medvae_tpu_torch.losses.elbo import DisentangledVAELoss, VAELoss, gaussian_kl
+from medvae_tpu_torch.losses.gan import LPIPSWithDiscriminator, adaptive_weight, discriminator_input
 from medvae_tpu_torch.losses.graft import graft_npz
 from medvae_tpu_torch.losses.perceptual import BiomedCLIPLoss, LPIPSLoss
 from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
+from medvae_tpu_torch.nn.blocks import ResnetBlock
 from medvae_tpu_torch.train.metrics import kl_metrics, latent_metrics, psnr, reconstruction_metrics
 from medvae_tpu_torch.train.optim import Optimizer, global_norm
 from medvae_tpu_torch.train.state import TrainState
 
-def _towers(loss_cfg: Dict[str, Any]):
-    """(LPIPS loss or None, CLIP loss or None, their weights) of a
-    `disentangled_vae` config. The towers compute in fp32, the JAX package's
-    default `tower_dtype` (medvae_tpu/train/step.py:147-158); its bf16 option
-    is set by no config and is not ported."""
-    p_w = float(loss_cfg.get("perceptual_weight", 0.0) or 0.0)
-    bc_w = float(loss_cfg.get("biomedclip_weight", 0.0) or 0.0)
+def _check_tower_dtype(loss_cfg: Dict[str, Any]) -> None:
+    """The towers compute in fp32, the JAX package's default `tower_dtype`
+    (medvae_tpu/train/step.py:147-158); its bf16 option is set by no config
+    and is not ported."""
     if str(loss_cfg.get("tower_dtype", "float32") or "float32") != "float32":
         raise NotImplementedError("only fp32 loss towers are ported")
+
+
+def _towers(loss_cfg: Dict[str, Any]):
+    """(LPIPS loss or None, CLIP loss or None, their weights) of a
+    `disentangled_vae` config."""
+    p_w = float(loss_cfg.get("perceptual_weight", 0.0) or 0.0)
+    bc_w = float(loss_cfg.get("biomedclip_weight", 0.0) or 0.0)
+    _check_tower_dtype(loss_cfg)
     lp = LPIPSLoss() if p_w else None
     bc = BiomedCLIPLoss(encoder=loss_cfg.get("clip_encoder", "simple")) if bc_w else None
     return lp, bc, p_w, bc_w
 
 
+def _tower_plan(loss_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """{"lpips": (seed offset, LPIPSLoss), "clip": (offset, BiomedCLIPLoss)}
+    for the towers `loss_cfg` needs. LPIPS takes seed + 11 wherever it
+    appears (the JAX Trainer folds 11 for it); CLIP takes seed + 11 as the
+    `biomedclip` loss's only tower (JAX: fold 11) and seed + 13 beside LPIPS
+    (JAX: fold 13 for the flagship, a split of fold 11 for the GAN)."""
+    loss_type = str(loss_cfg.get("type", "vae"))
+    if loss_type == "disentangled_vae":
+        lp, bc, _, _ = _towers(loss_cfg)
+    elif loss_type in ("lpips", "biomedclip", "lpips_discriminator"):
+        _check_tower_dtype(loss_cfg)
+        lp = None if loss_type == "biomedclip" else LPIPSLoss()
+        clip = loss_type == "biomedclip" or (loss_type == "lpips_discriminator"
+                                             and bool(loss_cfg.get("use_biomedclip_loss")))
+        bc = BiomedCLIPLoss(encoder=loss_cfg.get("clip_encoder", "simple")) if clip else None
+    else:
+        return {}
+    plan = {} if lp is None else {"lpips": (11, lp)}
+    if bc is not None:
+        plan["clip"] = (11 if loss_type == "biomedclip" else 13, bc)
+    return plan
+
+
 def make_frozen(loss_cfg: Dict[str, Any], device, seed: int = 0) -> Dict[str, torch.nn.Module]:
     """The frozen towers `loss_cfg` needs, with random weights from fixed
-    seeds (seed + 11 for LPIPS, seed + 13 for CLIP, as bench.py folds them),
-    then the pretrained npz of `loss.weights_path` (LPIPS) and
-    `loss.clip_weights_path` (CLIP) grafted over them where set, as
-    medvae_tpu/train/trainer.py:218-233 does."""
-    if str(loss_cfg.get("type", "vae")) != "disentangled_vae":
-        return {}
-    lp, bc, _, _ = _towers(loss_cfg)
+    seeds (`_tower_plan`), then the pretrained npz of `loss.weights_path`
+    (LPIPS) and `loss.clip_weights_path` (CLIP) grafted over them where set,
+    as medvae_tpu/train/trainer.py:196-233 does."""
     frozen = {}
-    if lp is not None:
-        frozen["lpips"] = lp.init(seed + 11, device)
-        if loss_cfg.get("weights_path"):
-            graft_npz(frozen["lpips"], str(loss_cfg["weights_path"]), "LPIPS")
-    if bc is not None:
-        frozen["clip"] = bc.init(seed + 13, device)
-        if loss_cfg.get("clip_weights_path"):
-            graft_npz(frozen["clip"], str(loss_cfg["clip_weights_path"]), "CLIP")
+    for key, (offset, loss) in _tower_plan(loss_cfg).items():
+        frozen[key] = loss.init(seed + offset, device)
+        path = loss_cfg.get("weights_path" if key == "lpips" else "clip_weights_path")
+        if path:
+            graft_npz(frozen[key], str(path), "LPIPS" if key == "lpips" else "CLIP")
     return frozen
 
 
 def make_criterion(loss_cfg: Dict[str, Any], model) -> Callable:
     """criterion(frozen, outputs, targets) -> dict of fp32 scalar losses,
-    for the `vae` and `disentangled_vae` loss types; the tower-only and GAN
-    types are not ported yet."""
+    for the `vae`, `disentangled_vae`, `lpips` and `biomedclip` loss types.
+    The GAN type has its own step; its eval step without a discriminator
+    falls back to the `vae` criterion, as in the JAX package."""
     loss_type = str(loss_cfg.get("type", "vae"))
     if loss_type == "vae":
         beta = float(model.beta) if loss_cfg.get("use_model_beta") and hasattr(model, "beta") else 1.0
@@ -117,9 +159,45 @@ def make_criterion(loss_cfg: Dict[str, Any], model) -> Callable:
 
         return criterion
 
-    if loss_type in ("lpips", "biomedclip", "lpips_discriminator"):
-        raise NotImplementedError(f"loss type {loss_type!r} is not ported yet")
+    if loss_type == "lpips":
+        _check_tower_dtype(loss_cfg)
+        lp = LPIPSLoss()
+
+        def lpips_criterion(frozen, outputs, targets):
+            loss = lp(frozen["lpips"], targets, outputs["reconstruction"])
+            return {"loss": loss, "p_loss": loss}
+
+        return lpips_criterion
+
+    if loss_type == "biomedclip":
+        _check_tower_dtype(loss_cfg)
+        bc = BiomedCLIPLoss(encoder=loss_cfg.get("clip_encoder", "simple"))
+
+        def clip_criterion(frozen, outputs, targets):
+            loss = bc(frozen["clip"], targets, outputs["reconstruction"])
+            return {"loss": loss, "bc_loss": loss}
+
+        return clip_criterion
+
+    if loss_type == "lpips_discriminator":
+        return make_criterion({"type": "vae"}, model)
     raise ValueError(f"Unknown loss type: {loss_type}")
+
+
+def make_gan_loss(loss_cfg: Dict[str, Any]) -> LPIPSWithDiscriminator:
+    """The GAN loss of an `lpips_discriminator` config
+    (medvae_tpu/train/step.py:253-271). The towers compute in fp32 only."""
+    _check_tower_dtype(loss_cfg)
+    return LPIPSWithDiscriminator(
+        discriminator_factor=float(loss_cfg.get("discriminator_factor", 1.0)),
+        perceptual_factor=float(loss_cfg.get("perceptual_factor", 1.0)),
+        pixel_factor=float(loss_cfg.get("pixel_factor", 0.0)),
+        kl_factor=float(loss_cfg.get("kl_factor", 1.0)),
+        discriminator_iter_start=int(loss_cfg.get("discriminator_iter_start", 50001)),
+        use_biomedclip_loss=bool(loss_cfg.get("use_biomedclip_loss", False)),
+        biomedclip_factor=float(loss_cfg.get("biomedclip_factor", 1.0)),
+        clip_encoder=str(loss_cfg.get("clip_encoder", "simple")),
+    )
 
 
 def make_forward_fn(model: torch.nn.Module) -> Callable:
@@ -134,6 +212,19 @@ def make_forward_fn(model: torch.nn.Module) -> Callable:
         return lambda x, batch, gen: model(x, batch["modality_onehot"], noise=batch.get("noise"),
                                            generator=gen)
     return lambda x, batch, gen: model(x, noise=batch.get("noise"), generator=gen)
+
+
+def make_decode_fn(model: torch.nn.Module) -> Callable:
+    """decode(z, batch, generator) -> reconstruction; the flagship's decoder
+    is routed by the batch's `modality_idx` (medvae_tpu/train/step.py:101-116)."""
+    if isinstance(model, DisentangledConditionalVAE):
+        return lambda z, batch, gen: model.decode(z, batch["modality_idx"], gen)
+    return lambda z, batch, gen: model.decode(z, gen)
+
+
+def _grads_or_zeros(loss: torch.Tensor, params) -> list:
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
 def build_loss_and_grads(
@@ -164,11 +255,85 @@ def build_loss_and_grads(
         )
         outputs = forward(x, batch, generator)
         loss_dict = criterion(state.frozen, outputs, x)
-        grads = torch.autograd.grad(loss_dict["loss"], params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = _grads_or_zeros(loss_dict["loss"], params)
         return {k: v.detach() for k, v in loss_dict.items()}, grads
 
     return loss_and_grads
+
+
+def build_gan_grads(
+    model: torch.nn.Module,
+    disc: torch.nn.Module,
+    loss_cfg: Dict[str, Any],
+    *,
+    augment: bool = False,
+    max_channels: int = 3,
+):
+    """`gan_grads(state, batch, generator=None, draws=None) -> (g_grads,
+    d_grads, logs)`: steps (1)-(5) of the GAN step (module docstring), the
+    generator's gradients in `state.params`' order and D's in
+    `state.disc_params`' (medvae_tpu/train/step.py:make_gan_grads_fn). D's
+    BatchNorm statistics are updated in place, twice."""
+    gan_loss = make_gan_loss(loss_cfg)
+    forward = make_forward_fn(model)
+    decode = make_decode_fn(model)
+    conv_out = model.decoder.conv_out.weight
+    redecode = any(m.dropout for m in model.decoder.modules() if isinstance(m, ResnetBlock))
+
+    def gan_grads(
+        state: TrainState,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Dict[str, torch.Tensor]] = None,
+    ):
+        x = preprocess(
+            batch, generator, augment=augment, max_channels=max_channels,
+            dtype=model.dtype, draws=draws,
+        )
+        outputs = forward(x, batch, generator)
+        recon = outputs["reconstruction"]
+        kl = gaussian_kl(outputs["mean"], outputs["logvar"])
+        kl_per_sample = kl.reshape(kl.shape[0], -1).sum(dim=1)
+        logits_fake = disc(discriminator_input(recon), train=False)
+
+        rec_a, logits_a = recon, logits_fake
+        if redecode:  # a decoder pass on the detached z without dropout
+            model.decoder.eval()
+            try:
+                rec_a = decode(outputs["z"].detach(), batch, generator)
+            finally:
+                model.decoder.train()
+            logits_a = disc(discriminator_input(rec_a), train=False)
+        nll = gan_loss.rec_for_adaptive(state.frozen, x, rec_a)
+        (nll_grad,) = torch.autograd.grad(nll, conv_out, retain_graph=True)
+        (g_grad,) = torch.autograd.grad(-logits_a.float().mean(), conv_out, retain_graph=True)
+        d_weight = adaptive_weight([nll_grad], [g_grad])
+
+        loss, g_log = gan_loss.generator_loss(state.frozen, x, recon, kl_per_sample, logits_fake,
+                                              d_weight, state.step)
+        g_grads = _grads_or_zeros(loss, list(state.params.values()))
+
+        recon = recon.detach()
+        logits_real = disc(discriminator_input(x), train=True)
+        logits_fake = disc(discriminator_input(recon), train=True)
+        d_loss, d_log = gan_loss.discriminator_loss(logits_real, logits_fake, state.step)
+        d_grads = _grads_or_zeros(d_loss, list(state.disc_params.values()))
+        return g_grads, d_grads, {**g_log, **d_log}
+
+    return gan_grads
+
+
+def _apply(params, updates, lr_scale: float) -> None:
+    with torch.no_grad():
+        for p, u in zip(params, updates):
+            p.add_(u * lr_scale)
+
+
+def _ema(state: TrainState, ema_decay: float) -> None:
+    if ema_decay and state.ema_params is not None:
+        with torch.no_grad():
+            for e, p in zip(state.ema_params.values(), state.params.values()):
+                e.copy_(e * ema_decay + p * (1.0 - ema_decay))
 
 
 def build_train_step(
@@ -180,10 +345,36 @@ def build_train_step(
     max_channels: int = 3,
     ema_decay: float = 0.0,
     accumulate_grad_batches: int = 1,
+    disc: Optional[torch.nn.Module] = None,
+    disc_tx: Optional[Optimizer] = None,
 ):
-    """The standard single-optimizer train step; see the module docstring."""
+    """The standard single-optimizer train step, or with `disc` and
+    `disc_tx` the GAN step; see the module docstring."""
     if accumulate_grad_batches > 1:
         raise NotImplementedError("accumulate_grad_batches > 1 is not ported yet")
+    if str(loss_cfg.get("type", "vae")) == "lpips_discriminator":
+        if disc is None or disc_tx is None:
+            raise ValueError("the lpips_discriminator loss trains with a discriminator and its "
+                             "optimizer: pass disc= and disc_tx=")
+        gan_grads = build_gan_grads(model, disc, loss_cfg, augment=augment, max_channels=max_channels)
+
+        def gan_step(
+            state: TrainState,
+            batch: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator] = None,
+            draws: Optional[Dict[str, torch.Tensor]] = None,
+        ):
+            g_grads, d_grads, logs = gan_grads(state, batch, generator, draws)
+            params, d_params = list(state.params.values()), list(state.disc_params.values())
+            updates, opt_state = tx.update(g_grads, state.opt_state, params)
+            d_updates, d_opt_state = disc_tx.update(d_grads, state.disc_opt_state, d_params)
+            _apply(params, updates, state.lr_scale)
+            _apply(d_params, d_updates, state.lr_scale)
+            _ema(state, ema_decay)
+            return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state,
+                                       disc_opt_state=d_opt_state), logs
+
+        return gan_step
     loss_and_grads = build_loss_and_grads(model, loss_cfg, augment=augment, max_channels=max_channels)
 
     def step(
@@ -197,12 +388,8 @@ def build_train_step(
         metrics = {f"train/{k}": v for k, v in loss_dict.items()}
         metrics["train/grad_norm"] = global_norm(grads)
         updates, opt_state = tx.update(grads, state.opt_state, params)
-        with torch.no_grad():
-            for p, u in zip(params, updates):
-                p.add_(u * state.lr_scale)
-            if ema_decay and state.ema_params is not None:
-                for e, p in zip(state.ema_params.values(), params):
-                    e.copy_(e * ema_decay + p * (1.0 - ema_decay))
+        _apply(params, updates, state.lr_scale)
+        _ema(state, ema_decay)
         return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
 
     return step
@@ -214,10 +401,28 @@ def build_eval_step(
     *,
     max_channels: int = 3,
     n_modalities: int = 0,
+    disc: Optional[torch.nn.Module] = None,
 ):
     """The eval step; see the module docstring. The per-modality sums are
-    `max(n_modalities, 12, model.num_modalities)` wide."""
+    `max(n_modalities, 12, model.num_modalities)` wide. With the GAN loss
+    and `disc`, the loss terms are the GAN's (medvae_tpu/train/step.py:724-752):
+    `val/loss` and the generator's terms with d_weight 0, and D in eval mode
+    on the reconstruction and on x for `val/d_loss` and the logits."""
+    gan_loss = None
+    if str(loss_cfg.get("type", "vae")) == "lpips_discriminator" and disc is not None:
+        gan_loss = make_gan_loss(loss_cfg)
     criterion = make_criterion(loss_cfg, model)
+
+    def gan_terms(state, outputs, x):
+        recon = outputs["reconstruction"]
+        kl = gaussian_kl(outputs["mean"], outputs["logvar"])
+        logits_fake = disc(discriminator_input(recon), train=False)
+        loss, g_log = gan_loss.generator_loss(
+            state.frozen, x, recon, kl.reshape(kl.shape[0], -1).sum(dim=1), logits_fake,
+            torch.zeros((), device=x.device), state.step, split="val")
+        logits_real = disc(discriminator_input(x), train=False)
+        _, d_log = gan_loss.discriminator_loss(logits_real, logits_fake, state.step, split="val")
+        return {"loss": loss, **{k.split("/", 1)[1]: v for k, v in {**g_log, **d_log}.items()}}
     forward = make_forward_fn(model)
     n_mod = max(n_modalities, len(MODALITY_NAMES), int(getattr(model, "num_modalities", 0) or 0))
 
@@ -233,7 +438,9 @@ def build_eval_step(
         finally:
             model.train(was_training)
         valid = batch.get("valid")
-        metrics = {f"val/{k}": v for k, v in criterion(state.frozen, outputs, x).items()}
+        terms = (gan_terms(state, outputs, x) if gan_loss is not None
+                 else criterion(state.frozen, outputs, x))
+        metrics = {f"val/{k}": v for k, v in terms.items()}
         for group in (reconstruction_metrics(outputs["reconstruction"], x, valid),
                       kl_metrics(outputs["mean"], outputs["logvar"], valid),
                       latent_metrics(outputs["z"], valid)):

@@ -15,12 +15,18 @@ epoch it already took. The feeder's order is a function of (seed, epoch) and
 every step's generator is re-seeded from (seed, step), so a resumed run
 trains on the CPU bit for bit as the uninterrupted one does.
 
+The GAN loss (`lpips_discriminator`) adds the PatchGAN of
+`training.discriminator` (seeded from seed + 7; a config whose image size
+leaves it an empty logit map raises ValueError), its optimizer
+(`discriminator_optimizer`) and its state; the train and eval steps take it,
+and checkpoints carry it.
+
 `device: cpu` runs on the CPU; `tpu`, `cuda` and `gpu` mean the card, and
 raise without one. Not ported yet, each raising NotImplementedError:
 `data.device_cache: true`, `training.fused_steps: on`, `data.batch_size:
-auto`, an explicit `model.remat` rung, the GAN loss, a mesh of more than one
-device, `parallel.explicit_shard_map`, `debug.profile`, `debug.nan_checks`
-and `data.normalize: false`. The defaults the JAX package resolves on the
+auto`, an explicit `model.remat` rung, a mesh of more than one device,
+`parallel.explicit_shard_map`, `debug.profile`, `debug.nan_checks` and
+`data.normalize: false`. The defaults the JAX package resolves on the
 TPU are resolved here, each said once: `remat: auto` to no remat (the H100
 holds the 128² BaseVAE at bs 64 without it), `device_cache: auto` to the host
 feeder, `fused_steps: auto` to one step a call. Media grids are not ported.
@@ -41,8 +47,9 @@ from medvae_tpu_torch.config.models import build_model, init_weights
 from medvae_tpu_torch.core.rng import fold_in, set_seed
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import DeviceFeeder
+from medvae_tpu_torch.nn.discriminator import build_discriminator, logit_size
 from medvae_tpu_torch.train.checkpoint import CheckpointManager
-from medvae_tpu_torch.train.optim import build_optimizer
+from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
 from medvae_tpu_torch.train.state import create_train_state
 from medvae_tpu_torch.train.step import build_eval_step, build_train_step, make_frozen
 from medvae_tpu_torch.utils.logging import MetricLogger
@@ -75,8 +82,6 @@ def _reject_unported(cfg) -> None:
         "data.batch_size=auto": str(data.get("batch_size", "")).lower() == "auto",
         "data.normalize=false": not data.get("normalize", True),
         "model.remat": str(model.get("remat", "auto")).lower() not in ("auto", "false", "0", "none"),
-        "the GAN loss (lpips_discriminator)":
-            str((tcfg.get("loss") or {}).get("type", "vae")) == "lpips_discriminator",
         "a mesh of more than one device": int(mesh.get("data", -1)) > 1 or int(mesh.get("model", 1)) > 1,
         "parallel.explicit_shard_map": bool((cfg.get("parallel") or {}).get("explicit_shard_map")),
         "debug.profile": bool(debug.get("profile")),
@@ -120,16 +125,28 @@ class Trainer:
 
         tcfg = cfg["training"]
         self.loss_cfg = dict(tcfg.get("loss", {"type": "vae"}))
+        if "discriminator" in tcfg:
+            self.loss_cfg.setdefault("discriminator", dict(tcfg["discriminator"]))
         frozen = make_frozen(self.loss_cfg, self.device, seed=self.seed)
         bs = int(self.datamodule.batch_size)
         self.steps_per_epoch = max(1, len(self.datamodule.train_arrays) // bs)
-        self.tx = build_optimizer(
-            dict(tcfg.get("optimizer", {})), dict(tcfg.get("scheduler", {}) or {}),
-            steps_per_epoch=self.steps_per_epoch,
-            gradient_clip_val=tcfg.get("gradient_clip_val", 1.0),
-        )
+        opt_args = (dict(tcfg.get("optimizer", {})), dict(tcfg.get("scheduler", {}) or {}))
+        opt_kwargs = dict(steps_per_epoch=self.steps_per_epoch,
+                          gradient_clip_val=tcfg.get("gradient_clip_val", 1.0))
+        self.tx = build_optimizer(*opt_args, **opt_kwargs)
+        self.disc = disc_tx = None
+        if str(self.loss_cfg.get("type")) == "lpips_discriminator":
+            self.disc = build_discriminator(self.loss_cfg.get("discriminator"), self.device,
+                                            seed=self.seed + 7)
+            side = logit_size(int(self.datamodule.size), self.disc.n_layers)
+            if side <= 0:
+                raise ValueError(
+                    f"Discriminator emits an empty logit map (1, {side}, {side}, 1) at image size "
+                    f"{self.datamodule.size}; reduce n_layers or increase the image size")
+            disc_tx = discriminator_optimizer(*opt_args, **opt_kwargs)
         ema_decay = float(tcfg.get("ema_decay", 0.0) or 0.0)
-        self.state = create_train_state(self.model, self.tx, frozen, ema_decay=ema_decay)
+        self.state = create_train_state(self.model, self.tx, frozen, ema_decay=ema_decay,
+                                        disc=self.disc, disc_tx=disc_tx)
 
         # ReduceLROnPlateau (reference training_utils.py:49-55): host-driven
         # lr_scale on a stagnating monitored metric
@@ -150,8 +167,10 @@ class Trainer:
             self.model, self.loss_cfg, self.tx, augment=bool(dm.augment_train),
             max_channels=dm.max_channels, ema_decay=ema_decay,
             accumulate_grad_batches=int(tcfg.get("accumulate_grad_batches", 1) or 1),
+            disc=self.disc, disc_tx=disc_tx,
         )
-        self.eval_step = build_eval_step(self.model, self.loss_cfg, max_channels=dm.max_channels)
+        self.eval_step = build_eval_step(self.model, self.loss_cfg, max_channels=dm.max_channels,
+                                         disc=self.disc)
         self._feeders: Dict[Any, DeviceFeeder] = {}
         self._generator = torch.Generator(device=self.device)
 
@@ -338,7 +357,8 @@ class Trainer:
                         host["train/images_per_sec"] = images_seen / max(time.time() - t_start, 1e-9)
                         host["epoch"] = epoch
                         self.logger.log(host, step)
-                        print(f"epoch {epoch} step {step} loss {host.get('train/loss', float('nan')):.4f} "
+                        loss = host.get("train/loss", host.get("train/total_loss", float("nan")))
+                        print(f"epoch {epoch} step {step} loss {loss:.4f} "
                               f"({host['train/images_per_sec']:.0f} img/s)")
                     if ckpt_every and step % ckpt_every == 0:
                         self.ckpt.save_step(self.state)  # refresh `last`

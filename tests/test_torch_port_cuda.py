@@ -680,3 +680,44 @@ def test_attention_wgmma_instance_repeats_bit_for_bit(gen):
     assert torch.equal(at.fused_attention_fwd(q, k, v), at.fused_attention_fwd(q, k, v))
     for a, b_ in zip(at.fused_attention_bwd(q, k, v, g), at.fused_attention_bwd(q, k, v, g)):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("fused_gn", ["0", "1"])
+def test_gan_step_gradients_repeat_bit_for_bit(gen, fused_gn, monkeypatch):
+    """One GAN step's generator and discriminator gradients (a small concat
+    ConditionalVAE in bf16, the fp32 PatchGAN and LPIPS tower), twice from
+    the same weights, batch and generator: equal bit for bit, which exact
+    resume on the card rests on (cuDNN kept to deterministic algorithms, the
+    condition map resized by matrix products)."""
+    from medvae_tpu_torch.config.models import build_model, init_weights
+    from medvae_tpu_torch.nn.discriminator import build_discriminator
+    from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
+    from medvae_tpu_torch.train.state import create_train_state
+    from medvae_tpu_torch.train.step import build_gan_grads, make_frozen
+
+    monkeypatch.setenv("MEDVAE_FUSED_GN", fused_gn)
+    cfg = {"_target_": "ConditionalVAE", "input_channels": 3, "latent_dim": 8, "hidden_channels": 32,
+           "ch_mult": [1, 2, 4], "num_res_blocks": 1, "attn_resolutions": [], "resolution": 28}
+    loss = {"type": "lpips_discriminator", "pixel_factor": 1.0, "discriminator_iter_start": 0}
+    weights = init_weights(build_model(cfg, "fp32", "cpu", train=True), seed=0).state_dict()
+    disc_weights = build_discriminator(None, "cpu", seed=7).state_dict()
+    frozen = make_frozen(loss, "cuda", seed=0)
+    midx = torch.arange(16, device="cuda") % 5
+    batch = {"image_u8": torch.randint(0, 256, (16, 28, 28, 3), generator=gen, device="cuda",
+                                       dtype=torch.uint8),
+             "modality_onehot": torch.nn.functional.one_hot(midx, 12).float(), "modality_idx": midx}
+
+    def grads():
+        model = build_model(cfg, "bf16", "cuda", train=True)
+        model.load_state_dict(weights)
+        disc = build_discriminator(None, "cuda", seed=0)
+        disc.load_state_dict(disc_weights)
+        opt = {"type": "adamw", "lr": 1e-4}
+        state = create_train_state(model, build_optimizer(opt), frozen, disc=disc,
+                                   disc_tx=discriminator_optimizer(opt))
+        g, d, _ = build_gan_grads(model, disc, loss)(state, batch, torch.Generator("cuda").manual_seed(1))
+        return g + d + list(disc.buffers())
+
+    first, second = grads(), grads()
+    assert len(first) == len(second) > 100
+    assert [i for i, (a, b) in enumerate(zip(first, second)) if not torch.equal(a, b)] == []

@@ -17,6 +17,7 @@ card's shared memory, and the plan's limits are the CUDA source's.
 import ctypes
 import dataclasses
 import importlib
+import math
 import re
 import sys
 import types
@@ -223,6 +224,41 @@ def test_every_main_path_bf16_shape_is_planned_resident_or_cluster(main_path_sha
             assert 2 <= plan.cluster <= 8 and cg <= 32, (shape, plan)
             sl = (-(-length // plan.cluster) + 7) // 8 * 8
             assert plan.smem_bytes == 3072 + sl * 2 * nbuf and (sl * 2) % 16 == 0
+
+
+# the full-width GAN experiment's bs-24 step (configs/experiment/multi_modal_cvae.yaml):
+# (b, c, h, w) -> (sites a step, B6's instance, B7's instance)
+GAN224_PLANS = {
+    (24, 256, 224, 224): (10, "cluster", "cluster"),
+    (24, 512, 224, 224): (1, "cluster", "streamed"),  # a 1.6 MB group: x and g fit no cluster of 8
+    (24, 256, 112, 112): (1, "cluster", "cluster"),
+    (24, 512, 112, 112): (8, "cluster", "cluster"),
+    (24, 1024, 112, 112): (1, "cluster", "cluster"),
+    (24, 512, 56, 56): (1, "cluster", "cluster"),
+    (24, 1024, 56, 56): (8, "cluster", "cluster"),
+    (24, 2048, 56, 56): (1, "streamed", "streamed"),  # 64 channels a group
+    (24, 1024, 28, 28): (1, "resident", "cluster"),
+    (24, 2048, 28, 28): (18, "streamed", "streamed"),
+}
+
+
+def test_gan224_shapes_are_planned_and_within_the_kernels_element_limit(chip_smoke):
+    """Every GroupNorm+SiLU (shape, groups) of the full-width GAN model at
+    bs 24, from a meta-device forward: its sites, B6's and B7's instance on
+    a 132-SM card, a plan whose shared memory fits, and fewer than 2^31
+    elements (ops/groupnorm_swish.py:_check; the largest is 617 M)."""
+    sites = chip_smoke.main_path_gn_shapes(with_gan224=True)["gan224_train"]
+    assert {shape: n for (shape, _), n in sites.items()} == {k: v[0] for k, v in GAN224_PLANS.items()}
+    assert sum(sites.values()) == 50
+    for (shape, groups), _ in sites.items():
+        assert groups == 32
+        _, fwd, bwd = GAN224_PLANS[shape]
+        for backward, want in ((False, fwd), (True, bwd)):
+            plan = gs.gn_swish_plan(shape, 2, groups, sms=132, backward=backward)
+            assert plan.instance == want == gs.gn_swish_instance(shape, torch.bfloat16, backward), (shape, plan)
+            assert plan.smem_bytes <= gs.SMEM_MAX
+        assert math.prod(shape) < 2**31
+    assert max(math.prod(shape) for shape in GAN224_PLANS) == 616_562_688
 
 
 @pytest.mark.parametrize("shape, dtype, want", [

@@ -260,6 +260,7 @@ def test_every_build_turns_tf32_off(build, monkeypatch):
     a bf16 model's build sets the cuDNN flag as an fp32 one does, and so do
     the fp32 loss towers of a bf16 train step."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     if build == "bf16 model":
         _small("bf16", train=True)
@@ -269,16 +270,28 @@ def test_every_build_turns_tf32_off(build, monkeypatch):
         tstep.make_frozen(dict(LOSS, perceptual_weight=0.0, clip_encoder="simple"), "meta")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.deterministic  # repeatable fp32 conv backward
 
 
 def test_unported_step_options_raise():
+    """The GAN and tower-only loss types build; gradient accumulation and
+    bf16 towers still raise, on every loss type."""
+    from medvae_tpu_torch.nn.discriminator import build_discriminator
+
     model = _small("fp32", train=True)
     tx = toptim.build_optimizer(*OPT)
     with pytest.raises(NotImplementedError):
         tstep.build_train_step(model, LOSS, tx, accumulate_grad_batches=2)
+    disc = build_discriminator({"input_nc": 3, "ndf": 8, "n_layers": 2}, "cpu", seed=0)
+    gan = {"disc": disc, "disc_tx": toptim.discriminator_optimizer(*OPT)}
     for loss_type in ("lpips_discriminator", "lpips", "biomedclip"):
-        with pytest.raises(NotImplementedError):
-            tstep.build_train_step(model, {"type": loss_type}, tx)
+        extra = gan if loss_type == "lpips_discriminator" else {}
+        assert callable(tstep.build_train_step(model, {"type": loss_type}, tx, **extra))
+        assert callable(tstep.build_eval_step(model, {"type": loss_type}, disc=extra.get("disc")))
+        with pytest.raises(NotImplementedError, match="accumulate"):
+            tstep.build_train_step(model, {"type": loss_type}, tx, accumulate_grad_batches=2, **extra)
+        with pytest.raises(NotImplementedError, match="fp32 loss towers"):
+            tstep.build_train_step(model, {"type": loss_type, "tower_dtype": "bfloat16"}, tx, **extra)
     with pytest.raises(NotImplementedError, match="fp32 loss towers"):
         tstep.build_train_step(model, dict(LOSS, tower_dtype="bfloat16"), tx)
     with pytest.raises(ValueError, match="not ported"):

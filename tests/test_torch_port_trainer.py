@@ -8,7 +8,10 @@ epochs) bitwise; the metrics 1e-5; the eval step of each model family 2e-4
 thousands); `compose` equal as plain dicts. The Trainer is the port's alone
 (the JAX Trainer is not run here): resume bitwise, the monitor state, the
 fail-fast checks, and the quick experiment end to end through the CLI with
-its final checkpoint served. Models are shrunk (hidden 8, ch_mult [1, 2],
+its final checkpoint served; the GAN quick experiment through the CLI past
+its discriminator gate, resumed bit for bit (the discriminator's params,
+BatchNorm statistics and optimizer state included), its checkpoint loaded
+by `load_model`. Models are shrunk (hidden 8, ch_mult [1, 2],
 latent 4) to keep the file near a minute.
 """
 
@@ -317,7 +320,7 @@ def test_trainer_rejects_geometry_mismatch(tmp_path, config_dir):
 
 @pytest.mark.parametrize("override", [
     "+data.device_cache=true", "+training.fused_steps=on", "data.batch_size=auto",
-    "+model.remat=block", "training.loss.type=lpips_discriminator", "mesh.data=2",
+    "+model.remat=block", "debug.nan_checks=true", "mesh.data=2",
     "debug.profile=true", "+parallel.explicit_shard_map=true",
 ])
 def test_trainer_names_what_is_not_ported(tmp_path, config_dir, override):
@@ -354,3 +357,68 @@ def test_cli_trains_the_quick_experiment_and_serves_its_final_checkpoint(tmp_pat
     images = np.random.RandomState(0).randint(0, 256, (3, 28, 28, 1), np.uint8)
     rec = InferenceEngine(model, buckets=(4,), device="cpu").reconstruct(images)
     assert rec.shape == (3, 28, 28, 1) and np.isfinite(rec).all()
+
+
+# two of the experiment's five datasets (one gray, one RGB): each validation
+# and test pass runs 512 images through LPIPS and D instead of 1280
+GAN_TINY = ["experiment=multi_modal_cvae_gan_quick", "device=cpu", "model.hidden_channels=8",
+            "model.latent_dim=4", "model.ch_mult=[1,2]", "data.batch_size=128",
+            "data.dataset_names=[chestmnist,pathmnist]",
+            "+training.limit_train_batches=3", "training.loss.discriminator_iter_start=2",
+            "training.log_every_n_steps=1", "early_stopping.enabled=false"]
+
+
+def test_gan_trains_past_the_gate_through_the_cli_and_resumes_bit_for_bit(tmp_path, config_dir, capsys):
+    """cli/train.py on the GAN quick experiment (gate at step 2 of the first
+    epoch's 3, dropout 0.1, so the adaptive weight takes its own decoder
+    pass): one epoch, then resume=true to two, against two epochs
+    uninterrupted; then the final checkpoint loads through `load_model`."""
+    split = [*GAN_TINY, f"work_dir={tmp_path / 'split'}"]
+    assert cli_train.main([*split, "training.max_epochs=1"]) == 0
+    assert cli_train.main([*split, "training.max_epochs=2", "resume=true"]) == 0
+    out = capsys.readouterr().out
+    assert "Resuming at optimizer step 3" in out and "Final checkpoint" in out
+    with open(tmp_path / "split" / "logs" / "multi_modal_cvae_gan_quick" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in sorted(rows, key=lambda r: r["step"]) if "train/d_weight" in r]
+    assert [r["train/d_weight"] > 0 and r["train/d_loss"] > 0 for r in train] == [False, False] + [True] * 4
+    assert all(np.isfinite(v) for r in train for k, v in r.items() if k.startswith("train/"))
+    assert any("val/d_loss" in r for r in rows)
+    whole = Trainer(compose(config_dir, "config", [*GAN_TINY, f"work_dir={tmp_path / 'whole'}",
+                                                    "training.max_epochs=2"]))
+    whole.fit()
+    root = tmp_path / "split" / "logs" / "checkpoints" / "multi_modal_cvae_gan_quick"
+    resumed = Trainer(compose(config_dir, "config", [*GAN_TINY, f"work_dir={tmp_path / 'split'}",
+                                                      "training.max_epochs=2", "resume=true"]))
+    assert resumed.state.step == whole.state.step == 6
+    want, got = whole.state, resumed.state
+    for mine, theirs in ((got.params, want.params), (got.disc_params, want.disc_params),
+                         (got.disc_batch_stats, want.disc_batch_stats)):
+        assert set(mine) == set(theirs)
+        for k in theirs:
+            assert torch.equal(mine[k], theirs[k]), k
+    for a, b in zip(got.disc_opt_state.mu + got.disc_opt_state.nu,
+                    want.disc_opt_state.mu + want.disc_opt_state.nu):
+        assert torch.equal(a, b)
+    assert got.disc_opt_state.count == want.disc_opt_state.count == 6
+    model = load_model(str(root / "multi_modal_cvae_gan_quick_final"), "cpu")
+    assert not model.training and type(model).__name__ == "ConditionalVAE"
+    served = model.state_dict()  # the generator alone, conv weights stored in bf16 to serve
+    assert set(served) == set(want.params)
+    assert all(torch.equal(served[k], v.to(served[k].dtype)) for k, v in want.params.items())
+
+
+def test_trainer_takes_both_gan_experiments_and_refuses_an_empty_logit_map(tmp_path, config_dir):
+    """Neither GAN experiment is refused as unported; the full-width one's
+    ConditionalVAE has 906.3 M params (counted on the meta device); a 16²
+    image leaves the default three-layer discriminator no logits."""
+    for experiment in ("multi_modal_cvae", "multi_modal_cvae_gan_quick"):
+        cfg = compose(config_dir, "config", [f"experiment={experiment}", "device=cpu"])
+        ttrainer._reject_unported(cfg)
+        assert cfg["training"]["loss"]["type"] == "lpips_discriminator"
+    full = compose(config_dir, "config", ["experiment=multi_modal_cvae"])
+    model = build_model(full["model"], "bf16", "meta", train=True)
+    assert sum(p.numel() for p in model.parameters()) == 906_331_075
+    with pytest.raises(ValueError, match="empty logit map"):
+        Trainer(compose(config_dir, "config", ["experiment=multi_modal_cvae_gan_quick", "device=cpu",
+                                               f"work_dir={tmp_path}", "data.size=16", *TINY]))
