@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
-  env      torch, CUDA, nvcc, and the card's name and power limit;
+  env      torch, CUDA, nvcc, the card's name and power limit, and whether
+           the host figure stages' matplotlib, PIL and sklearn are installed
+           (read from package metadata; nothing imports them);
   build    compiles the kernels of medvae_tpu_torch/ops/csrc, one nvcc per
            source, all started together (timed), with ptxas's registers and
            spills for the Hopper backward's kernels and whether ptxas
@@ -116,8 +118,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            with one more epoch and resume=true ("Resuming at optimizer step
            16"), then 3 epochs uninterrupted: the resumed params against those,
            launches counted (7 B4 a train step or eval batch, 7 B5 a train
-           step), and the final checkpoint served (7 B4). Its work directory
-           is build/chip_smoke_work, removed at the end;
+           step, 7 + 4 for epoch 0's media grids), the media PNGs decoded to
+           their sizes, and the final checkpoint served (7 B4). Its work
+           directory is build/chip_smoke_work, removed after eval128;
+  eval128  on the uninterrupted run's final snapshot, cli/generate.py
+           (16 samples, 2 seeds, interpolation of 4), cli/evaluate.py (4
+           batches, --fid, --mig where sklearn is installed) and
+           cli/analyze.py (32 a modality): B4 launches a CLI as derived (7 a
+           reconstruct batch, 4 a decode, 3 an encode), the files, every
+           number finite; then analyze on two classes (the first 16
+           validation images of chestmnist and of pneumoniamnist written as
+           MedMNIST npz files, one batch) on the card and on the CPU, the
+           centroid distance and silhouette within 1e-2 of each other;
   gan224_train  the full-width 224² GAN experiment (experiment=multi_modal_cvae:
            the concat ConditionalVAE, hidden 256, 906.3 M params, the PatchGAN
            and LPIPS in fp32, adamw betas (0.5, 0.999), cosine) with its gate
@@ -138,7 +150,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            resume +1 epoch, then 3 epochs uninterrupted: B6/B7 launches, the
            adversarial terms past the gate, the resumed generator's and D's
            params and statistics against the uninterrupted ones (RESUME_BAR,
-           beside the 2-epoch ones), and the final checkpoint served.
+           beside the 2-epoch ones), epoch 0's media PNGs, and the final
+           checkpoint served;
+  eval224  the full-width flagship (the serve phase's seeded weights) saved
+           as a port checkpoint beside a config.yaml of
+           experiment=disentangled_multi_modal_cvae_full with two of its five
+           datasets: generate (--per_modality, 8 samples, interpolation of 4),
+           evaluate (2 batches of 32, --fid), analyze (32 a modality) and
+           evaluate again with MEDVAE_FUSED_GN=1 on the card: B1 launches a
+           CLI as derived (5 a reconstruct, 3 a decode, 2 an encode), B6 in
+           the switched run (50 a reconstruct batch, the decoder's sites a
+           decode), the files, every number finite, the seconds and peak
+           memory of each CLI, analyze's PCA alone, and eval_batch (bs 32)
+           and a bs-8 conditional sample alone (host clock, synchronized),
+           switch off and on. It runs after train_parity.
 Then the card line from nvidia-smi, the kernels line, and
 {"ok": true, "device": {...}} last.
 """
@@ -153,6 +178,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -167,12 +193,18 @@ import torch
 
 try:
     from medvae_tpu_torch import bench
+    from medvae_tpu_torch.analysis.latent import pca
+    from medvae_tpu_torch.cli import analyze as cli_analyze
+    from medvae_tpu_torch.cli import evaluate as cli_evaluate
+    from medvae_tpu_torch.cli import generate as cli_generate
     from medvae_tpu_torch.cli import train as cli_train
+    from medvae_tpu_torch.cli.common import load_model, save_checkpoint
     from medvae_tpu_torch.cli.serve import _b64_to_np, _np_to_b64, serve
-    from medvae_tpu_torch.config.compose import compose
+    from medvae_tpu_torch.config.compose import compose, save_yaml
     from medvae_tpu_torch.config.models import CVAE_BENCH, FLAGSHIP, build_model, init_weights
     from medvae_tpu_torch.config.instantiate import instantiate
     from medvae_tpu_torch.data.medmnist import MedMNISTDataModule
+    from medvae_tpu_torch.data.modalities import MODALITY_NAMES
     from medvae_tpu_torch.data.pipeline import DeviceFeeder
     from medvae_tpu_torch.nn import blocks
     from medvae_tpu_torch.nn.blocks import AttnBlock, ResnetBlock
@@ -184,6 +216,7 @@ try:
     from medvae_tpu_torch.ops import groupnorm_swish as gs
     from medvae_tpu_torch.ops.attention import reference_attention
     from medvae_tpu_torch.serve.engine import InferenceEngine
+    from medvae_tpu_torch.utils.visualization import read_png_size
     from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
     from medvae_tpu_torch.train.state import create_train_state
     from medvae_tpu_torch.train.step import (build_gan_grads, build_loss_and_grads, build_train_step,
@@ -309,8 +342,28 @@ def phase_env() -> str:
         "phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvcc": nvcc, "pyyaml": yaml.__version__, "gpu": smi,
         "device_count": torch.cuda.device_count(),
+        # the host figure stages' packages (evaluate's t-SNE, analyze's
+        # figure, --mig); the card's path needs none of them
+        "host_packages": {name: host_package(name) for name in HOST_PACKAGES},
     })
     return smi
+
+
+HOST_PACKAGES = {"matplotlib": "matplotlib", "PIL": "pillow", "sklearn": "scikit-learn"}
+
+
+def host_package(module: str):
+    """The installed version of a host plotting package, or None: read from
+    its distribution's metadata, so that nothing here imports it."""
+    import importlib.metadata
+    import importlib.util
+
+    if importlib.util.find_spec(module) is None:
+        return None
+    try:
+        return importlib.metadata.version(HOST_PACKAGES[module])
+    except importlib.metadata.PackageNotFoundError:
+        return "present"
 
 
 # the Hopper backward's kernels, by a fragment of their mangled names
@@ -1842,16 +1895,31 @@ def final_params(work: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
 
 
+def media_sizes(run_dir: str) -> dict:
+    """{file: (width, height)} of a run's media grids, each decoded."""
+    media = os.path.join(run_dir, "media")
+    return {name: read_png_size(os.path.join(media, name)) for name in sorted(os.listdir(media))}
+
+
+def want_media(size: int) -> dict:
+    """Epoch 0's grids (the only media epoch of a run under 10 epochs): 8
+    validation images over their reconstructions, 16 prior samples 4 x 4,
+    tiles 2 px apart."""
+    return {"epoch_0000_recon.png": (8 * (size + 2) + 2, 2 * (size + 2) + 2),
+            "epoch_0000_samples.png": (4 * (size + 2) + 2, 4 * (size + 2) + 2)}
+
+
 def phase_trainer128() -> dict:
     """cli/train.py on experiment=chest_base_vae at 128² (2 epochs of 8
     batches, validation and test on), then the same command with one more
     epoch and resume=true, then 3 epochs uninterrupted: steps, img/s and the
     validation per epoch, B4/B5 launches (7 a train step, 7 a validation or
-    test batch), the resumed params against the uninterrupted ones (within
-    RESUME_BAR, and the two-epoch params past it as a control); and the
-    final checkpoint served through InferenceEngine (7 B4 a reconstruct)."""
-    import shutil
-
+    test batch, 7 + 4 for epoch 0's media grids: a validation batch
+    reconstructed and 16 prior samples decoded), the media files, the
+    resumed params against the uninterrupted ones (within RESUME_BAR, and the
+    two-epoch params past it as a control); and the final checkpoint served
+    through InferenceEngine (7 B4 a reconstruct). The uninterrupted run stays
+    in WORK for eval128."""
     split, whole = os.path.join(WORK, "split"), os.path.join(WORK, "whole")
     for d in (split, whole):
         shutil.rmtree(d, ignore_errors=True)
@@ -1860,10 +1928,11 @@ def phase_trainer128() -> dict:
     totals = dict.fromkeys(at.launches, 0)
     eval_batches = 2 * (256 // BASE128_BATCH)  # one validation and the test, 4 batches each
 
-    def check(tag, text, rows, seconds, counts, epochs_run):
+    def check(tag, text, rows, seconds, counts, epochs_run, media_epochs):
         steps = epochs_run * TRAINER_BATCHES
-        want = {"attention_fwd": BASE128_SITES * (steps + epochs_run * eval_batches // 2 + eval_batches // 2),
-                "attention_bwd": BASE128_SITES * steps}
+        media = media_epochs * (BASE128_SITES + BASE128_PER_CHUNK["decode"])
+        want = {"attention_fwd": BASE128_SITES * (steps + epochs_run * eval_batches // 2 + eval_batches // 2)
+                + media, "attention_bwd": BASE128_SITES * steps}
         val = [{k: r[k] for k in ("step", "val/loss", "val/psnr", "val/ssim", "val/kl_total",
                                   "epoch_time_sec")} for r in rows if "val/loss" in r]
         speed = [{"step": r["step"], "train/loss": r["train/loss"],
@@ -1879,14 +1948,14 @@ def phase_trainer128() -> dict:
             totals[k] += counts[k]
 
     text, first_rows, seconds, counts = train_cli(split, TRAINER_EPOCHS, data)
-    check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS)
+    check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS, 1)
     two_epochs = final_params(split)
     gc.collect()
     text, rows, seconds, counts = train_cli(split, TRAINER_EPOCHS + 1, data, "resume=true")
     resumed_at = TRAINER_EPOCHS * TRAINER_BATCHES
     if f"Resuming at optimizer step {resumed_at}" not in text:
         raise AssertionError(f"trainer128 resume did not print 'Resuming at optimizer step {resumed_at}'")
-    check("resume +1 epoch", text, rows[len(first_rows):], seconds, counts, 1)  # the log appends
+    check("resume +1 epoch", text, rows[len(first_rows):], seconds, counts, 1, 0)  # the log appends
     resumed = final_params(split)
     final_dir = os.path.join(split, "logs", "checkpoints", "chest_base_vae", "chest_base_vae_final")
     engine = InferenceEngine.from_checkpoint(final_dir, buckets=(8,), device=CARD)
@@ -1898,9 +1967,9 @@ def phase_trainer128() -> dict:
     gc.collect()
     shutil.rmtree(split, ignore_errors=True)
     text, rows, seconds, counts = train_cli(whole, TRAINER_EPOCHS + 1, data)
-    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1)
+    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1, 1)
     whole_params = final_params(whole)
-    shutil.rmtree(WORK, ignore_errors=True)
+    media = media_sizes(os.path.join(whole, "logs", "chest_base_vae"))
     diff = max((resumed[k] - whole_params[k]).abs().max().item() for k in whole_params)
     norm = torch.sqrt(sum((v.double() ** 2).sum() for v in whole_params.values()))
 
@@ -1911,14 +1980,15 @@ def phase_trainer128() -> dict:
     rel, control = rel_to_whole(resumed), rel_to_whole(two_epochs)
     row = {"phase": "trainer128", "resumed_vs_uninterrupted_max_abs": diff,
            "resumed_vs_uninterrupted_rel_l2": rel, "bar": RESUME_BAR,
-           "control_two_epochs_vs_three_rel_l2": control,
+           "control_two_epochs_vs_three_rel_l2": control, "media": media,
            "served_final_checkpoint": {"shape": list(rec.shape), "finite": bool(np.isfinite(rec).all()),
                                        "launches": serve_counts}}
     emit(row)
     # the control is one epoch of training apart: a resume that skipped or
     # repeated batches, or lost the optimizer's moments, would lie near it
     if not (rel <= RESUME_BAR < control and np.isfinite(rec).all() and rec.shape == (8, res, res, 1)
-            and serve_counts == {"attention_fwd": BASE128_SITES, "attention_bwd": 0}):
+            and serve_counts == {"attention_fwd": BASE128_SITES, "attention_bwd": 0}
+            and media == want_media(res)):
         raise AssertionError(f"trainer128: {row}")
     for k in totals:
         totals[k] += serve_counts[k]
@@ -2155,13 +2225,12 @@ def phase_gan_trainer() -> dict:
     more epoch and resume=true, then 3 epochs uninterrupted: B6/B7 launches
     (B7 at every site a train step; B6 too, plus the decoder's sites again
     for the adaptive weight's pass without dropout, and at every site an
-    eval batch), d_weight and d_loss past the gate, the resumed generator's
-    and discriminator's params and BatchNorm statistics against the
-    uninterrupted ones (RESUME_BAR, beside the 2-epoch ones as a control);
-    then the final checkpoint served through InferenceEngine (one
+    eval batch, and for epoch 0's media grids at every site and the decoder's
+    again), the media files, d_weight and d_loss past the gate, the resumed
+    generator's and discriminator's params and BatchNorm statistics against
+    the uninterrupted ones (RESUME_BAR, beside the 2-epoch ones as a
+    control); then the final checkpoint served through InferenceEngine (one
     reconstruct, B6 at every site)."""
-    import shutil
-
     cfg = compose(cli_train.default_config_dir(), "config", [*GAN_QUICK_OVERRIDES,
                                                              f"data_dir={os.path.join(WORK, 'data')}"])
     meta_model = build_model(cfg["model"], "bf16", "meta", train=True)
@@ -2176,10 +2245,12 @@ def phase_gan_trainer() -> dict:
         shutil.rmtree(d, ignore_errors=True)
     totals = dict.fromkeys(gs.launches, 0)
 
-    def check(tag, text, rows, seconds, counts, epochs_run):
+    def check(tag, text, rows, seconds, counts, epochs_run, media_epochs):
         steps = epochs_run * GAN_TRAINER_BATCHES
         evals = epochs_run * val_batches + test_batches
-        want = {"gn_swish_fwd": steps * (sites + dec_sites) + evals * sites, "gn_swish_bwd": steps * sites}
+        # epoch 0's media: a validation batch reconstructed, 16 prior samples decoded
+        want = {"gn_swish_fwd": (steps + media_epochs) * (sites + dec_sites) + evals * sites,
+                "gn_swish_bwd": steps * sites}
         train = [{k: r[k] for k in ("step", "train/total_loss", "train/d_weight", "train/d_loss",
                                     "train/images_per_sec")} for r in rows if "train/d_weight" in r]
         val = [{k: r[k] for k in ("step", "val/loss", "val/psnr", "val/d_loss", "epoch_time_sec")}
@@ -2195,7 +2266,7 @@ def phase_gan_trainer() -> dict:
         return train
 
     text, first_rows, seconds, counts = gan_cli(split, TRAINER_EPOCHS)
-    train = check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS)
+    train = check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS, 1)
     past = [r for r in train if r["step"] > GAN_TRAINER_GATE]
     if not past or not all(r["train/d_weight"] > 0 and r["train/d_loss"] > 0 for r in past):
         raise AssertionError(f"gan_trainer: past the gate d_weight/d_loss {past}")
@@ -2205,7 +2276,7 @@ def phase_gan_trainer() -> dict:
     resumed_at = TRAINER_EPOCHS * GAN_TRAINER_BATCHES
     if f"Resuming at optimizer step {resumed_at}" not in text:
         raise AssertionError(f"gan_trainer resume did not print 'Resuming at optimizer step {resumed_at}'")
-    check("resume +1 epoch", text, rows[len(first_rows):], seconds, counts, 1)
+    check("resume +1 epoch", text, rows[len(first_rows):], seconds, counts, 1, 0)
     resumed = gan_snapshot(split)
     final_dir = os.path.join(split, "logs", "checkpoints", "multi_modal_cvae_gan_quick",
                              "multi_modal_cvae_gan_quick_final")
@@ -2220,8 +2291,9 @@ def phase_gan_trainer() -> dict:
     gc.collect()
     shutil.rmtree(split, ignore_errors=True)
     text, rows, seconds, counts = gan_cli(whole, TRAINER_EPOCHS + 1)
-    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1)
+    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1, 1)
     whole_params = gan_snapshot(whole)
+    media = media_sizes(os.path.join(whole, "logs", "multi_modal_cvae_gan_quick"))
     shutil.rmtree(WORK, ignore_errors=True)
 
     def rel_to_whole(params, prefix):
@@ -2233,18 +2305,279 @@ def phase_gan_trainer() -> dict:
            "generator_resumed_vs_uninterrupted_rel_l2": rel_to_whole(resumed, "G."),
            "discriminator_resumed_vs_uninterrupted_rel_l2": rel_to_whole(resumed, "D."),
            "control_generator_two_epochs_vs_three_rel_l2": rel_to_whole(two_epochs, "G."),
-           "control_discriminator_two_epochs_vs_three_rel_l2": rel_to_whole(two_epochs, "D."),
+           "control_discriminator_two_epochs_vs_three_rel_l2": rel_to_whole(two_epochs, "D."), "media": media,
            "served_final_checkpoint": {"shape": list(rec.shape), "finite": bool(np.isfinite(rec).all()),
                                        "launches": serve_counts}}
     emit(row)
     ok = all(row[f"{w}_resumed_vs_uninterrupted_rel_l2"] <= RESUME_BAR
              < row[f"control_{w}_two_epochs_vs_three_rel_l2"] for w in ("generator", "discriminator"))
     if not (ok and np.isfinite(rec).all() and rec.shape == (8, res, res, c)
-            and serve_counts == {"gn_swish_fwd": sites, "gn_swish_bwd": 0}):
+            and serve_counts == {"gn_swish_fwd": sites, "gn_swish_bwd": 0} and media == want_media(res)):
         raise AssertionError(f"gan_trainer: {row}")
     for k in totals:
         totals[k] += serve_counts[k]
     return totals
+
+
+# ------------------------------------ evaluation, generation, analysis ---- #
+
+# eval128 holds analyze on the card against the CPU on two classes (with the
+# run's one dataset, the centroid distance and silhouette are 0 on any
+# device): the first EVAL128_CPU_SAMPLES validation images of each of these
+# gray datasets, written as MedMNIST npz files, one batch in all
+EVAL128_ANALYZE_DATA = ["chestmnist", "pneumoniamnist"]
+EVAL128_CPU_SAMPLES = 16
+# the full-scale flagship experiment with two of its five datasets (one gray,
+# one RGB), as gan_trainer cuts its data; the weights are main()'s seeded ones
+EVAL224_OVERRIDES = ["experiment=disentangled_multi_modal_cvae_full", "data.dataset_names=[chestmnist,pathmnist]"]
+ANALYZE_REL = 1e-2  # card bf16 vs CPU bf16, the noise-free analyze numbers
+
+
+def cli_run(phase: str, tag: str, module, args) -> tuple:
+    """One CLI's main(args) with its stdout captured: (row, stdout). The
+    row holds the seconds, every kernel's launches (counted from 0 around
+    the call), the card's peak memory and the lines that say a figure was
+    not written."""
+    import io
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(args)
+    torch.cuda.synchronize()
+    row = {"phase": phase, "cli": tag, "seconds": time.perf_counter() - t0, "launches": launches(),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "printed": [line for line in out.getvalue().splitlines() if "not written" in line]}
+    if rc != 0:
+        raise AssertionError(f"{phase} {tag}: main returned {rc}")
+    return row, out.getvalue()
+
+
+def check_cli(row: dict, want: dict, files: list, want_files) -> None:
+    """Launches equal to the derived ones, every wanted file written."""
+    row.update(want_launches=want, files=files)
+    emit(row)
+    missing = sorted(set(want_files) - set(files))
+    if row["launches"] != want or missing:
+        raise AssertionError(f"{row['phase']} {row['cli']}: launches {row['launches']}, want {want}; "
+                             f"missing {missing}")
+
+
+def finite_numbers(path: str) -> dict:
+    """A metrics.json or results.json, each number in it finite or it raises."""
+    with open(path) as f:
+        data = json.load(f)
+
+    def numbers(v):
+        if isinstance(v, dict):
+            return [x for u in v.values() for x in numbers(u)]
+        return [v] if isinstance(v, (int, float)) else []
+
+    if not all(np.isfinite(x) for x in numbers(data)):
+        raise AssertionError(f"{path}: a number is not finite: {data}")
+    return data
+
+
+def analyze_batches(modality_idx: np.ndarray, batch_size: int, per_modality: int) -> int:
+    """The batches cli/analyze.py encodes: in split order until every
+    modality of the split has `per_modality` samples."""
+    have = collections.Counter()
+    wanted = set(np.unique(modality_idx).tolist())
+    for b, lo in enumerate(range(0, len(modality_idx), batch_size)):
+        have.update(modality_idx[lo:lo + batch_size].tolist())
+        if all(have[m] >= per_modality for m in wanted):
+            return b + 1
+    return -(-len(modality_idx) // batch_size)
+
+
+def val_modalities(cfg) -> tuple:
+    dm = instantiate(dict(cfg["data"]))
+    return dm.split("val").modality_idx, int(dm.batch_size)
+
+
+def phase_eval128() -> dict:
+    """generate, evaluate and analyze on the final snapshot of trainer128's
+    uninterrupted run (the 128² BaseVAE, bf16) on the card: B4 launches a
+    CLI against the counts derived from the model (7 a reconstruct batch, 4
+    a decode, 3 an encode), the files written, every number finite; then
+    analyze on two classes (EVAL128_ANALYZE_DATA) on the card and on the
+    CPU, the noise-free centroid distance and silhouette within ANALYZE_REL
+    of each other. Returns the B4/B5 launches of the card's runs."""
+    run = os.path.join(WORK, "whole", "logs", "checkpoints", "chest_base_vae")
+    ckpt, out = os.path.join(run, "chest_base_vae_final"), os.path.join(WORK, "eval128")
+    dec, enc = BASE128_PER_CHUNK["decode"], BASE128_PER_CHUNK["encode"]
+    totals = dict.fromkeys(at.launches, 0)
+
+    def add(row):
+        for k in totals:
+            totals[k] += row["launches"][k]
+
+    gen_dir = os.path.join(out, "generate")
+    row, _ = cli_run("eval128", "generate", cli_generate, [
+        "--model_path", ckpt, "--num_samples", "16", "--num_seeds", "2", "--interpolate", "4",
+        "--output_dir", gen_dir])
+    # two seeds' sample grids and four interpolation rows, a decode each
+    check_cli(row, want_launches(attention_fwd=dec * (2 + 4)), sorted(os.listdir(gen_dir)),
+              ["samples_grid_seed42.png", "samples_grid_seed43.png", "interpolation_grid.png",
+               *[f"sample_{i:03d}.png" for i in range(16)]])
+    add(row)
+
+    mig = host_package("sklearn") is not None
+    emit({"phase": "eval128", "evaluate_mig": "on" if mig else "off: sklearn is not installed"})
+    ev_dir = os.path.join(out, "evaluate")
+    row, _ = cli_run("eval128", "evaluate", cli_evaluate, [
+        "--model_path", ckpt, "--max_batches", "4", "--fid", "--output_dir", ev_dir,
+        *(["--mig"] if mig else [])])
+    metrics = finite_numbers(os.path.join(ev_dir, "metrics.json"))
+    row["metrics"] = {k: v.get("mean", v.get("value")) for k, v in metrics.items()}
+    # four test batches reconstructed, 16 prior samples decoded
+    check_cli(row, want_launches(attention_fwd=4 * BASE128_SITES + dec), sorted(os.listdir(ev_dir)),
+              ["metrics.json", "reconstructions.png", "prior_samples.png"])
+    add(row)
+
+    import yaml
+
+    with open(os.path.join(run, "config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    an_dir = os.path.join(out, "analyze")
+    row, _ = cli_run("eval128", "analyze", cli_analyze, [
+        "--model_path", ckpt, "--samples_per_modality", "32", "--output_dir", an_dir])
+    row["results"] = finite_numbers(os.path.join(an_dir, "results.json"))
+    midx, bs = val_modalities(cfg)
+    check_cli(row, want_launches(attention_fwd=enc * analyze_batches(midx, bs, 32)),
+              sorted(os.listdir(an_dir)), ["results.json", "latent_analysis.npz"])
+    add(row)
+
+    n = EVAL128_CPU_SAMPLES
+    root = os.path.join(out, "two_classes")
+    os.makedirs(root)
+    for name in EVAL128_ANALYZE_DATA:
+        val = MedMNISTDataModule([name], size=int(cfg["data"]["size"]), root=cfg["data"]["root"]).split("val")
+        np.savez(os.path.join(root, f"{name}_{cfg['data']['size']}.npz"),
+                 val_images=val.images[:n, ..., 0], val_labels=val.labels[:n])
+    cfg["data"].update(dataset_names=EVAL128_ANALYZE_DATA, root=root, batch_size=2 * n)
+    config = os.path.join(root, "config.yaml")
+    save_yaml(cfg, config)
+    results, latents = {}, {}
+    for device in (CARD, "cpu"):
+        an_dir = os.path.join(out, f"analyze_two_classes_{device}")
+        row, _ = cli_run("eval128", f"analyze two classes --device {device}", cli_analyze, [
+            "--model_path", ckpt, "--config", config, "--samples_per_modality", str(n),
+            "--output_dir", an_dir, "--device", device])
+        results[device] = finite_numbers(os.path.join(an_dir, "results.json"))
+        latents[device] = np.load(os.path.join(an_dir, "latent_analysis.npz"))["latents"]
+        row["results"] = results[device]
+        check_cli(row, want_launches(attention_fwd=enc if device == CARD else 0), sorted(os.listdir(an_dir)),
+                  ["results.json", "latent_analysis.npz"])
+        if device == CARD:
+            add(row)
+    rel = {k: abs(results[CARD][k] - results["cpu"][k]) / max(abs(results["cpu"][k]), 1e-6)
+           for k in ("mean_centroid_distance", "silhouette_score")}
+    row = {"phase": "eval128", "analyze_card_vs_cpu_rel": rel, "bar": ANALYZE_REL,
+           "latents_card_vs_cpu_rel_l2": rel_l2(latents[CARD], latents["cpu"]),
+           "card": results[CARD], "cpu": results["cpu"]}
+    emit(row)
+    if not (max(rel.values()) <= ANALYZE_REL and results[CARD]["mean_centroid_distance"] > 0):
+        raise AssertionError(f"eval128 analyze, card vs CPU: {row}")
+    return totals
+
+
+def phase_eval224(state_dict) -> dict:
+    """The full-width 224² flagship (main()'s seeded weights, bf16) saved as
+    a port checkpoint beside a config.yaml composed from EVAL224_OVERRIDES,
+    then generate (--per_modality, 8 samples, interpolation of 4), evaluate
+    (2 batches of 32, --fid), analyze (32 a modality) and evaluate again with
+    MEDVAE_FUSED_GN=1, on the card: B1 launches a CLI against the counts
+    derived from the model (5 a reconstruct, 3 a decode, 2 an encode), B6 in
+    the switched run (50 a reconstruct batch, the decoder's sites a decode),
+    the files, every number finite; evaluate's eval_batch alone (ms a bs-32
+    batch, img/s), generate's samples/s, analyze's seconds and the PCA's
+    share, peak memory. Returns {"flash_fwd": B1 over the four runs,
+    "gn_swish_fwd": B6 in the switched run}."""
+    work = os.path.join(WORK, "eval224")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = compose(cli_train.default_config_dir(), "config",
+                  [*EVAL224_OVERRIDES, f"work_dir={work}", f"data_dir={os.path.join(work, 'data')}"])
+    ckpt = os.path.join(work, "checkpoints", "flagship")
+    os.makedirs(ckpt)
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(ckpt, "checkpoint.pt"), state_dict, cfg["model"], "bf16")
+    save_yaml(cfg, os.path.join(work, "checkpoints", "config.yaml"))
+    meta = build_model(cfg["model"], "bf16", "meta")
+    sites, dec_sites = gn_swish_sites(meta), gn_swish_sites(meta.decoder)
+    emit({"phase": "eval224", "checkpoint_seconds": time.perf_counter() - t0,
+          "params": sum(p.numel() for p in meta.parameters()), "gn_swish_sites": sites,
+          "decoder_gn_swish_sites": dec_sites, "data": list(cfg["data"]["dataset_names"])})
+    n_mod, per = int(meta.num_modalities), PER_CHUNK
+    b1 = b6 = 0
+
+    gen_dir = os.path.join(work, "generate")
+    row, _ = cli_run("eval224", "generate", cli_generate, [
+        "--model_path", ckpt, "--per_modality", "--num_samples", "8", "--interpolate", "4",
+        "--output_dir", gen_dir])
+    names = [MODALITY_NAMES[m] for m in range(n_mod)]
+    row["samples_per_sec"] = n_mod * (8 + 4) / row["seconds"]  # 8 samples and a path of 4 a modality
+    check_cli(row, want_launches(flash_fwd=per["decode"] * 2 * n_mod), sorted(os.listdir(gen_dir)),
+              ["interpolation_grid.png", *[f"samples_{n}.png" for n in names],
+               *[f"{n}_{i:03d}.png" for n in names for i in range(8)]])
+    b1 += row["launches"]["flash_fwd"]
+
+    eval_args = ["--model_path", ckpt, "--max_batches", "2", "--fid"]
+    want_eval = {"flash_fwd": per["reconstruct"] * 2 + per["decode"]}  # 2 batches, 16 prior samples
+    for tag, switch, want in (("evaluate", False, want_eval),
+                              ("evaluate MEDVAE_FUSED_GN=1", True,
+                               {**want_eval, "gn_swish_fwd": sites * 2 + dec_sites})):
+        ev_dir = os.path.join(work, tag.replace(" ", "_"))
+        with fused_gn(switch):
+            row, _ = cli_run("eval224", tag, cli_evaluate, [*eval_args, "--output_dir", ev_dir])
+        metrics = finite_numbers(os.path.join(ev_dir, "metrics.json"))
+        row["metrics"] = {k: v.get("mean", v.get("value")) for k, v in metrics.items()}
+        check_cli(row, want_launches(**want), sorted(os.listdir(ev_dir)),
+                  ["metrics.json", "reconstructions.png", "prior_samples.png"])
+        b1 += row["launches"]["flash_fwd"]
+        b6 += row["launches"]["gn_swish_fwd"]
+
+    an_dir = os.path.join(work, "analyze")
+    row, _ = cli_run("eval224", "analyze", cli_analyze, [
+        "--model_path", ckpt, "--samples_per_modality", "32", "--output_dir", an_dir])
+    row["results"] = finite_numbers(os.path.join(an_dir, "results.json"))
+    midx, bs = val_modalities(cfg)
+    z = torch.from_numpy(np.load(os.path.join(an_dir, "latent_analysis.npz"))["latents"]).to(CARD)
+    pca_s = statistics.median(host_samples_ms(lambda: (pca(z, 2), torch.cuda.synchronize()), reps=3)) / 1e3
+    row.update(latents=list(z.shape), pca_seconds=pca_s, pca_share=pca_s / row["seconds"])
+    del z
+    check_cli(row, want_launches(flash_fwd=per["encode"] * analyze_batches(midx, bs, 32)),
+              sorted(os.listdir(an_dir)), ["results.json", "latent_analysis.npz"])
+    b1 += row["launches"]["flash_fwd"]
+
+    # the layers alone: evaluate's eval_batch on a bs-32 test batch (host
+    # clock, synchronized), and a bs-8 conditional sample, switch off and on
+    model = load_model(ckpt, CARD)
+    dm = instantiate(dict(cfg["data"]))
+    batch = next(iter(DeviceFeeder(dm.split("test"), bs, CARD, shuffle=False, drop_last=False).epoch(0)))
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    midx8 = torch.zeros(8, dtype=torch.long, device=CARD)
+    row = {"phase": "eval224", "layer": "eval_batch bs 32, sample_conditional 8"}
+    for switch in (False, True):
+        with fused_gn(switch):
+            times = host_samples_ms(lambda: (cli_evaluate.eval_batch(model, batch, generator=gen),
+                                             torch.cuda.synchronize()), reps=6)[1:]
+            sample = host_samples_ms(lambda: (model.sample_conditional(8, midx8, generator=gen),
+                                              torch.cuda.synchronize()), reps=6)[1:]
+        key = "fused_gn" if switch else "plain_gn"
+        row[key] = {"eval_batch_ms": statistics.median(times), "eval_samples_ms": times,
+                    "eval_images_per_sec": bs / statistics.median(times) * 1e3,
+                    "sample8_ms": statistics.median(sample),
+                    "samples_per_sec": 8 / statistics.median(sample) * 1e3}
+    emit(row)
+    del model, batch
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd": b1, "gn_swish_fwd": b6}
 
 
 def main() -> int:
@@ -2269,6 +2602,7 @@ def main() -> int:
     train_launches = phase_train(state_dict)
     fused_train_launches = phase_flagship_fused_train(state_dict)
     phase_train_parity(state_dict)
+    eval224_launches = phase_eval224(state_dict)
     cvae_launches = phase_cvae28_train(True)
     phase_cvae28_train(False)
     phase_cvae28_parity()
@@ -2279,6 +2613,8 @@ def main() -> int:
                      "base128_serve": phase_base128_serve(cfg["model"], base128_weights)}
     phase_base128_parity(cfg, base128_weights)
     attn_launches["trainer128"] = phase_trainer128()
+    attn_launches["eval128"] = phase_eval128()
+    shutil.rmtree(WORK, ignore_errors=True)
     gan_launches = {"gan224_train": phase_gan224_train()}
     phase_gan_parity()
     gan_launches["gan_trainer"] = phase_gan_trainer()
@@ -2301,6 +2637,7 @@ def main() -> int:
                                   "bound_by", "library_ms")}
     fwd.update(launches=serve_launches + train_launches["flash_fwd"],
                launches_serve=serve_launches, launches_train=train_launches["flash_fwd"],
+               launches_eval224=eval224_launches["flash_fwd"],
                ms_with_lse=backward["flash_fwd_lse"]["ms"],
                plain_ms_with_lse=backward["flash_fwd_lse"]["plain_ms"],
                bound_ms_with_lse=backward["flash_fwd_lse"]["bound_ms"],
@@ -2325,6 +2662,8 @@ def main() -> int:
                      "launches_flagship_fused_serve": fused_serve_launches[name],
                      "launches_flagship_fused_train": fused_train_launches[name],
                      **{f"launches_{path}": c[name] for path, c in gan_launches.items()},
+                     **({"launches_eval224_fused": eval224_launches["gn_swish_fwd"]}
+                        if name == "gn_swish_fwd" else {}),
                      **{k: r[k] for k in ("instance", "max_abs_err", "ms", "device_ms", "plain_ms",
                                           "bound_ms", "bound_by", "streamed_ms", "streamed_device_ms",
                                           "library_ms", "library", "shape", "at_224")}})

@@ -125,13 +125,15 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=8901)
     p.add_argument("--buckets", default="1,8,32,128")
     p.add_argument("--no_warmup", action="store_true")
+    p.add_argument("--use_ema", action="store_true",
+                   help="serve the EMA weight average from the checkpoint")
     args = p.parse_args(argv)
 
     from medvae_tpu_torch.serve.engine import InferenceEngine
 
     engine = InferenceEngine.from_checkpoint(
         args.model_path, buckets=[int(b) for b in args.buckets.split(",")],
-        device=args.device,
+        device=args.device, use_ema=args.use_ema,
     )
     httpd = serve(engine, args.host, args.port, warmup=not args.no_warmup)
     print(f"serving {engine.info()['model']} on http://{args.host}:{args.port}")

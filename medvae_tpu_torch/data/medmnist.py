@@ -345,34 +345,38 @@ class MedMNISTDataModule:
         if stage in ("test", None):
             wanted += ["test"]
         for split in wanted:
-            if split in self._splits:
-                continue
-            sources = [
-                MedMNISTSource(
-                    name,
-                    split=split,
-                    size=self.size,
-                    root=self.root,
-                    max_channels=self.max_channels,
-                    synthetic_fallback=self.synthetic_fallback,
-                    seed=self.seed,
-                )
-                for name in self.dataset_names
-            ]
-            for src in sources:
-                if src.synthetic:
-                    self.synthetic_datasets.add((src.dataset_name, split))
-            parts = [s.arrays for s in sources]
-            self._splits[split] = SplitArrays(
-                images=np.concatenate([p.images for p in parts]),
-                labels=np.concatenate([p.labels for p in parts]),
-                modality_idx=np.concatenate([p.modality_idx for p in parts]),
-                channels=self.max_channels,
+            self._setup_split(split)
+
+    def _setup_split(self, split: str) -> None:
+        if split in self._splits:
+            return
+        sources = [
+            MedMNISTSource(
+                name,
+                split=split,
+                size=self.size,
+                root=self.root,
+                max_channels=self.max_channels,
+                synthetic_fallback=self.synthetic_fallback,
+                seed=self.seed,
             )
+            for name in self.dataset_names
+        ]
+        for src in sources:
+            if src.synthetic:
+                self.synthetic_datasets.add((src.dataset_name, split))
+        parts = [s.arrays for s in sources]
+        self._splits[split] = SplitArrays(
+            images=np.concatenate([p.images for p in parts]),
+            labels=np.concatenate([p.labels for p in parts]),
+            modality_idx=np.concatenate([p.modality_idx for p in parts]),
+            channels=self.max_channels,
+        )
 
     def split(self, name: str) -> SplitArrays:
-        if name not in self._splits:
-            self.setup(None)
+        """The split's arrays, made on first use (that split alone, so an
+        evaluation of the test split makes no training split)."""
+        self._setup_split(name)
         return self._splits[name]
 
     @property

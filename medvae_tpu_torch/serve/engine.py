@@ -77,13 +77,16 @@ class InferenceEngine:
 
     @classmethod
     def from_checkpoint(
-        cls, path: str, buckets: Sequence[int] = DEFAULT_BUCKETS, device=None
+        cls, path: str, buckets: Sequence[int] = DEFAULT_BUCKETS, device=None,
+        use_ema: bool = False,
     ) -> "InferenceEngine":
-        """Serve a port checkpoint (cli/common.py:save_checkpoint)."""
+        """Serve a port checkpoint (cli/common.py:save_checkpoint); `use_ema`
+        serves the EMA weight average a trainer snapshot carries
+        (training.ema_decay > 0), the usual deployment choice."""
         from medvae_tpu_torch.cli.common import load_model
 
         dev = resolve_device(device)
-        return cls(load_model(path, dev), buckets=buckets, device=dev)
+        return cls(load_model(path, dev, use_ema=use_ema), buckets=buckets, device=dev)
 
     # ------------------------------------------------------------------ #
     # request plumbing                                                    #

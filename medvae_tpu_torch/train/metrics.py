@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -101,6 +102,17 @@ def kl_metrics(
         "kl_std": torch.sqrt(torch.clamp(var_total, min=0.0)),
         "kl_per_dim_mean": kl_el.mean(),
     }
+
+
+def to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A dict of device metrics as float64 numpy arrays, in one device-to-host
+    copy (one sync a batch, not one a metric)."""
+    flat = torch.cat([v.detach().reshape(-1).double() for v in metrics.values()]).cpu().numpy()
+    host, i = {}, 0
+    for k, v in metrics.items():
+        host[k] = flat[i:i + v.numel()].reshape(v.shape)
+        i += v.numel()
+    return host
 
 
 def latent_metrics(z: torch.Tensor, valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:

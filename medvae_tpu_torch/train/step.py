@@ -222,6 +222,17 @@ def make_decode_fn(model: torch.nn.Module) -> Callable:
     return lambda z, batch, gen: model.decode(z, gen)
 
 
+def prior_samples(model: torch.nn.Module, n: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """n prior samples decoded (NHWC): the flagship's by modality in turn
+    (medvae_tpu/cli/evaluate.py:198-208, train/trainer.py:1108-1126); the
+    ConditionalVAE's decoder is unconditional, so the plain prior sample
+    covers it as Base and Beta."""
+    if isinstance(model, DisentangledConditionalVAE):
+        midx = torch.arange(n, device=model.heads_conv1.weight.device) % model.num_modalities
+        return model.sample_conditional(n, midx, generator=generator)
+    return model.sample(n, generator=generator)
+
+
 def _grads_or_zeros(loss: torch.Tensor, params) -> list:
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]

@@ -29,7 +29,14 @@ auto`, an explicit `model.remat` rung, a mesh of more than one device,
 `data.normalize: false`. The defaults the JAX package resolves on the
 TPU are resolved here, each said once: `remat: auto` to no remat (the H100
 holds the 128² BaseVAE at bs 64 without it), `device_cache: auto` to the host
-feeder, `fused_steps: auto` to one step a call. Media grids are not ported.
+feeder, `fused_steps: auto` to one step a call.
+
+Media: every `log_images_every_n_epochs` epochs (10 by default, epoch 0
+included), after the epoch's steps, `_log_media` writes
+`<run_dir>/media/epoch_XXXX_recon.png` (eight validation images over their
+reconstructions) and `epoch_XXXX_samples.png` (16 prior samples, the
+flagship's by modality in turn) through utils/visualization.py, drawn from
+a generator seeded by (seed, epoch), so training draws are untouched.
 """
 
 from __future__ import annotations
@@ -46,16 +53,18 @@ from medvae_tpu_torch.config.instantiate import instantiate
 from medvae_tpu_torch.config.models import build_model, init_weights
 from medvae_tpu_torch.core.rng import fold_in, set_seed
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
-from medvae_tpu_torch.data.pipeline import DeviceFeeder
+from medvae_tpu_torch.data.pipeline import DeviceFeeder, preprocess
 from medvae_tpu_torch.nn.discriminator import build_discriminator, logit_size
 from medvae_tpu_torch.train.checkpoint import CheckpointManager
+from medvae_tpu_torch.train.metrics import to_host
 from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
 from medvae_tpu_torch.train.state import create_train_state
-from medvae_tpu_torch.train.step import build_eval_step, build_train_step, make_frozen
+from medvae_tpu_torch.train.step import (build_eval_step, build_train_step, make_forward_fn, make_frozen,
+                                         prior_samples)
 from medvae_tpu_torch.utils.logging import MetricLogger
 from medvae_tpu_torch.utils.training_utils import EarlyStopping
 
-_TRAIN_STREAM, _EVAL_STREAM = 0xBEEF, 0xE7A1
+_TRAIN_STREAM, _EVAL_STREAM, _MEDIA_STREAM = 0xBEEF, 0xE7A1, 0x3ED1A
 
 
 def resolve_device(name: Any) -> torch.device:
@@ -279,13 +288,7 @@ class Trainer:
         weight_total = 0.0
         psnr_by_mod = count_by_mod = zmod_sum = None
         for batch in feeder.epoch(0):
-            m = self.eval_step(self.state, batch, gen)
-            # one device-to-host copy a batch
-            flat = torch.cat([v.detach().reshape(-1).double() for v in m.values()]).cpu().numpy()
-            host, i = {}, 0
-            for k, v in m.items():
-                host[k] = flat[i:i + v.numel()].reshape(v.shape)
-                i += v.numel()
+            host = to_host(self.eval_step(self.state, batch, gen))
             w = float(host.pop("val/_weight"))
             p_mod, c_mod = host.pop("val/_psnr_by_mod"), host.pop("val/_count_by_mod")
             zs = host.pop("val/_zmod_sum_by_mod", None)
@@ -318,8 +321,7 @@ class Trainer:
         val_interval = float(tcfg.get("val_check_interval", 1.0))
         check_every = int(tcfg.get("check_val_every_n_epoch", 1))
         limit_train = int(tcfg.get("limit_train_batches", 0)) or None
-        if int(tcfg.get("log_images_every_n_epochs", 10) or 0):
-            print("media grids (log_images_every_n_epochs) are not ported; none are written")
+        media_every = int(tcfg.get("log_images_every_n_epochs", 10) or 0)
         if str(tcfg.get("fused_steps", "auto")).lower() == "auto":
             print("fused_steps=auto: one train step a call (fused chunks are not ported)")
         ckpt_every = int((self.cfg.get("checkpointing") or {}).get("every_n_steps", 0) or 0)
@@ -366,6 +368,11 @@ class Trainer:
                         last_val = self.validate()
                         self.logger.log(last_val, step)
 
+                # the media cadence is independent of validation's
+                # (medvae_tpu/train/trainer.py:1031-1035)
+                if media_every and epoch % media_every == 0:
+                    self._log_media(epoch, (epoch + 1) * self.steps_per_epoch)
+
                 if (epoch + 1) % check_every == 0:
                     last_val = self.validate()
                     self._check_monitors(last_val)
@@ -386,6 +393,32 @@ class Trainer:
         final = self.ckpt.save_final(self.state, self.cfg.get("experiment_name", "run"))
         print(f"Final checkpoint: {final}")
         return last_val
+
+    @torch.no_grad()
+    def _log_media(self, epoch: int, step: int) -> None:
+        """The reconstruction and prior-sample grids of `epoch` into
+        <run_dir>/media (medvae_tpu/train/trainer.py:1076-1150)."""
+        from medvae_tpu_torch.utils.visualization import plot_reconstructions, plot_samples, to_unit
+
+        media_dir = os.path.join(self.logger.dir, "media")
+        batch = next(iter(self._feeder("val", shuffle=False, drop_last=False).epoch(0)))
+        gen = self._seeded(_MEDIA_STREAM, epoch)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            x = preprocess(batch, None, augment=False, max_channels=self.datamodule.max_channels,
+                           dtype=self.model.dtype)
+            recon = make_forward_fn(self.model)(x, batch, gen)["reconstruction"]
+            samples = prior_samples(self.model, 16, gen)
+        finally:
+            self.model.train(was_training)
+        recon_path = os.path.join(media_dir, f"epoch_{epoch:04d}_recon.png")
+        sample_path = os.path.join(media_dir, f"epoch_{epoch:04d}_samples.png")
+        # each array rescaled as a whole, as the JAX Trainer does
+        x, recon, samples = (to_unit(t.float().cpu().numpy()) for t in (x[:8], recon[:8], samples))
+        plot_reconstructions(x, recon, save_path=recon_path)
+        plot_samples(samples, save_path=sample_path, title=f"Prior samples — epoch {epoch}")
+        self.logger.log_images({"media/reconstructions": recon_path, "media/samples": sample_path}, step)
 
     def _check_monitors(self, val_metrics: Dict[str, float]) -> None:
         """Fail on a monitor key validation never emits (once, at the first

@@ -1,7 +1,8 @@
 """Metric logging (counterpart of medvae_tpu/utils/logging.py).
 
 Metrics go to a JSONL file and a CSV per run, and the composed config to
-`hparams.yaml` at start. TensorBoard (torch.utils.tensorboard) and W&B
+`hparams.yaml` at start; `log_images` hands image files already written to
+W&B. TensorBoard (torch.utils.tensorboard) and W&B
 (`wandb.enabled`) attach only when importable; files are written either way.
 """
 
@@ -78,6 +79,18 @@ class MetricLogger:
             for r in rows:
                 w.writerow(r)
             w.writerow(row)
+
+    def log_images(self, images: Dict[str, str], step: int) -> None:
+        """Log already-written image files (name -> path): they stay in the
+        run directory, and W&B gets them as media where the logger has it."""
+        if self._wandb is None:
+            return
+        try:
+            import wandb  # type: ignore
+
+            self._wandb.log({name: wandb.Image(path) for name, path in images.items()}, step=step)
+        except Exception as e:
+            print(f"[logger] wandb image log failed ({e})")
 
     def close(self) -> None:
         self._jsonl.close()

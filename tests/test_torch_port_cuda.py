@@ -721,3 +721,81 @@ def test_gan_step_gradients_repeat_bit_for_bit(gen, fused_gn, monkeypatch):
     first, second = grads(), grads()
     assert len(first) == len(second) > 100
     assert [i for i, (a, b) in enumerate(zip(first, second)) if not torch.equal(a, b)] == []
+
+
+# ------------------------------------------- analysis and the eval CLIs ---- #
+
+
+def _up_to_sign(got, want):
+    sign = torch.sign((got * want).sum(dim=0))
+    return got * sign
+
+
+def test_analysis_functions_on_the_card_match_the_cpu(gen):
+    """analysis/latent.py and fid.py on card tensors against the same calls
+    on the CPU (fp32): 1e-4, PCA up to each component's sign in both of its
+    forms (the Gram matrix for N < D, the covariance else), interpolation
+    exact."""
+    from medvae_tpu_torch import analysis
+
+    labels = torch.arange(48, device="cuda") % 3
+    z = torch.randn(48, 300, generator=gen, device="cuda") + labels[:, None].float()
+    for fn in (analysis.pairwise_distances, lambda x: analysis.centroid_distance_matrix(x, labels.to(x.device), 4)[0],
+               lambda x: analysis.silhouette_score(x, labels.to(x.device), 4)):
+        torch.testing.assert_close(fn(z).cpu(), fn(z.cpu()), rtol=1e-4, atol=1e-4)
+    for x in (z, z[:, :12]):  # N < D, then D < N
+        card, card_r = analysis.pca(x, 2)
+        cpu, cpu_r = analysis.pca(x.cpu(), 2)
+        torch.testing.assert_close(card_r.cpu(), cpu_r, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(_up_to_sign(card.cpu(), cpu), cpu, rtol=1e-4, atol=1e-3)
+    real, fake = z[:, :16], z[:, 16:32] * 0.5
+    assert abs(analysis.fid_score(real, fake) - analysis.fid_score(real.cpu(), fake.cpu())) <= \
+        1e-4 * analysis.fid_score(real.cpu(), fake.cpu())
+    a, b = z[0].reshape(10, 10, 3), z[1].reshape(10, 10, 3)
+    assert torch.equal(analysis.latent_interpolation(a, b, 5).cpu(),
+                       analysis.latent_interpolation(a.cpu(), b.cpu(), 5))
+
+
+@pytest.fixture
+def tiny_run(gen, tmp_path):
+    """A tiny quick-flagship checkpoint (seeded weights, fp32) beside its
+    composed config.yaml, data of two datasets under tmp_path."""
+    import pathlib
+
+    from medvae_tpu_torch.cli.common import save_checkpoint
+    from medvae_tpu_torch.config.compose import compose, save_yaml
+    from medvae_tpu_torch.config.models import build_model, init_weights
+
+    configs = pathlib.Path(__file__).resolve().parents[1] / "configs"
+    cfg = compose(str(configs), "config", [
+        "experiment=disentangled_multi_modal_cvae_quick", "data.dataset_names=[chestmnist,pathmnist]",
+        "model.hidden_channels=8", "model.ch_mult=[1,2]", "precision=fp32", f"work_dir={tmp_path}"])
+    model = init_weights(build_model(cfg["model"], "fp32", "cpu"), seed=0)
+    (tmp_path / "run" / "snap").mkdir(parents=True)
+    save_checkpoint(str(tmp_path / "run" / "snap" / "checkpoint.pt"), model.state_dict(), cfg["model"], "fp32")
+    save_yaml(cfg, tmp_path / "run" / "config.yaml")
+    return str(tmp_path / "run" / "snap")
+
+
+def test_eval_clis_run_on_the_card(tiny_run, tmp_path):
+    """generate, evaluate and analyze with their default device (the card):
+    their files, finite numbers, and analyze's numbers within 1e-3 of a CPU
+    run's (fp32)."""
+    import json
+
+    from medvae_tpu_torch.cli import analyze, evaluate, generate
+
+    assert generate.main(["--model_path", tiny_run, "--num_samples", "4", "--interpolate", "3",
+                          "--output_dir", str(tmp_path / "gen")]) == 0
+    assert (tmp_path / "gen" / "samples_grid.png").exists() and (tmp_path / "gen" / "interpolation_grid.png").exists()
+    assert evaluate.main(["--model_path", tiny_run, "--max_batches", "2", "--fid",
+                          "--output_dir", str(tmp_path / "eval")]) == 0
+    metrics = json.loads((tmp_path / "eval" / "metrics.json").read_text())
+    assert all(torch.isfinite(torch.tensor(v.get("mean", v.get("value")))) for v in metrics.values())
+    results = {}
+    for device in ("cuda", "cpu"):
+        assert analyze.main(["--model_path", tiny_run, "--samples_per_modality", "16", "--device", device,
+                             "--output_dir", str(tmp_path / device)]) == 0
+        results[device] = json.loads((tmp_path / device / "results.json").read_text())
+    for k in ("mean_centroid_distance", "silhouette_score", "zmod_centroid_distance", "zmod_silhouette_score"):
+        assert abs(results["cuda"][k] - results["cpu"][k]) <= 1e-3 * max(abs(results["cpu"][k]), 1e-2), k
