@@ -164,6 +164,38 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            memory of each CLI, analyze's PCA alone, and eval_batch (bs 32)
            and a bs-8 conditional sample alone (host clock, synchronized),
            switch off and on. It runs after train_parity.
+  dispatch  what binding B1, B4 and B6 as torch.library ops (the serving
+           forwards `medvae::flash_attention`, `medvae::attention_fwd`,
+           `medvae::gn_swish_fwd`) costs: host µs a call of each op against
+           its raw wrapper at a tiny shape (200 calls, then a synchronize; in
+           turns raw, op, op, raw), and both at the main path's shape (events);
+  import224  the serve phase's seeded flagship written as a reference
+           Lightning `.ckpt` (reference names with `model.`, per-head
+           `modality_decoders`, 1x1-conv projectors, loss and discriminator
+           keys, epoch and global_step) and imported by cli/import_ckpt.py
+           with --experiment disentangled_multi_modal_cvae_full: every
+           tensor equal bit for bit, the skipped keys counted, and the
+           imported checkpoint's bucket-32 reconstruct (bf16, the card) equal
+           bit for bit to the serve phase's engine's, with 5 B1 launches;
+           the import's seconds and the .ckpt's bytes;
+  export224  the imported flagship exported by serve/export.py (torch.export;
+           reconstruct at bs 32, sample at bs 8), with MEDVAE_FUSED_GN=0 and
+           then 1, loaded on the card: 5 / 3 medvae.flash_attention nodes and
+           B1 launches, with the switch on 50 / 29 medvae.gn_swish_fwd nodes
+           and B6 launches; each output against the eager engine's (bit for
+           bit expected, bf16 bars of TOLERANCE; the line says which held);
+           export and load seconds, artifact bytes, and the artifact's ms a
+           bucket-32 reconstruct beside the engine's (host clock, median of 5);
+  export128  trainer128's final snapshot (the 128² BaseVAE that eval128
+           reads) exported at bs 8 and run from the artifact: 7 / 4
+           medvae.attention_fwd nodes and B4 launches, outputs against the
+           engine with the same bars; it runs before build/chip_smoke_work
+           is removed;
+  options_parity  one fp32 step card against CPU (same weights, batch and
+           noise; `vae` loss) of the 28² ConditionalVAE with `film` and with
+           `inject`, and of the quick flagship with linear attention: every
+           loss term relative 1e-4, the global gradient relative L2 1e-3,
+           beside a repeat of the card's step (grad_rel_l2_card_repeat).
 Then the card line from nvidia-smi, the kernels line, and
 {"ok": true, "device": {...}} last.
 """
@@ -197,8 +229,9 @@ try:
     from medvae_tpu_torch.cli import analyze as cli_analyze
     from medvae_tpu_torch.cli import evaluate as cli_evaluate
     from medvae_tpu_torch.cli import generate as cli_generate
+    from medvae_tpu_torch.cli import import_ckpt as cli_import_ckpt
     from medvae_tpu_torch.cli import train as cli_train
-    from medvae_tpu_torch.cli.common import load_model, save_checkpoint
+    from medvae_tpu_torch.cli.common import load_checkpoint, load_model, save_checkpoint
     from medvae_tpu_torch.cli.serve import _b64_to_np, _np_to_b64, serve
     from medvae_tpu_torch.config.compose import compose, save_yaml
     from medvae_tpu_torch.config.models import CVAE_BENCH, FLAGSHIP, build_model, init_weights
@@ -215,7 +248,8 @@ try:
     from medvae_tpu_torch.ops import flash_attention as fa
     from medvae_tpu_torch.ops import groupnorm_swish as gs
     from medvae_tpu_torch.ops.attention import reference_attention
-    from medvae_tpu_torch.serve.engine import InferenceEngine
+    from medvae_tpu_torch.serve.engine import InferenceEngine, sample_batch
+    from medvae_tpu_torch.serve.export import GRAPHS, export_model, load_exported, medvae_ops
     from medvae_tpu_torch.utils.visualization import read_png_size
     from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
     from medvae_tpu_torch.train.state import create_train_state
@@ -426,7 +460,7 @@ def phase_kernel() -> dict:
     if not repeat:
         raise AssertionError("flash_fwd (32, 3136, 512): two launches differ")
     del runs
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, want_lse=False))
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v))
     q4, k4, v4 = (t[:, None] for t in (q, k, v))
     library_ms = cuda_ms(
@@ -450,7 +484,7 @@ def phase_kernel() -> dict:
     q, k, v = qkv(32, 784, 1024, torch.bfloat16)
     emit({"phase": "kernel", "gate_shape": [32, 784, 1024], "dtype": "bfloat16",
           "instance": fa.flash_fwd_instance(1024, q.dtype),
-          "kernel_ms": cuda_ms(lambda: fa.flash_attention(q, k, v)),
+          "kernel_ms": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, want_lse=False)),
           "reference_attention_ms": cuda_ms(lambda: reference_attention(q, k, v))})
     return row
 
@@ -2580,6 +2614,320 @@ def phase_eval224(state_dict) -> dict:
     return {"flash_fwd": b1, "gn_swish_fwd": b6}
 
 
+# ------------------------------------------------ import and export ---- #
+
+# keys of a Lightning payload that are not the VAE's: the importer skips them
+IMPORT224_SKIPPED = {"loss.perceptual_loss.net.lin0.weight": (1, 64, 1, 1), "loss.logvar": (1,),
+                     "discriminator.main.0.weight": (64, 3, 4, 4), "discriminator.main.0.bias": (64,)}
+IMPORT224_EXPERIMENT = "disentangled_multi_modal_cvae_full"
+EXPORT224_BATCH = {"reconstruct": 32, "sample": 8}
+EXPORT128_BATCH = 8
+EXPORT_TIMED = 5
+
+
+def lightning_state_dict(state_dict, model) -> dict:
+    """The flagship's weights as the reference's VAELightningModule saves
+    them: `model.`-prefixed reference names, the decoder heads split into
+    per-modality `modality_decoders.{m}.{0,2}` convs, the projectors as 1x1
+    convs (out, in, 1, 1), the unused `modality_embedding`, and the loss and
+    discriminator keys of IMPORT224_SKIPPED."""
+    out = {}
+    for name, t in state_dict.items():
+        t = t.detach().to("cpu", torch.float32)
+        if name.startswith(("heads_conv1.", "heads_conv2.")):
+            seq = "0" if name.startswith("heads_conv1") else "2"
+            for m, part in enumerate(torch.chunk(t, model.num_modalities, dim=0)):
+                out[f"model.modality_decoders.{m}.{seq}.{name.split('.')[-1]}"] = part.clone()
+        elif name.startswith(("in_proj_", "out_proj_")):
+            stem, leaf, m = name.rsplit("_", 2)
+            group = "modality_input_projectors" if stem == "in_proj" else "modality_output_projectors"
+            value = t.t().contiguous()[:, :, None, None] if leaf == "kernel" else t.clone()
+            out[f"model.{group}.{m}.{'weight' if leaf == 'kernel' else 'bias'}"] = value
+        else:
+            out[f"model.{name}"] = t.clone()
+    gen = torch.Generator().manual_seed(5)
+    out["model.modality_embedding.weight"] = torch.randn((model.num_modalities, 64), generator=gen)
+    for name, shape in IMPORT224_SKIPPED.items():
+        out[name] = torch.randn(shape, generator=gen)
+    return out
+
+
+def bf16_bars(got: np.ndarray, want: np.ndarray) -> dict:
+    """An artifact's output against the eager engine's: bit for bit is
+    expected (one graph of the same kernels); the bar is the bf16 one."""
+    tol_abs, tol_rel = TOLERANCE[torch.bfloat16]
+    err, rel = float(np.abs(got - want).max()), rel_l2(got, want)
+    bitwise = bool(np.array_equal(got, want))
+    return {"bitwise": bitwise, "max_abs": err, "rel_l2": rel, "bar_max_abs": tol_abs, "bar_rel_l2": tol_rel,
+            "held": "bitwise" if bitwise else ("bf16 bars" if err <= tol_abs and rel <= tol_rel else "none"),
+            "finite": bool(np.isfinite(got).all()), "shape": list(got.shape)}
+
+
+def phase_import224(engine, state_dict) -> tuple:
+    """The serve phase's seeded flagship written as a reference Lightning
+    `.ckpt` (lightning_state_dict, with `epoch`, `global_step` and pickled
+    hyper-parameters), imported by cli/import_ckpt.py with
+    --experiment disentangled_multi_modal_cvae_full: every imported tensor
+    equal to the seeded one bit for bit, the skipped keys counted, then the
+    imported checkpoint behind InferenceEngine (bf16, the card) against
+    `engine` (built from the same weights): a bucket-32 reconstruct equal
+    bit for bit, with 5 B1 launches. Returns (the imported checkpoint's
+    directory, the launches of that reconstruct)."""
+    work = os.path.join(WORK, "import224")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt = os.path.join(work, "epoch=3-step=1234.ckpt")
+    torch.save({"state_dict": lightning_state_dict(state_dict, engine.model), "epoch": 3,
+                "global_step": 1234, "hyper_parameters": {"model": dict(FLAGSHIP)}}, ckpt)
+    row, printed = cli_run("import224", "import_ckpt", cli_import_ckpt, [
+        "--ckpt", ckpt, "--experiment", IMPORT224_EXPERIMENT, "--output_dir", os.path.join(work, "run")])
+    imported = os.path.join(work, "run", "imported")
+    tensors = load_checkpoint(imported)["state_dict"]
+    unequal = sorted(set(tensors) ^ set(state_dict)) or sorted(
+        k for k in state_dict if not torch.equal(tensors[k], state_dict[k].float().cpu()))
+    row.update(ckpt_bytes=os.path.getsize(ckpt), tensors=len(tensors), tensors_unequal=unequal[:8],
+               printed=[line for line in printed.splitlines() if line.startswith("Imported")])
+    want_print = f"(skipped {len(IMPORT224_SKIPPED) + 1} non-model keys)"
+
+    served = InferenceEngine.from_checkpoint(imported, buckets=(32,), device=CARD)
+    rs = np.random.RandomState(13)
+    res, c = int(engine.model.resolution), int(engine.model.max_channels)
+    x, m = rs.randint(0, 256, (32, res, res, c), np.uint8), (np.arange(32) % 5).astype(np.int32)
+    want = engine.reconstruct(x, modality=m)
+    reset_launches()
+    got = served.reconstruct(x, modality=m)
+    counts = launches()
+    row.update(reconstruct_bucket32=bf16_bars(got, want), reconstruct_launches=counts)
+    emit(row)
+    if unequal or want_print not in printed or not row["reconstruct_bucket32"]["bitwise"] \
+            or counts != want_launches(flash_fwd=PER_CHUNK["reconstruct"]):
+        raise AssertionError(f"import224: {row}")
+    del served
+    return imported, counts
+
+
+def _artifact_bytes(out_dir: str) -> dict:
+    """Bytes of each file of an artifact (the weights live in the .pt2s)."""
+    return {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+
+
+def run_artifact(phase: str, tag: str, model, out_dir: str, batches: dict, inputs: dict, eager: dict,
+                 want_ops: dict, want_counts: dict, engine_ms=None) -> dict:
+    """Export `model` into out_dir (reconstruct and sample at `batches`),
+    load it on the card, and hold it to the eager path: the medvae:: nodes
+    of each graph (want_ops), each graph's output against `eager` (bf16
+    bars, bit for bit expected) and its launches (want_counts) when run
+    once; then the reconstruct artifact's ms a batch beside the engine's
+    (`engine_ms`, host clock, median of EXPORT_TIMED after a warmup).
+    Returns the launches of the checked runs."""
+    t0 = time.perf_counter()
+    meta = export_model(model, out_dir, batch_size=batches["reconstruct"],
+                        sample_batch_size=batches["sample"])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = load_exported(out_dir, CARD)
+    load_s = time.perf_counter() - t0
+    row = {"phase": phase, "artifact": tag, "fused_gn": meta["fused_gn"], "batches": batches,
+           "export_seconds": export_s, "load_seconds": load_s, "artifact_bytes": _artifact_bytes(out_dir),
+           "graph_ops": {g: medvae_ops(art["programs"][g]) for g in GRAPHS}, "want_ops": want_ops}
+    totals = dict.fromkeys(launches(), 0)
+    ok = row["graph_ops"] == want_ops == meta["ops"]
+    for g in GRAPHS:
+        reset_launches()
+        got = art[g](*inputs[g])
+        torch.cuda.synchronize()
+        counts = launches()
+        row[g] = {**bf16_bars(got, eager[g]), "launches": counts, "want_launches": want_counts[g]}
+        ok = ok and row[g]["held"] != "none" and row[g]["finite"] and counts == want_counts[g]
+        for k in totals:
+            totals[k] += counts[k]
+    if engine_ms is not None:
+        times = host_samples_ms(lambda: art["reconstruct"](*inputs["reconstruct"]), reps=EXPORT_TIMED + 1)[1:]
+        engine_times = host_samples_ms(engine_ms, reps=EXPORT_TIMED + 1)[1:]
+        row.update(artifact_ms_per_batch=statistics.median(times), artifact_samples_ms=times,
+                   engine_ms_per_batch=statistics.median(engine_times), engine_samples_ms=engine_times)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{phase} {tag}: {row}")
+    del art
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return totals
+
+
+def phase_export224(ckpt_dir: str) -> dict:
+    """The imported flagship (bf16, the card) exported with torch.export,
+    reconstruct at bs 32 and sample at bs 8, once with MEDVAE_FUSED_GN=0 and
+    once with 1, each artifact loaded and run on the card (run_artifact):
+    5 / 3 medvae.flash_attention nodes and B1 launches, and with the switch
+    on the GroupNorm+SiLU sites (50 / the decoder's) as medvae.gn_swish_fwd
+    nodes and B6 launches; outputs against the eager engine (reconstruct)
+    and the eager sample on the same noise. Returns the launches of the
+    checked runs."""
+    model = load_model(ckpt_dir, CARD)
+    engine = InferenceEngine(model, buckets=(EXPORT224_BATCH["reconstruct"],), device=CARD)
+    rs = np.random.RandomState(14)
+    res, c = int(model.resolution), int(model.max_channels)
+    r, zdim = model.encoder_out_res, model.total_latent_dim
+    n_r, n_s = EXPORT224_BATCH["reconstruct"], EXPORT224_BATCH["sample"]
+    x, m = rs.randint(0, 256, (n_r, res, res, c), np.uint8), (np.arange(n_r) % 5).astype(np.int32)
+    z = rs.randn(n_s, r, r, zdim).astype(np.float32)
+    inputs = {"reconstruct": (x, m), "sample": (z, m[:n_s])}
+    sites = {"reconstruct": gn_swish_sites(model), "sample": gn_swish_sites(model.decoder)}
+    totals = dict.fromkeys(launches(), 0)
+    for switch in (False, True):
+        with fused_gn(switch):
+            with torch.inference_mode():
+                eager = {"reconstruct": engine.reconstruct(x, modality=m),
+                         "sample": sample_batch(model, n_s, torch.from_numpy(m[:n_s]).to(CARD),
+                                                noise=torch.from_numpy(z).to(CARD)).cpu().numpy()}
+            want_ops = {g: {"medvae.flash_attention": PER_CHUNK[g],
+                            **({"medvae.gn_swish_fwd": sites[g]} if switch else {})} for g in GRAPHS}
+            want_counts = {g: want_launches(flash_fwd=PER_CHUNK[g], gn_swish_fwd=sites[g] if switch else 0)
+                           for g in GRAPHS}
+            counts = run_artifact("export224", "fused_gn" if switch else "plain_gn", model,
+                                  os.path.join(WORK, "export224"), EXPORT224_BATCH, inputs, eager, want_ops,
+                                  want_counts, engine_ms=lambda: engine.reconstruct(x, modality=m))
+        for k in totals:
+            totals[k] += counts[k]
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_export128() -> dict:
+    """trainer128's final snapshot (the 128² BaseVAE eval128 reads; bf16,
+    the card) exported at bs 8 and run from the artifact (run_artifact): 7 /
+    4 medvae.attention_fwd nodes and B4 launches in reconstruct / sample,
+    outputs against the engine's reconstruct and the eager sample. Returns
+    the launches of the checked runs."""
+    ckpt = os.path.join(WORK, "whole", "logs", "checkpoints", "chest_base_vae", "chest_base_vae_final")
+    model = load_model(ckpt, CARD)
+    engine = InferenceEngine(model, buckets=(EXPORT128_BATCH,), device=CARD)
+    rs = np.random.RandomState(15)
+    res, r, n = int(model.resolution), model.encoder_out_res, EXPORT128_BATCH
+    x, m = rs.randint(0, 256, (n, res, res, model.input_channels), np.uint8), np.zeros(n, np.int32)
+    z = rs.randn(n, r, r, model.latent_dim).astype(np.float32)
+    with torch.inference_mode():
+        eager = {"reconstruct": engine.reconstruct(x),
+                 "sample": sample_batch(model, n, torch.from_numpy(m).to(CARD),
+                                        noise=torch.from_numpy(z).to(CARD)).cpu().numpy()}
+    per = {"reconstruct": BASE128_PER_CHUNK["reconstruct"], "sample": BASE128_PER_CHUNK["sample"]}
+    totals = run_artifact("export128", "base128", model, os.path.join(WORK, "export128"),
+                          {"reconstruct": n, "sample": n}, {"reconstruct": (x, m), "sample": (z, m)}, eager,
+                          {g: {"medvae.attention_fwd": per[g]} for g in GRAPHS},
+                          {g: want_launches(attention_fwd=per[g]) for g in GRAPHS},
+                          engine_ms=lambda: engine.reconstruct(x))
+    del engine, model
+    gc.collect()
+    return {k: totals[k] for k in at.launches}
+
+
+# configs/model/disentangled_conditional_vae_quick.yaml with linear attention
+# at its attention sites (the two mid blocks) and without dropout (the two
+# devices' generators draw different masks)
+FLAGSHIP28_LINEAR = {**FLAGSHIP, "latent_dim": 16, "shared_latent_dim": 8, "modality_latent_dim": 8,
+                     "hidden_channels": 32, "ch_mult": [1, 2, 4], "num_res_blocks": 1,
+                     "attn_resolutions": [], "dropout": 0.0, "resolution": 28, "use_linear_attn": True}
+OPTIONS_PARITY = {"cvae28_film": {**CVAE_BENCH, "condition_method": "film"},
+                  "cvae28_inject": {**CVAE_BENCH, "condition_method": "inject"},
+                  "flagship28_linear_attn": FLAGSHIP28_LINEAR}
+OPTIONS_PARITY_BARS = {"loss_rel_bar": 1e-4, "grad_rel_l2_bar": 1e-3}
+
+
+def phase_options_parity() -> None:
+    """The model options a reference checkpoint can carry, one fp32 step
+    each card against CPU (same weights from seed 0, batch and noise, the
+    vae loss, no augment, MEDVAE_FUSED_GN off): the 28² ConditionalVAE with
+    `film` and with `inject`, the quick flagship with linear attention. Every
+    loss term relative 1e-4, the global gradient relative L2 1e-3, and the
+    card's step repeated (grad_rel_l2_card_repeat)."""
+    for tag, cfg in OPTIONS_PARITY.items():
+        cpu_model = init_weights(build_model(cfg, "fp32", "cpu", train=True), seed=0)
+        state_dict = cpu_model.state_dict()
+        batch = bench.synthetic_batch(CVAE_PARITY_BATCH, int(cfg["resolution"]), "cpu")
+        r, latent = cpu_model.encoder_out_res, cpu_model.latent_dim
+        batch["noise"] = torch.from_numpy(
+            np.random.RandomState(9).randn(CVAE_PARITY_BATCH, r, r, latent).astype(np.float32))
+
+        def loss_and_grads(device):
+            model = build_model(cfg, "fp32", device, train=True)
+            model.load_state_dict(state_dict)
+            state = create_train_state(model, build_optimizer({"type": "adam", "lr": 1e-3}, {"type": "constant"}))
+            fn = build_loss_and_grads(model, CVAE_LOSS, augment=False, max_channels=3)
+            losses, grads = fn(state, {k: v.to(device) for k, v in batch.items()})
+            return ({k: float(v) for k, v in losses.items()},
+                    dict(zip(state.params, (g.float().cpu() for g in grads))))
+
+        card, card_grads = loss_and_grads(CARD)
+        _, repeat_grads = loss_and_grads(CARD)
+        cpu, cpu_grads = loss_and_grads("cpu")
+
+        def grad_rel(a, b):
+            diff = torch.sqrt(sum(((a[k] - b[k]).double() ** 2).sum() for k in b))
+            return float(diff / torch.sqrt(sum((v.double() ** 2).sum() for v in b.values())))
+
+        loss_rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
+        row = {"phase": "options_parity", "model": tag, "batch": CVAE_PARITY_BATCH,
+               "params": sum(v.numel() for v in state_dict.values()),
+               "fp32_card_losses": card, "fp32_cpu_losses": cpu, "loss_rel": loss_rel,
+               "grad_global_rel_l2": grad_rel(card_grads, cpu_grads),
+               "grad_rel_l2_card_repeat": grad_rel(repeat_grads, card_grads), **OPTIONS_PARITY_BARS}
+        emit(row)
+        if not (max(loss_rel.values()) <= OPTIONS_PARITY_BARS["loss_rel_bar"]
+                and row["grad_global_rel_l2"] <= OPTIONS_PARITY_BARS["grad_rel_l2_bar"]):
+            raise AssertionError(f"options_parity {tag} out of bars: {row}")
+
+
+def phase_dispatch() -> dict:
+    """What binding B1, B4 and B6 as torch.library ops costs the host: the
+    per-call time of each op against its raw wrapper at a tiny shape (the
+    kernel short, the host setting the pace: 200 calls, then a
+    synchronize; in turns raw, op, op, raw), and both at the main path's
+    shape (CUDA events, median of REPS). Returns {op: row}."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def gn_args(b, c, h, w):
+        return (rand(b, c, h, w), torch.rand(c, generator=gen, device="cuda") + 0.5,
+                torch.randn(c, generator=gen, device="cuda"), 32, 1e-6)
+
+    cases = {
+        "flash_attention": (fa.flash_attention, lambda *a: fa.flash_attention_fwd(*a, want_lse=False)[0],
+                            [rand(1, 128, 128) for _ in range(3)], [rand(32, 3136, 512) for _ in range(3)]),
+        "attention_fwd": (at.attention_fwd, at.fused_attention_fwd,
+                          [rand(1, 128, 64) for _ in range(3)], [rand(64, 256, 1024) for _ in range(3)]),
+        "gn_swish_fwd": (gs.gn_swish_fwd, lambda *a: gs.group_norm_swish_fwd(*a)[0],
+                         gn_args(1, 32, 8, 8), gn_args(4096, 32, 28, 28)),
+    }
+
+    def per_call_us(fn, args, n: int = 200) -> float:
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    rows = {}
+    for name, (op, raw, tiny, main_args) in cases.items():
+        raw_a, op_a, op_b, raw_b = (per_call_us(f, tiny) for f in (raw, op, op, raw))
+        raw_us, op_us = (raw_a + raw_b) / 2, (op_a + op_b) / 2
+        same = torch.equal(op(*main_args), raw(*main_args))
+        rows[name] = {"phase": "dispatch", "op": f"medvae::{name}", "tiny_shape": list(tiny[0].shape),
+                      "raw_us_per_call": raw_us, "op_us_per_call": op_us, "dispatch_us": op_us - raw_us,
+                      "raw_us_turns": [raw_a, raw_b], "op_us_turns": [op_a, op_b],
+                      "main_shape": list(main_args[0].shape), "raw_ms": cuda_ms(lambda: raw(*main_args)),
+                      "op_ms": cuda_ms(lambda: op(*main_args)), "op_equals_raw": same}
+        emit(rows[name])
+        if not same:
+            raise AssertionError(f"dispatch: {name}'s op and raw wrapper differ at {rows[name]['main_shape']}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -2591,6 +2939,7 @@ def main() -> int:
     backward = phase_backward()
     gn_kernel = phase_gn_kernel()
     attn_kernel = phase_attn_kernel()
+    dispatch = phase_dispatch()
     bf16_engine, fp32_engine, cpu_engine = build_engines()
     state_dict = cpu_engine.model.state_dict()
     serve_launches = phase_serve(bf16_engine)
@@ -2598,7 +2947,11 @@ def main() -> int:
     phase_http(bf16_engine)
     phase_profile(bf16_engine)
     fused_serve_launches = phase_flagship_fused_serve(bf16_engine)
+    imported, import224_launches = phase_import224(bf16_engine, state_dict)
     del bf16_engine, fp32_engine, cpu_engine
+    gc.collect()
+    export224_launches = phase_export224(imported)
+    shutil.rmtree(os.path.join(WORK, "import224"), ignore_errors=True)
     train_launches = phase_train(state_dict)
     fused_train_launches = phase_flagship_fused_train(state_dict)
     phase_train_parity(state_dict)
@@ -2614,10 +2967,12 @@ def main() -> int:
     phase_base128_parity(cfg, base128_weights)
     attn_launches["trainer128"] = phase_trainer128()
     attn_launches["eval128"] = phase_eval128()
+    attn_launches["export128"] = phase_export128()
     shutil.rmtree(WORK, ignore_errors=True)
     gan_launches = {"gan224_train": phase_gan224_train()}
     phase_gan_parity()
     gan_launches["gan_trainer"] = phase_gan_trainer()
+    phase_options_parity()
     print(smi, flush=True)
     source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
               "flash_bwd (B2: dK, dV)": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -2638,6 +2993,10 @@ def main() -> int:
     fwd.update(launches=serve_launches + train_launches["flash_fwd"],
                launches_serve=serve_launches, launches_train=train_launches["flash_fwd"],
                launches_eval224=eval224_launches["flash_fwd"],
+               launches_import224=import224_launches["flash_fwd"],
+               launches_export224=export224_launches["flash_fwd"],
+               op_ms=dispatch["flash_attention"]["op_ms"],
+               dispatch_us=dispatch["flash_attention"]["dispatch_us"],
                ms_with_lse=backward["flash_fwd_lse"]["ms"],
                plain_ms_with_lse=backward["flash_fwd_lse"]["plain_ms"],
                bound_ms_with_lse=backward["flash_fwd_lse"]["bound_ms"],
@@ -2662,7 +3021,10 @@ def main() -> int:
                      "launches_flagship_fused_serve": fused_serve_launches[name],
                      "launches_flagship_fused_train": fused_train_launches[name],
                      **{f"launches_{path}": c[name] for path, c in gan_launches.items()},
-                     **({"launches_eval224_fused": eval224_launches["gn_swish_fwd"]}
+                     **({"launches_eval224_fused": eval224_launches["gn_swish_fwd"],
+                         "launches_export224": export224_launches["gn_swish_fwd"],
+                         "op_ms": dispatch["gn_swish_fwd"]["op_ms"],
+                         "dispatch_us": dispatch["gn_swish_fwd"]["dispatch_us"]}
                         if name == "gn_swish_fwd" else {}),
                      **{k: r[k] for k in ("instance", "max_abs_err", "ms", "device_ms", "plain_ms",
                                           "bound_ms", "bound_by", "streamed_ms", "streamed_device_ms",
@@ -2673,6 +3035,9 @@ def main() -> int:
         # trainer through cli/train.py), each counted from 0 around its run
         rows.append({"name": name, "launches": sum(c[name] for c in attn_launches.values()),
                      **{f"launches_{path}": c[name] for path, c in attn_launches.items()},
+                     **({"op_ms": dispatch["attention_fwd"]["op_ms"],
+                         "dispatch_us": dispatch["attention_fwd"]["dispatch_us"]}
+                        if name == "attention_fwd" else {}),
                      **{k: r[k] for k in ("instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "bound_fp32_products_ms", "fma_instance_ms", "library_ms",
                                           "library", "shape")}})

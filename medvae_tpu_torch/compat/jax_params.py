@@ -14,7 +14,12 @@ SimpleCLIPEncoder, CLIPViT, whose module names are the JAX package's):
     medvae_tpu/compat/torch_import.py:46-62: `down_{i}_block_{j}` ->
     `down.{i}.block.{j}`, `down_{i}_attn_{j}` -> `down.{i}.attn.{j}`,
     `down_{i}_downsample` -> `down.{i}.downsample`, `mid_block_1` ->
-    `mid.block_1`, `mid_attn_1` -> `mid.attn_1`; `up_…` alike;
+    `mid.block_1`, `mid_attn_1` -> `mid.attn_1`; `up_…` alike; a linear
+    attention block's `attn/to_qkv` and `attn/to_out` lose the `attn`
+    (the reference's LinAttnBlock is a LinearAttention);
+  * the ConditionalVAE's conditioning keeps the flax names: `temb_proj` in
+    the encoder's res blocks, `film_{i}.{scale,shift}_transform`,
+    `condition_embedding.layers_{0,2}` (Dense kernels, as above);
   * top-level params keep the JAX package's names and layout: the VAE's
     projectors (`in_proj_kernel_{m}`, …), LPIPS's `lin{i}`, CLIP's
     `class_embedding`, `positional_embedding` and `proj` (a plain (in, out)
@@ -78,7 +83,10 @@ def _target(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[str]]:
     if not mods:  # top-level params keep their names
         return leaf, None
     if mods[0] in ("encoder", "decoder") and len(mods) > 1:
-        mods = [mods[0], *_codec_module(mods[1]), *mods[2:]]
+        rest = mods[2:]
+        if "attn" in mods[1] and rest[:1] == ["attn"]:
+            rest = rest[1:]  # LinAttnBlock's LinearAttention, a flax submodule, is its torch base class
+        mods = [mods[0], *_codec_module(mods[1]), *rest]
     if leaf == "kernel" and ndim in (2, 4):
         return ".".join([*mods, "weight"]), "conv" if ndim == 4 else "dense"
     if leaf == "scale":

@@ -49,7 +49,7 @@ CVAE_BENCH: Dict[str, Any] = {
 
 _CODEC_KEYS = (
     "hidden_channels", "ch_mult", "num_res_blocks", "attn_resolutions", "resolution", "double_z",
-    "dropout",
+    "dropout", "use_linear_attn", "attn_type",
 )
 _BASE_KEYS = ("input_channels", "latent_dim") + _CODEC_KEYS
 # class name -> (class, config keys its constructor takes, keys read elsewhere
@@ -93,9 +93,7 @@ def build_model(
     if target not in _MODELS:
         raise NotImplementedError(f"model {target} is not ported yet")
     cls, keys, unused = _MODELS[target]
-    if cfg.get("use_linear_attn") or cfg.get("attn_type", "vanilla") != "vanilla":
-        raise NotImplementedError("linear attention is not ported yet")
-    unknown = set(cfg) - set(keys) - set(unused) - {"_target_", "use_linear_attn", "attn_type"}
+    unknown = set(cfg) - set(keys) - set(unused) - {"_target_"}
     if unknown:
         raise ValueError(f"unknown {target} config keys: {sorted(unknown)}")
     compute_dtype = compute_dtype_for(precision)
@@ -127,7 +125,8 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
             module.bias.zero_()
         elif isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
             normal(module.weight, module.weight[0].numel())
-            module.bias.zero_()
+            if module.bias is not None:  # linear attention's to_qkv has none
+                module.bias.zero_()
     for p in model.parameters(recurse=False):  # projector (in, out) kernels, biases
         if p.dim() == 2:
             normal(p, p.shape[0])

@@ -34,10 +34,15 @@ class BaseVAE(nn.Module):
         resolution: int = 224,
         double_z: bool = True,
         dropout: float = 0.0,
+        use_linear_attn: bool = False,
+        attn_type: str = "vanilla",
         encoder_in_channels: Optional[int] = None,
+        encoder_temb_channels: int = 0,
     ):
         """`encoder_in_channels`: the width the encoder takes when it is not
-        the image's (the concat ConditionalVAE's 2·C)."""
+        the image's (the concat ConditionalVAE's 2·C); `encoder_temb_channels`:
+        the width of the temb its res blocks take (the inject ConditionalVAE's
+        512), 0 for none."""
         super().__init__()
         self.input_channels = int(input_channels)
         self.latent_dim = int(latent_dim)
@@ -53,6 +58,9 @@ class BaseVAE(nn.Module):
             ch_mult=self.ch_mult,
             double_z=double_z,
             dropout=dropout,
+            use_linear_attn=use_linear_attn,
+            attn_type=attn_type,
+            temb_channels=encoder_temb_channels,
         )
         self.decoder = Decoder(
             ch=hidden_channels,
@@ -63,6 +71,8 @@ class BaseVAE(nn.Module):
             z_channels=self.latent_dim,
             ch_mult=self.ch_mult,
             dropout=dropout,
+            use_linear_attn=use_linear_attn,
+            attn_type=attn_type,
         )
 
     @property
@@ -73,15 +83,18 @@ class BaseVAE(nn.Module):
     def dtype(self) -> torch.dtype:
         """The compute dtype: the convs' `compute_dtype` when set (fp32
         params for training), else the dtype their weights are stored in."""
-        conv = self.encoder.conv_in
+        conv = self.decoder.conv_in
         return conv.compute_dtype or conv.weight.dtype
 
     def encode(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+        temb: Optional[torch.Tensor] = None,
+        film: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC image -> (mean, logvar), each NHWC, split on channels;
-        `generator` draws the dropout masks in train mode."""
-        h = to_nhwc(self.encoder(to_nchw(x), generator))
+        `generator` draws the dropout masks in train mode; `temb` and `film`
+        condition the encoder (nn/encoder_decoder.py)."""
+        h = to_nhwc(self.encoder(to_nchw(x), generator, temb, film))
         mean, logvar = torch.chunk(h, 2, dim=-1)
         return mean, logvar
 
@@ -128,7 +141,7 @@ class BaseVAE(nn.Module):
         """Decode a prior draw of the spatial latent (NHWC); `noise` replaces
         the draw from `generator` (medvae_tpu/models/base_vae.py:152-156)."""
         r = self.encoder_out_res
-        dev = self.encoder.conv_in.weight.device
+        dev = self.decoder.conv_in.weight.device
         if noise is None:
             noise = torch.randn(
                 (num_samples, r, r, self.latent_dim),

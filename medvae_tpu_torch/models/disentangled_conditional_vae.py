@@ -49,6 +49,8 @@ class DisentangledConditionalVAE(BaseVAE):
         resolution: int = 224,
         double_z: bool = True,
         dropout: float = 0.0,
+        use_linear_attn: bool = False,
+        attn_type: str = "vanilla",
     ):
         chans = tuple(MODALITY_CHANNEL_MAP.get(m, 3) for m in range(num_modalities))
         # the base VAE runs at max_channels and the total latent
@@ -58,6 +60,7 @@ class DisentangledConditionalVAE(BaseVAE):
             hidden_channels=hidden_channels, ch_mult=ch_mult,
             num_res_blocks=num_res_blocks, attn_resolutions=attn_resolutions,
             resolution=resolution, double_z=double_z, dropout=dropout,
+            use_linear_attn=use_linear_attn, attn_type=attn_type,
         )
         self.num_modalities = int(num_modalities)
         self.shared_latent_dim = int(shared_latent_dim)

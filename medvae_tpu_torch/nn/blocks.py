@@ -2,14 +2,16 @@
 
 NCHW inside, as PyTorch's convolutions want. Module and parameter names follow
 the reference torch layout (norm1/conv1/norm2/conv2/nin_shortcut, norm/q/k/v/
-proj_out) so that state_dicts line up with it.
+proj_out, to_qkv/to_out) so that state_dicts line up with it.
 
 Numerics follow the JAX blocks: a conv casts its input, weight and bias to the
 compute dtype, like a flax Conv with `dtype=` set; GroupNorm(min(32, C), eps
 1e-6) computes in fp32 with fp32 affine params and is cast back to the
 activation dtype. The compute dtype is a conv's `compute_dtype` attribute
 when set (training: fp32 params cast at every call, as flax does) and else
-the dtype its weight is stored in (serving: weights pre-cast once).
+the dtype its weight is stored in (serving: weights pre-cast once). A
+Linear of the trunk or the conditioning (`dense`) computes in the dtype its
+caller names, as a flax Dense with `dtype=` does.
 """
 
 from __future__ import annotations
@@ -82,17 +84,31 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`linear` with its input, weight and bias cast to `dtype`, as a flax
+    Dense with `dtype=` computes."""
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return F.linear(x.to(dtype), linear.weight.to(dtype), bias)
+
+
 class ResnetBlock(nn.Module):
     """GN -> swish -> 3x3 conv, twice, plus a 1x1 nin shortcut on a channel
     change. Dropout at `dropout` before the second conv in train mode, where
-    medvae_tpu/nn/blocks.py:140 places it; off in eval mode."""
+    medvae_tpu/nn/blocks.py:140 places it; off in eval mode. With
+    `temb_channels` it owns `temb_proj`, and a temb given to forward adds
+    Dense(swish(temb)) after conv1 (medvae_tpu/nn/blocks.py:134-137); flax
+    creates that Dense only where a temb is passed, so only the encoder of
+    the `inject` ConditionalVAE builds it."""
 
-    def __init__(self, in_channels: int, out_channels: int | None = None, dropout: float = 0.0):
+    def __init__(self, in_channels: int, out_channels: int | None = None, dropout: float = 0.0,
+                 temb_channels: int = 0):
         super().__init__()
         out_channels = out_channels or in_channels
         self.dropout = float(dropout)
         self.norm1 = GroupNorm(in_channels)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        if temb_channels:
+            self.temb_proj = nn.Linear(temb_channels, out_channels)
         self.norm2 = GroupNorm(out_channels)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
@@ -100,8 +116,13 @@ class ResnetBlock(nn.Module):
         else:
             self.nin_shortcut = None
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None,
+        temb: torch.Tensor | None = None,
+    ) -> torch.Tensor:
         h = self.conv1(norm_swish(self.norm1, x))
+        if temb is not None:
+            h = h + dense(self.temb_proj, swish(temb), h.dtype)[:, :, None, None]
         h = norm_swish(self.norm2, h)
         if self.dropout and self.training:
             h = dropout(h, self.dropout, generator)
@@ -141,6 +162,49 @@ class AttnBlock(nn.Module):
         out = attention(q, k, v).to(x.dtype)
         out = self._linear(self.proj_out, out)
         return x + out.transpose(1, 2).reshape(b, c, hh, ww)
+
+
+class LinearAttention(nn.Module):
+    """O(n) attention (medvae_tpu/nn/blocks.py:198-225, the reference's
+    LinearAttention): a bias-free 1x1 `to_qkv`, the keys' softmax over the
+    token axis in fp32, context = k·vᵀ then out = context·q (each product
+    accumulated in fp32 and cast to the input's dtype), and a 1x1 `to_out`.
+    Channels split as (qkv, head, d), the reference's rearrange."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = int(heads), int(dim_head)
+        hidden = self.heads * self.dim_head
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = Conv2d(hidden, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, hh, ww = x.shape
+        qkv = self.to_qkv(x).reshape(b, 3, self.heads, self.dim_head, hh * ww)
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # (b, heads, d, n)
+        k = torch.softmax(k.float(), dim=-1).to(x.dtype)
+        context = torch.matmul(k.float(), v.float().transpose(-1, -2)).to(x.dtype)  # (b, h, d, e)
+        out = torch.matmul(context.float().transpose(-1, -2), q.float()).to(x.dtype)  # (b, h, e, n)
+        return self.to_out(out.reshape(b, self.heads * self.dim_head, hh, ww))
+
+
+class LinAttnBlock(LinearAttention):
+    """Single-head linear attention with dim_head = C, no norm and no
+    residual (medvae_tpu/nn/blocks.py:228-242). A subclass, as in the
+    reference, so its keys are `to_qkv`/`to_out` directly; flax nests them
+    under `attn`, which compat/jax_params.py drops."""
+
+    def __init__(self, in_channels: int):
+        super().__init__(in_channels, heads=1, dim_head=in_channels)
+
+
+def make_attn(in_channels: int, attn_type: str = "vanilla") -> nn.Module:
+    """The attention block of every attention site (medvae_tpu/nn/blocks.py:245-256)."""
+    if attn_type == "vanilla":
+        return AttnBlock(in_channels)
+    if attn_type == "linear":
+        return LinAttnBlock(in_channels)
+    raise NotImplementedError(f"Attention type {attn_type} not implemented")
 
 
 class Downsample(nn.Module):

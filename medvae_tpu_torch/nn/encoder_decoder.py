@@ -8,37 +8,43 @@ res block whose resolution is in `attn_resolutions`. The encoder's
 `in_channels` is the width of what it is given: 2·C for the concat
 ConditionalVAE, whose flax conv infers it from the input. Every res block
 takes `dropout`, drawing its masks from the `generator` passed to forward.
-FiLM, temb and remat are not ported yet.
+Every attention site, the mid block's included, takes `make_attn`'s block
+for `attn_type` ("linear" when `use_linear_attn`). The encoder takes the
+ConditionalVAE's conditioning as the JAX Encoder does
+(medvae_tpu/nn/encoder_decoder.py:95-166): a `temb` for every down and mid
+res block (built with `temb_channels`), or `film`, one (scale, shift) pair
+a level applied after the level's blocks and before its downsample. The
+decoder takes neither. Remat is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
 
 from medvae_tpu_torch.nn.blocks import (
-    AttnBlock,
     Conv2d,
     Downsample,
     GroupNorm,
     ResnetBlock,
     Upsample,
+    make_attn,
     norm_swish,
 )
 
 
-def _mid(channels: int, dropout: float) -> nn.Module:
+def _mid(channels: int, dropout: float, attn_type: str, temb_channels: int = 0) -> nn.Module:
     mid = nn.Module()
-    mid.block_1 = ResnetBlock(channels, channels, dropout)
-    mid.attn_1 = AttnBlock(channels)
-    mid.block_2 = ResnetBlock(channels, channels, dropout)
+    mid.block_1 = ResnetBlock(channels, channels, dropout, temb_channels)
+    mid.attn_1 = make_attn(channels, attn_type)
+    mid.block_2 = ResnetBlock(channels, channels, dropout, temb_channels)
     return mid
 
 
-def _run_mid(mid: nn.Module, h: torch.Tensor, generator) -> torch.Tensor:
-    return mid.block_2(mid.attn_1(mid.block_1(h, generator)), generator)
+def _run_mid(mid: nn.Module, h: torch.Tensor, generator, temb=None) -> torch.Tensor:
+    return mid.block_2(mid.attn_1(mid.block_1(h, generator, temb)), generator, temb)
 
 
 class Encoder(nn.Module):
@@ -54,8 +60,12 @@ class Encoder(nn.Module):
         ch_mult: Sequence[int] = (1, 2, 4, 8),
         double_z: bool = True,
         dropout: float = 0.0,
+        use_linear_attn: bool = False,
+        attn_type: str = "vanilla",
+        temb_channels: int = 0,
     ):
         super().__init__()
+        attn_type = "linear" if use_linear_attn else attn_type
         self.num_res_blocks = num_res_blocks
         self.conv_in = Conv2d(in_channels, ch, 3, padding=1)
         in_ch_mult = (1,) + tuple(ch_mult)
@@ -68,29 +78,38 @@ class Encoder(nn.Module):
             block_in = ch * in_ch_mult[i_level]
             block_out = ch * mult
             for _ in range(num_res_blocks):
-                level.block.append(ResnetBlock(block_in, block_out, dropout))
+                level.block.append(ResnetBlock(block_in, block_out, dropout, temb_channels))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    level.attn.append(AttnBlock(block_in))
+                    level.attn.append(make_attn(block_in, attn_type))
             if i_level != len(ch_mult) - 1:
                 level.downsample = Downsample(block_in)
                 curr_res //= 2
             self.down.append(level)
-        self.mid = _mid(block_in, dropout)
+        self.mid = _mid(block_in, dropout, attn_type, temb_channels)
         self.norm_out = GroupNorm(block_in)
         out_channels = 2 * z_channels if double_z else z_channels
         self.conv_out = Conv2d(block_in, out_channels, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None,
+        temb: torch.Tensor | None = None,
+        film: Sequence[Tuple[torch.Tensor, torch.Tensor]] | None = None,
+    ) -> torch.Tensor:
+        """`temb`: (b, temb_channels); `film`: a (scale, shift) pair of
+        (b, C_level) a level."""
         h = self.conv_in(x)
-        for level in self.down:
+        for i_level, level in enumerate(self.down):
             for j, block in enumerate(level.block):
-                h = block(h, generator)
+                h = block(h, generator, temb)
                 if len(level.attn):
                     h = level.attn[j](h)
+            if film is not None:
+                scale, shift = film[i_level]
+                h = h * scale[:, :, None, None].to(h.dtype) + shift[:, :, None, None].to(h.dtype)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
-        h = _run_mid(self.mid, h, generator)
+        h = _run_mid(self.mid, h, generator, temb)
         return self.conv_out(norm_swish(self.norm_out, h))
 
 
@@ -106,13 +125,16 @@ class Decoder(nn.Module):
         z_channels: int,
         ch_mult: Sequence[int] = (1, 2, 4, 8),
         dropout: float = 0.0,
+        use_linear_attn: bool = False,
+        attn_type: str = "vanilla",
     ):
         super().__init__()
+        attn_type = "linear" if use_linear_attn else attn_type
         num_levels = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (num_levels - 1)
         self.conv_in = Conv2d(z_channels, block_in, 3, padding=1)
-        self.mid = _mid(block_in, dropout)
+        self.mid = _mid(block_in, dropout, attn_type)
         levels = {}
         for i_level in reversed(range(num_levels)):
             level = nn.Module()
@@ -123,7 +145,7 @@ class Decoder(nn.Module):
                 level.block.append(ResnetBlock(block_in, block_out, dropout))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    level.attn.append(AttnBlock(block_in))
+                    level.attn.append(make_attn(block_in, attn_type))
             if i_level != 0:
                 level.upsample = Upsample(block_in)
                 curr_res *= 2

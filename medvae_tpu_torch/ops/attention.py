@@ -11,9 +11,10 @@ medvae_tpu/ops/flash_attention.py:47-57,118-142.
 on a TPU:
   * `uses_fused(n, c)`, the whole-sequence envelope (n >= 128, c >= 64 and the
     TPU's VMEM estimate within 10 MiB): `FusedAttention` under autograd (B4,
-    then B5 backward), else the B4 wrapper `fused_attention_fwd`;
+    then B5 backward), else the op `medvae::attention_fwd` (B4);
   * `uses_flash(n, c)`, past that envelope: `FlashAttention` (B1 with lse,
-    B2, B3) under autograd, else B1's serving launch;
+    B2, B3) under autograd, else the op `medvae::flash_attention` (B1's
+    serving launch);
   * everything else: `reference_attention`, which differentiates through
     autograd.
 The gates are kept for routing parity (the same blocks take the same path in
@@ -29,7 +30,10 @@ n <= 256, every shape of the main path, takes the Hopper instance
 other shape, and fp32, the FMA instance ("fma"). On CUDA tensors the wrappers
 launch their kernel or raise; they use the plain PyTorch versions only for
 tensors on the CPU. Each call adds one to its kernel's count in `launches`
-(one for B5, which takes two CUDA launches).
+(one for B5, which takes two CUDA launches). The serving forward is the
+torch.library op `medvae::attention_fwd` (`attention_fwd`), so that
+torch.export keeps it as one node; the training Function calls the raw
+wrappers.
 """
 
 from __future__ import annotations
@@ -266,6 +270,20 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return out
 
 
+@torch.library.custom_op("medvae::attention_fwd", mutates_args=(), device_types=("cpu", "cuda"))
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """B4 as the op `medvae::attention_fwd`, the serving forward: one node of
+    a torch.export graph. Its kernel is `fused_attention_fwd` on contiguous
+    copies of the operands (B4's launch on the card, raising, counted; the
+    plain version on the CPU), as `flash_attention`'s is."""
+    return fused_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
 def fused_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -301,7 +319,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     _, n, c = q.shape
     training = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     if uses_fused(n, c):
-        return FusedAttention.apply(q, k, v) if training else fused_attention_fwd(q, k, v)
+        return FusedAttention.apply(q, k, v) if training else attention_fwd(q, k, v)
     if uses_flash(n, c):
         return FlashAttention.apply(q, k, v) if training else flash_attention(q, k, v)
     return reference_attention(q, k, v)

@@ -20,7 +20,11 @@ The kernels are built by ops/_build.py at first use.
 
 Every wrapper takes (b, n, c) tensors. On CUDA tensors it launches its kernel
 (bf16 or fp32) or raises; it uses the plain PyTorch version only for tensors on
-the CPU. Each launch adds one to that kernel's count in `launches`.
+the CPU. Each launch adds one to that kernel's count in `launches`. The
+serving forward, `flash_attention`, is the torch.library op
+`medvae::flash_attention`, so that torch.export keeps it as one node with a
+fake (shape-only) implementation; the training Function calls the raw
+wrappers.
 """
 
 from __future__ import annotations
@@ -182,10 +186,22 @@ def flash_fwd_instance(c: int, dtype: torch.dtype) -> str:
     return "wgmma_tma" if fn(int(c)) else "mma_sync"
 
 
+@torch.library.custom_op("medvae::flash_attention", mutates_args=(), device_types=("cpu", "cuda"))
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q·kᵀ·c^-½)·v for (b, n, c) q, k, v through kernel B1, with no
-    lse (the serving launch) and no gradient."""
-    return flash_attention_fwd(q, k, v, want_lse=False)[0]
+    lse (the serving launch) and no gradient: the op `medvae::flash_attention`,
+    one node of a torch.export graph. Its kernel is `flash_attention_fwd` on
+    contiguous copies of the operands: B1's launch on the card (raising where
+    B1 does not take them, counted in `launches` when a graph runs), the
+    plain version on the CPU. A graph's run may hand the op other strides
+    than its trace saw (ops/groupnorm_swish.py:gn_swish_fwd), hence the
+    copies; the output is contiguous."""
+    return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), want_lse=False)[0]
+
+
+@flash_attention.register_fake
+def _flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 # ------------------------------------------------------------- B2, B3 ---- #

@@ -10,7 +10,9 @@ Counterparts of medvae_tpu/ops/groupnorm_swish.py:
     over batch and space in a fixed order (no atomics), so a step is
     repeatable bit for bit;
   * the `jax.custom_vjp` -> `GroupNormSwish` (saves x, γ, β and the stats);
-  * `fused_group_norm_swish_or_none` -> the same name, the gate.
+  * `fused_group_norm_swish_or_none` -> the same name, the gate; without
+    autograd it calls B6 as the torch.library op `medvae::gn_swish_fwd`
+    (`gn_swish_fwd`), which torch.export keeps as one node.
 The kernels are built by ops/_build.py at first use. `gn_swish_plan` picks
 how they run at a shape (the instance: a group resident in one block's shared
 memory, spread over a thread-block cluster, or streamed from device memory
@@ -415,6 +417,26 @@ def group_norm_swish_bwd(
     return dx, dgamma, dbeta
 
 
+@torch.library.custom_op("medvae::gn_swish_fwd", mutates_args=(), device_types=("cpu", "cuda"))
+def gn_swish_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                 eps: float) -> torch.Tensor:
+    """B6 without its statistics as the op `medvae::gn_swish_fwd`, the
+    serving forward: one node of a torch.export graph. Its kernel is
+    `group_norm_swish_fwd` on a contiguous copy of x: on the card it plans
+    (`plan_for`), allocates the workspace and launches B6 inside the op
+    (raising, counted), so no host-side state is an argument; on the CPU it
+    is the plain version. The copy: an exported graph keeps the eager path's
+    `x.contiguous()` only where the trace's fake x was not contiguous, and
+    on the card the 224² flagship's graph handed the op a non-contiguous x."""
+    return group_norm_swish_fwd(x.contiguous(), weight, bias, num_groups, eps)[0]
+
+
+@gn_swish_fwd.register_fake
+def _gn_swish_fwd_fake(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                       eps: float) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
 class GroupNormSwish(torch.autograd.Function):
     """silu(group_norm(x)·γ + β) with B6 forward and B7 backward: the port of
     the JAX package's custom_vjp (medvae_tpu/ops/groupnorm_swish.py:87-103),
@@ -439,8 +461,8 @@ class GroupNormSwish(torch.autograd.Function):
 def fused_group_norm_swish_or_none(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
 ) -> Optional[torch.Tensor]:
-    """(b, c, h, w) → silu(group_norm(x)·γ + β) through B6 (and B7 under
-    autograd), or None, the caller's cue to take the plain GroupNorm → cast →
+    """(b, c, h, w) → silu(group_norm(x)·γ + β) through B6 (the op, or the
+    Function with B7 under autograd), or None, the caller's cue to take the plain GroupNorm → cast →
     SiLU path. Opt-in, as in the JAX package: only with MEDVAE_FUSED_GN=1, read
     at every call as the JAX gate reads it, and only where c splits into the
     groups. The TPU gate's h·w·c cap (medvae_tpu/ops/groupnorm_swish.py:81-83)
@@ -452,4 +474,4 @@ def fused_group_norm_swish_or_none(
     x = x.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
         return GroupNormSwish.apply(x, weight, bias, num_groups, eps)
-    return group_norm_swish_fwd(x, weight, bias, num_groups, eps)[0]
+    return gn_swish_fwd(x, weight, bias, num_groups, eps)

@@ -8,7 +8,7 @@
   * every model family, as the JAX engine dispatches them
     (medvae_tpu/serve/engine.py:93-94,110-146,213-250): the flagship
     DisentangledConditionalVAE takes modality indices and routes its heads;
-    the ConditionalVAE takes a one-hot of `_cond_width` and decodes and
+    the ConditionalVAE takes a one-hot of `cond_width` and decodes and
     samples unconditionally; Base and Beta take no condition;
   * `MicroBatcher` coalesces concurrent single-image requests.
 
@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES, modality_index
 from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
@@ -53,6 +54,60 @@ def resolve_device(device) -> torch.device:
             "InferenceEngine: no CUDA device; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def input_channels(model) -> int:
+    """The channels of the images a model takes (the flagship's max_channels)."""
+    return int(model.max_channels if isinstance(model, DisentangledConditionalVAE)
+               else model.input_channels)
+
+
+def latent_dim(model) -> int:
+    """The channels of a model's spatial latent (the flagship's shared +
+    modality)."""
+    return int(model.total_latent_dim if isinstance(model, DisentangledConditionalVAE)
+               else model.latent_dim)
+
+
+def cond_width(model) -> int:
+    """The one-hot width of the ConditionalVAE's condition head (its cond_dim,
+    which may differ from 12); 12 otherwise."""
+    return int(model.cond_dim) if isinstance(model, ConditionalVAE) else len(MODALITY_NAMES)
+
+
+def encode_batch(model, x: torch.Tensor, midx: torch.Tensor):
+    """One batch's posterior (mean, logvar) on the model's device, fp32 NHWC:
+    uint8 images normalized in fp32 (x/255·2−1), then the family's encode
+    (modality indices for the flagship, their fp32 one-hot for the
+    ConditionalVAE). The engine's device graph, and serve/export.py's."""
+    if x.dtype == torch.uint8:
+        x = x.float() / 255.0 * 2.0 - 1.0
+    if isinstance(model, DisentangledConditionalVAE):
+        mean, logvar = model.encode(x, midx)
+    elif isinstance(model, ConditionalVAE):
+        mean, logvar = model.encode(x, F.one_hot(midx.long(), cond_width(model)).float())
+    else:
+        mean, logvar = model.encode(x)
+    return mean.float(), logvar.float()
+
+
+def decode_batch(model, z: torch.Tensor, midx: torch.Tensor) -> torch.Tensor:
+    """fp32 NHWC images of latents z (the flagship routes its heads by midx)."""
+    z = z.to(model.dtype)
+    if isinstance(model, DisentangledConditionalVAE):
+        return model.decode(z, midx).float()
+    return model.decode(z).float()
+
+
+def sample_batch(model, n: int, midx: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """fp32 NHWC prior samples: `noise` (NHWC), or a draw from `generator`,
+    decoded; the flagship shifts by modality, the others decode
+    unconditionally."""
+    if isinstance(model, DisentangledConditionalVAE):
+        return model.sample_conditional(n, midx, generator=generator, noise=noise).float()
+    return model.sample(n, generator=generator, noise=noise).float()
 
 
 class InferenceEngine:
@@ -119,22 +174,8 @@ class InferenceEngine:
             return x
         return np.asarray(x, np.float32)
 
-    @property
-    def _cond_width(self) -> int:
-        """The one-hot width of the ConditionalVAE's condition head (its
-        cond_dim, which may differ from 12); 12 otherwise, unused."""
-        if self._is_conditional:
-            return int(self.model.cond_dim)
-        return len(MODALITY_NAMES)
-
-    @property
-    def _channels(self) -> int:
-        m = self.model
-        return int(m.max_channels if self._is_disentangled else m.input_channels)
-
-    def _modality_arrays(self, modality, n: int) -> Tuple[np.ndarray, np.ndarray]:
-        """(int32 (n,) modality indices, range-checked against the model;
-        float32 (n, _cond_width) one-hot of them)."""
+    def _modality_indices(self, modality, n: int) -> np.ndarray:
+        """int32 (n,) modality indices, range-checked against the model."""
         if modality is None:
             midx = np.zeros((n,), np.int32)
         elif isinstance(modality, str):
@@ -147,15 +188,13 @@ class InferenceEngine:
             raise ValueError(f"modality length {midx.shape[0]} != batch {n}")
         # a clip would silently serve the wrong modality; the bound is what
         # /info advertises for this model
-        bound = int(self.model.num_modalities) if self._is_disentangled else self._cond_width
+        bound = int(self.model.num_modalities) if self._is_disentangled else cond_width(self.model)
         if midx.size and (midx.min() < 0 or midx.max() >= bound):
             raise ValueError(
                 f"modality index out of range [0, {bound}) for "
                 f"{type(self.model).__name__}: {midx[(midx < 0) | (midx >= bound)][:8]}"
             )
-        onehot = np.zeros((n, self._cond_width), np.float32)
-        onehot[np.arange(n), midx] = 1.0
-        return midx, onehot
+        return midx
 
     def _pad(self, a: np.ndarray, bucket: int) -> torch.Tensor:
         if a.shape[0] != bucket:
@@ -170,30 +209,6 @@ class InferenceEngine:
     # ------------------------------------------------------------------ #
     # device graphs                                                       #
     # ------------------------------------------------------------------ #
-
-    def _encode_dev(self, x: torch.Tensor, midx: torch.Tensor, onehot: torch.Tensor):
-        if x.dtype == torch.uint8:
-            x = x.float() / 255.0 * 2.0 - 1.0
-        if self._is_disentangled:
-            mean, logvar = self.model.encode(x, midx)
-        elif self._is_conditional:
-            mean, logvar = self.model.encode(x, onehot)
-        else:
-            mean, logvar = self.model.encode(x)
-        return mean.float(), logvar.float()
-
-    def _decode_dev(self, z: torch.Tensor, midx: torch.Tensor) -> torch.Tensor:
-        z = z.to(self.model.dtype)
-        if self._is_disentangled:
-            return self.model.decode(z, midx).float()
-        return self.model.decode(z).float()
-
-    def _sample_dev(self, n: int, midx: torch.Tensor, onehot: torch.Tensor, gen) -> torch.Tensor:
-        if self._is_disentangled:
-            return self.model.sample_conditional(n, midx, generator=gen).float()
-        if self._is_conditional:
-            return self.model.conditional_sample(n, onehot, generator=gen).float()
-        return self.model.sample(n, generator=gen).float()
 
     @staticmethod
     def _to_u8(r: torch.Tensor) -> torch.Tensor:
@@ -215,25 +230,23 @@ class InferenceEngine:
         """Deterministic reconstruction: decode of the posterior mean (no
         clamp, as serving calls encode and not the training forward)."""
         x = self._norm_images(images)
-        midx, onehot = self._modality_arrays(modality, x.shape[0])
+        midx = self._modality_indices(modality, x.shape[0])
         outs = []
         for lo, ln, b in self._chunks(x.shape[0]):
             m = self._pad(midx[lo : lo + ln], b)
-            mean, _ = self._encode_dev(self._pad(x[lo : lo + ln], b), m,
-                                       self._pad(onehot[lo : lo + ln], b))
-            outs.append(self._finish(self._decode_dev(mean, m), output, ln))
+            mean, _ = encode_batch(self.model, self._pad(x[lo : lo + ln], b), m)
+            outs.append(self._finish(decode_batch(self.model, mean, m), output, ln))
         return np.concatenate(outs, axis=0)
 
     @torch.inference_mode()
     def encode(self, images, modality=None) -> Tuple[np.ndarray, np.ndarray]:
         """Posterior (mean, logvar), NHWC float32."""
         x = self._norm_images(images)
-        midx, onehot = self._modality_arrays(modality, x.shape[0])
+        midx = self._modality_indices(modality, x.shape[0])
         means, logvars = [], []
         for lo, ln, b in self._chunks(x.shape[0]):
-            mean, logvar = self._encode_dev(
-                self._pad(x[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b),
-                self._pad(onehot[lo : lo + ln], b),
+            mean, logvar = encode_batch(
+                self.model, self._pad(x[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b)
             )
             means.append(mean[:ln].cpu().numpy())
             logvars.append(logvar[:ln].cpu().numpy())
@@ -242,10 +255,10 @@ class InferenceEngine:
     @torch.inference_mode()
     def decode(self, z, modality=None, output: str = "float32") -> np.ndarray:
         z = np.asarray(z, np.float32)
-        midx, _ = self._modality_arrays(modality, z.shape[0])
+        midx = self._modality_indices(modality, z.shape[0])
         outs = []
         for lo, ln, b in self._chunks(z.shape[0]):
-            r = self._decode_dev(self._pad(z[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
+            r = decode_batch(self.model, self._pad(z[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -255,13 +268,12 @@ class InferenceEngine:
     ) -> np.ndarray:
         """Prior samples; seeded explicitly or from the engine's stream."""
         n = int(num_samples)
-        midx, onehot = self._modality_arrays(modality, n)
+        midx = self._modality_indices(modality, n)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) if seed is not None else self._next_seed())
         outs = []
         for lo, ln, b in self._chunks(n):
-            r = self._sample_dev(b, self._pad(midx[lo : lo + ln], b),
-                                 self._pad(onehot[lo : lo + ln], b), gen)
+            r = sample_batch(self.model, b, self._pad(midx[lo : lo + ln], b), generator=gen)
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -269,7 +281,7 @@ class InferenceEngine:
         """Run every (method, bucket) once ahead of traffic (kernel builds,
         cuDNN plans, allocator pools); returns how many were run."""
         res = int(self.model.resolution)
-        c = self._channels
+        c = input_channels(self.model)
         count = 0
         for b in self.buckets:
             x = np.zeros((b, res, res, c), np.uint8)
@@ -285,12 +297,11 @@ class InferenceEngine:
         return {
             "model": type(m).__name__,
             "resolution": int(m.resolution),
-            "input_channels": self._channels,
-            # the flagship's latent is shared + modality; the others' latent_dim
-            "latent_dim": int(m.total_latent_dim if self._is_disentangled else m.latent_dim),
+            "input_channels": input_channels(m),
+            "latent_dim": latent_dim(m),
             "buckets": list(self.buckets),
             "modalities": list(MODALITY_NAMES[: m.num_modalities if self._is_disentangled
-                                              else self._cond_width]),
+                                              else cond_width(m)]),
             "conditional": self._is_conditional or self._is_disentangled,
         }
 

@@ -10,6 +10,7 @@ JAX test harness:
 import ctypes
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -181,14 +182,21 @@ def test_flash_c1024_stays_on_the_mma_sync_instance(gen):
 
 
 def test_flash_wrapper_raises_on_the_card_instead_of_falling_back(gen):
+    """The raw serving launch refuses what B1 does not take (the op
+    `fa.flash_attention` copies its operands contiguous first, and
+    test_serving_ops_raise_on_the_card_instead_of_falling_back holds its
+    refusals)."""
+    def fn(*a):
+        return fa.flash_attention_fwd(*a, want_lse=False)
+
     q = torch.randn((1, 64, 128), generator=gen, device="cuda")
     with pytest.raises(TypeError):
-        fa.flash_attention(q.half(), q.half(), q.half())
+        fn(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
-        fa.flash_attention(q, q.cpu(), q)
+        fn(q, q.cpu(), q)
     t = q.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention(t, t, t)
+        fn(t, t, t)
 
 
 def test_backward_wrappers_raise_on_the_card_instead_of_falling_back(gen):
@@ -799,3 +807,99 @@ def test_eval_clis_run_on_the_card(tiny_run, tmp_path):
         results[device] = json.loads((tmp_path / device / "results.json").read_text())
     for k in ("mean_centroid_distance", "silhouette_score", "zmod_centroid_distance", "zmod_silhouette_score"):
         assert abs(results["cuda"][k] - results["cpu"][k]) <= 1e-3 * max(abs(results["cpu"][k]), 1e-2), k
+
+
+# -------------------------------------- the serving ops and an artifact ---- #
+
+# each op at a shape of its main path: B1 at a ragged n on the wgmma
+# instance, B4 at the 128² BaseVAE's, B6 at a flagship level
+SERVING_OPS = {"flash_attention": (2, 1000, 512), "attention_fwd": (8, 256, 1024),
+               "gn_swish_fwd": (4, 256, 56, 56)}
+
+
+def _serving_op(gen, name):
+    """(op, raw wrapper, plain version, args, launch counts, count key)."""
+    shape = SERVING_OPS[name]
+    if name == "gn_swish_fwd":
+        x, w, b, _, groups = _gn_inputs(gen, shape, torch.bfloat16)
+        return (gs.gn_swish_fwd, lambda *a: gs.group_norm_swish_fwd(*a)[0], gs.group_norm_swish_plain,
+                (x, w, b, groups, 1e-6), gs.launches, "gn_swish_fwd")
+    args = _qkv(gen, shape, torch.bfloat16)
+    if name == "flash_attention":
+        return (fa.flash_attention, lambda *a: fa.flash_attention_fwd(*a, want_lse=False)[0],
+                fa.flash_attention_plain, args, fa.launches, "flash_fwd")
+    return at.attention_fwd, at.fused_attention_fwd, at.fused_attention_fwd_plain, args, at.launches, "attention_fwd"
+
+
+@pytest.mark.parametrize("name", sorted(SERVING_OPS))
+def test_serving_op_launches_its_kernel_on_the_card(gen, name):
+    """The op's CUDA kernel is the raw wrapper's launch: one launch counted,
+    its result that of the raw wrapper bit for bit and the plain version's
+    within the bf16 bars."""
+    op, raw, plain, args, counts, key = _serving_op(gen, name)
+    before = counts[key]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counts[key] == before + 1
+    assert torch.equal(got, raw(*args))
+    want = plain(*args)
+    tol_abs, tol_rel = TOLERANCE[torch.bfloat16]
+    assert (got.double() - want.double()).abs().max().item() <= tol_abs and _rel(got, want) <= tol_rel
+    # any layout in, as a replayed graph may hand it: the same result
+    x = args[0].to(memory_format=torch.channels_last) if args[0].dim() == 4 else args[0].mT.contiguous().mT
+    assert not x.is_contiguous()
+    assert torch.equal(op(x, *args[1:]), got)
+
+
+def test_serving_ops_raise_on_the_card_instead_of_falling_back(gen):
+    q = torch.randn((1, 128, 64), generator=gen, device="cuda")
+    before = {**fa.launches, **at.launches, **gs.launches}
+    for op in (fa.flash_attention, at.attention_fwd):
+        with pytest.raises(TypeError):
+            op(q.half(), q.half(), q.half())
+        with pytest.raises(ValueError):
+            op(q, q.cpu(), q)
+    x, w, b, _, _ = _gn_inputs(gen, (2, 64, 8, 8), torch.bfloat16)
+    with pytest.raises(ValueError, match="groups"):
+        gs.gn_swish_fwd(x, w, b, 24, 1e-6)
+    with pytest.raises(ValueError, match="fp32"):
+        gs.gn_swish_fwd(x, w.bfloat16(), b, 32, 1e-6)
+    assert {**fa.launches, **at.launches, **gs.launches} == before
+
+
+def test_export_round_trip_on_the_card(gen, tmp_path, monkeypatch):
+    """A small flagship (bf16, the card) with MEDVAE_FUSED_GN=1 and the
+    attention blocks past B4's envelope sent to B1's op, exported, loaded on
+    the card and run: the graph's ops, their launches, and the engine's
+    outputs bit for bit (the decoder's conv_in answers a channels-last
+    tensor on the card, which the GN op takes)."""
+    from medvae_tpu_torch.config.models import build_model, init_weights
+    from medvae_tpu_torch.nn.blocks import ResnetBlock
+    from medvae_tpu_torch.serve import InferenceEngine, export_model, load_exported
+    from medvae_tpu_torch.serve.export import medvae_ops
+
+    monkeypatch.setenv("MEDVAE_FUSED_GN", "1")
+    monkeypatch.setattr(at, "uses_flash", lambda n, c: True)
+    cfg = {"_target_": "DisentangledConditionalVAE", "num_modalities": 5, "shared_latent_dim": 4,
+           "modality_latent_dim": 4, "hidden_channels": 64, "ch_mult": [1, 2], "num_res_blocks": 1,
+           "attn_resolutions": [16], "resolution": 16}
+    weights = init_weights(build_model(cfg, "fp32", "cpu"), seed=0).state_dict()
+    model = build_model(cfg, "bf16", "cuda")
+    model.load_state_dict(weights)
+    meta = export_model(model, str(tmp_path), batch_size=4)
+    # two GroupNorm+SiLU sites a res block and each codec's norm_out; the
+    # three 16² x 64 attention blocks take B4's envelope, the mid blocks
+    # (8² x 128) the flash op
+    sites = 2 * sum(isinstance(m, ResnetBlock) for m in model.modules()) + 2
+    want_ops = {"medvae.attention_fwd": 3, "medvae.flash_attention": 2, "medvae.gn_swish_fwd": sites}
+    assert meta["device"] == "cuda" and meta["fused_gn"] and meta["ops"]["reconstruct"] == want_ops
+    art = load_exported(str(tmp_path))
+    assert medvae_ops(art["programs"]["reconstruct"]) == want_ops
+    x = torch.randint(0, 256, (4, 16, 16, 3), generator=gen, device="cuda", dtype=torch.uint8).cpu().numpy()
+    m = torch.arange(4).int().numpy()
+    before = (at.launches["attention_fwd"], fa.launches["flash_fwd"], gs.launches["gn_swish_fwd"])
+    got = art["reconstruct"](x, m)
+    after = (at.launches["attention_fwd"], fa.launches["flash_fwd"], gs.launches["gn_swish_fwd"])
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 2, sites)
+    want = InferenceEngine(model, buckets=(4,), device="cuda").reconstruct(x, modality=m)
+    np.testing.assert_array_equal(got, want)

@@ -37,7 +37,7 @@ from medvae_tpu_torch import bench
 from medvae_tpu_torch.compat.jax_params import from_jax_grads, from_jax_params, plan_jax_params
 from medvae_tpu_torch.config.models import CVAE_BENCH, build_model
 from medvae_tpu_torch.nn.blocks import ResnetBlock
-from medvae_tpu_torch.serve.engine import InferenceEngine
+from medvae_tpu_torch.serve.engine import InferenceEngine, cond_width
 from medvae_tpu_torch.train import optim as toptim
 from medvae_tpu_torch.train import state as tstate
 from medvae_tpu_torch.train import step as tstep
@@ -133,12 +133,6 @@ def test_modality_condition_and_the_ignored_num_modalities(cvae):
         tm.get_modality_condition("mri")
     quick = build_model(dict(SMALL, _target_="ConditionalVAE", num_modalities=4), "fp32", "meta")
     assert quick.cond_dim == 12 and quick.encoder.conv_in.weight.shape[1] == 6
-
-
-def test_inject_and_film_are_not_ported_yet():
-    for method in ("inject", "film"):
-        with pytest.raises(NotImplementedError):
-            build_model(dict(SMALL, _target_="ConditionalVAE", condition_method=method), "fp32", "meta")
 
 
 def test_beta_is_read_by_the_loss_under_use_model_beta():
@@ -312,8 +306,7 @@ def test_engine_serves_a_base_vae_unconditionally():
     z = np.random.RandomState(6).randn(2, 8, 8, 4).astype(np.float32)
     np.testing.assert_allclose(port.decode(z), ref.decode(z), atol=TOL)
     assert port.info()["conditional"] is False and port.info() == {**ref.info(), "buckets": [2]}
-    midx, onehot = port._modality_arrays([1, 11], 2)
-    assert onehot.shape == (2, 12) and onehot[1, 11] == 1.0
+    assert port._modality_indices([1, 11], 2).tolist() == [1, 11] and cond_width(tm) == 12
     with pytest.raises(ValueError, match="out of range"):
         port.encode(images[:1], modality=-1)
 
