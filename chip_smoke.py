@@ -195,9 +195,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            noise; `vae` loss) of the 28² ConditionalVAE with `film` and with
            `inject`, and of the quick flagship with linear attention: every
            loss term relative 1e-4, the global gradient relative L2 1e-3,
-           beside a repeat of the card's step (grad_rel_l2_card_repeat).
-Then the card line from nvidia-smi, the kernels line, and
-{"ok": true, "device": {...}} last.
+           beside a repeat of the card's step (grad_rel_l2_card_repeat);
+  fast28   the Trainer on experiment=multi_modal_cvae_quick at full width
+           (28², bs 16, 640 steps an epoch) with MEDVAE_FUSED_GN=1, four
+           runs from one seed: (a) host feeder, (b) the device-cached
+           feeder, (c200) cached with fused chunks (replays of one captured
+           CUDA graph), each the epoch's first 200 steps; (c) as (c200), one
+           epoch. Each: seconds, img/s, peak memory; (a), (b), (c): the
+           card's idle share over 50 more steps; gates: (b) and (c200) bit
+           for bit (params, EMA, moments, validation), B6/B7 launches =
+           sites x steps by the wrappers' counts (and sites x batches in
+           validation) and, in each profiled window, (c)'s 50 replays
+           included, by the trace's kernel events; the native gather used
+           in (a), the card's epoch-0 order the CPU's;
+  fast128  experiment=chest_base_vae at 128²: batch_size=auto (the probe's
+           trajectory), remat=auto at bs 64 (each probed peak, the
+           decision), the rungs block and full against no remat (ms, peak,
+           gradients within REMAT_GRAD_REL, bit for bit or not),
+           accumulate_grad_batches 2 against 1, and a fused chunk of 8 steps
+           against 8 per-step calls: bit for bit, 7 + 7 B4/B5 launches a
+           step, by the wrappers' counts and, in a window of 8 replays and
+           one of 8 per-step calls, by the trace's kernel events; ms a step
+           and idle share both ways.
+The repeat of train_parity, cvae28_parity and base128_parity is gated at
+0.0: the fused chunks rest on it. Then the card line from nvidia-smi, the
+kernels line, and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -206,7 +228,10 @@ import collections
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import gc
+import io
+import itertools
 import json
 import os
 import re
@@ -236,13 +261,15 @@ try:
     from medvae_tpu_torch.config.compose import compose, save_yaml
     from medvae_tpu_torch.config.models import CVAE_BENCH, FLAGSHIP, build_model, init_weights
     from medvae_tpu_torch.config.instantiate import instantiate
+    from medvae_tpu_torch.core.rng import fold_in
     from medvae_tpu_torch.data.medmnist import MedMNISTDataModule
     from medvae_tpu_torch.data.modalities import MODALITY_NAMES
-    from medvae_tpu_torch.data.pipeline import DeviceFeeder
+    from medvae_tpu_torch import native
+    from medvae_tpu_torch.data.pipeline import DeviceCachedFeeder, DeviceFeeder
     from medvae_tpu_torch.nn import blocks
     from medvae_tpu_torch.nn.blocks import AttnBlock, ResnetBlock
     from medvae_tpu_torch.nn.discriminator import build_discriminator
-    from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder
+    from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder, set_remat
     from medvae_tpu_torch.ops import _build
     from medvae_tpu_torch.ops import attention as at
     from medvae_tpu_torch.ops import flash_attention as fa
@@ -253,8 +280,10 @@ try:
     from medvae_tpu_torch.utils.visualization import read_png_size
     from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
     from medvae_tpu_torch.train.state import create_train_state
+    from medvae_tpu_torch.train.multistep import build_chunk_runner
     from medvae_tpu_torch.train.step import (build_gan_grads, build_loss_and_grads, build_train_step,
                                              make_frozen, make_gan_loss)
+    from medvae_tpu_torch.train.trainer import Trainer
 except ImportError as e:
     print(f"chip_smoke: the medvae_tpu_torch package is missing here ({e})", file=sys.stderr)
     raise SystemExit(3)
@@ -686,27 +715,31 @@ def gn_library(x, w, b, groups):
 GN_PASSES = {"gn_swish_fwd (B6)": "gn_swish_fwd", "gn_swish_bwd (B7)": "gn_swish_bwd"}
 
 
-def gn_device_ms(calls: dict, reps: int = 10) -> dict:
+def gn_device_ms(calls: dict, per_call: dict, reps: int = 10) -> dict:
     """Device time a call of each of `calls` (kernel name -> call), from the
-    kernels torch.profiler sees over `reps` calls of each, sorted into B6 and
+    kernels the profiler sees over `reps` calls of each, sorted into B6 and
     B7 by name (`_category`): the card's time without the host's launch
-    overhead, which single-call event times include at small shapes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    overhead, which single-call event times include at small shapes. The
+    trace must show `reps` calls of each (`per_call`: kernels a call,
+    `traced_launches`), else it raises."""
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for fn in calls.values():
             for _ in range(reps):
                 fn()
-        torch.cuda.synchronize()
-    totals = dict.fromkeys(calls, 0.0)
-    for e in prof.key_averages():
-        name = GN_PASSES.get(_category(e.key))
-        if e.device_type == DeviceType.CUDA and name in totals:
-            totals[name] += e.self_device_time_total / 1e3 / reps
+
+    totals, events = dict.fromkeys(calls, 0.0), collections.Counter()
+    for kernel, (ms, n) in device_kernels(window).items():
+        events[_category(kernel)] += n
+        name = GN_PASSES.get(_category(kernel))
+        if name in totals:
+            totals[name] += ms / reps
+    seen = traced_launches(events, per_call)
+    if seen != dict.fromkeys(calls, reps):
+        raise AssertionError(f"the trace shows {seen} calls of B6/B7, not {reps} each: {dict(events)}")
     return totals
 
 
@@ -883,8 +916,10 @@ def phase_gn_kernel() -> dict:
                              lambda: gs.group_norm_swish_bwd_plain(x, w, b, g, mean, rstd),
                              lambda: torch.autograd.grad(lib_out, (xl, wl, bl), g, retain_graph=True)),
         }
-        device = gn_device_ms({name: fns[0] for name, fns in calls.items()})
-        streamed_device = gn_device_ms({name: fns[1] for name, fns in calls.items()})
+        device = gn_device_ms({name: fns[0] for name, fns in calls.items()},
+                              {name: gn_kernels_per_call(name, [(shape, groups)]) for name in calls})
+        streamed_device = gn_device_ms({name: fns[1] for name, fns in calls.items()},
+                                       {name: KERNELS_PER_CALL[name]["streamed"] for name in calls})
         for name, (kernel, streamed_call, plain, library) in calls.items():
             flops = GN_OPS_PER_ELEMENT[name] * float(n)
             t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, work[name] / H100_BYTES_PER_S * 1e3
@@ -1089,29 +1124,90 @@ def _conv_by_dtype(name: str) -> str:
     return cat
 
 
-def device_breakdown(fn, wall_ms: float, category=None) -> dict:
-    """Device time by kernel and by layer (`category`, `_category` when
-    None) over one call of `fn` (torch.profiler), beside the same call's
-    unprofiled wall time."""
+# host seconds the trace runs before `fn`'s first launch and after its last
+# kernel: Kineto keeps a kernel only where its start and end, on the host's
+# clock, lie inside the trace's window, and with none the first kernels of a
+# window launched right at its start were dropped (all 30 of a B6 window and
+# 3 of the B7 window after it on the H100); the launch counts that every
+# profiled window is held to find a loss
+TRACE_PAD_S = 0.025
+
+
+def device_kernels(fn) -> dict:
+    """{kernel name: [device ms, launches]} over one call of `fn`, from
+    torch.profiler's CUPTI tracing (Kineto) of the card's activity alone,
+    summed from the profiler's raw events (`kineto_results`): turning them
+    into FunctionEvents (what `key_averages()` does) took 54 s for a window
+    of 175,000 launches, summing the raw ones 2 s (the same busy time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         fn()
         torch.cuda.synchronize()
-    kernels = [(e.self_device_time_total / 1e3, e.key, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels.sort(reverse=True)
+        time.sleep(TRACE_PAD_S)
+    totals = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            totals[e.name()][0] += e.duration_ns() / 1e6
+            totals[e.name()][1] += 1
+    return dict(totals)
+
+
+# the trace's category of each wrapper's kernels (`_category`), and the
+# kernels one call of the wrapper launches, by instance where they differ:
+# B6 one (the streamed instance three), B7 two, dx and the per-channel sums
+# then their sum over the batch (streamed three), B4 one, B5 two, rows then
+# columns, in either instance (ops/groupnorm_swish.py, ops/attention.py)
+TRACE_CATEGORY = {"gn_swish_fwd": "gn_swish_fwd (B6)", "gn_swish_bwd": "gn_swish_bwd (B7)",
+                  "attention_fwd": "attention_fwd (B4)", "attention_bwd": "attention_bwd (B5)"}
+KERNELS_PER_CALL = {"gn_swish_fwd": {"resident": 1, "cluster": 1, "streamed": 3},
+                    "gn_swish_bwd": {"resident": 2, "cluster": 2, "streamed": 3},
+                    "attention_fwd": 1, "attention_bwd": 2}  # either instance
+
+
+def gn_kernels_per_call(name: str, shapes) -> int:
+    """The kernels one call of B6 or B7 (`name`) launches at every bf16
+    (shape, groups) of `shapes`; raises where the shapes' instances launch
+    different numbers."""
+    counts = {KERNELS_PER_CALL[name][gs.gn_swish_instance(shape, torch.bfloat16, name == "gn_swish_bwd", groups)]
+              for shape, groups in shapes}
+    if len(counts) != 1:
+        raise AssertionError(f"{name}: the shapes' instances launch {counts} kernels a call")
+    return counts.pop()
+
+
+def traced_launches(events: dict, per_call: dict) -> dict:
+    """Calls of each wrapper of `per_call` (name -> kernels a call) that a
+    trace shows: its category's kernel events (`events`, category -> count,
+    `device_breakdown`'s calls_by_layer) over its kernels a call. Raises
+    where they do not divide: an event lost or one too many."""
+    out = {}
+    for name, k in per_call.items():
+        n = events.get(TRACE_CATEGORY[name], 0)
+        if n % k:
+            raise AssertionError(f"{name}: {n} kernel events in the trace, not a multiple of {k} a call")
+        out[name] = n // k
+    return out
+
+
+def device_breakdown(fn, wall_ms: float, category=None) -> dict:
+    """Device time and kernel events by kernel and by layer (`category`,
+    `_category` when None) over one call of `fn` (`device_kernels`), beside
+    the same call's unprofiled wall time."""
+    kernels = sorted(((ms, name, n) for name, (ms, n) in device_kernels(fn).items()), reverse=True)
     busy = sum(k[0] for k in kernels)
-    by_cat = {}
+    by_cat, calls = {}, collections.Counter()
     category = category or _category
-    for ms, name, _ in kernels:
+    for ms, name, n in kernels:
         by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
+        calls[category(name)] += n
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if kernels else "not measured",
             "idle_share": 1.0 - busy / wall_ms if kernels else "not measured",
             "by_layer_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+            "calls_by_layer": dict(calls),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n} for ms, k, n in kernels[:12]]}
 
 
@@ -1360,8 +1456,10 @@ def phase_train_parity(state_dict) -> None:
            "bf16_vs_fp32_loss_rel": abs(half["loss"] - card["loss"]) / abs(card["loss"]),
            "bf16_bar": 5e-2, "card_seconds": card_s, "cpu_seconds": cpu_s}
     emit(row)
+    # the fused chunks rest on a step repeating bit for bit: the repeat is gated at 0.0
     if not (row["loss_rel"] <= 1e-4 and row["grad_global_rel_l2"] <= 1e-3
-            and worst_attn <= ATTN_GRAD_REL and row["bf16_vs_fp32_loss_rel"] <= 5e-2):
+            and worst_attn <= ATTN_GRAD_REL and row["bf16_vs_fp32_loss_rel"] <= 5e-2
+            and row["grad_rel_l2_card_repeat"] == 0.0):
         raise AssertionError(f"train parity out of bars: {row}")
 
 
@@ -1462,7 +1560,8 @@ def phase_cvae28_parity() -> None:
            "bf16_bar": 5e-2}
     emit(row)
     if not (row["loss_rel"] <= 1e-4 and row["grad_global_rel_l2"] <= 1e-3 and worst <= 1e-3
-            and row["bf16_vs_fp32_loss_rel"] <= 5e-2 and len(gn_rows) == 2 * sites):
+            and row["bf16_vs_fp32_loss_rel"] <= 5e-2 and len(gn_rows) == 2 * sites
+            and row["grad_rel_l2_card_repeat"] == 0.0):
         raise AssertionError(f"cvae28 parity out of bars: {row}")
 
 
@@ -1890,7 +1989,7 @@ def phase_base128_parity(cfg, state_dict) -> None:
            "bf16_bar": 5e-2, "card_seconds": card_s, "cpu_seconds": cpu_s}
     emit(row)
     if not (row["loss_rel"] <= 1e-4 and row["grad_global_rel_l2"] <= 1e-3 and worst <= ATTN_GRAD_REL
-            and row["bf16_vs_fp32_loss_rel"] <= 5e-2):
+            and row["bf16_vs_fp32_loss_rel"] <= 5e-2 and row["grad_rel_l2_card_repeat"] == 0.0):
         raise AssertionError(f"base128 parity out of bars: {row}")
 
 
@@ -1907,7 +2006,11 @@ def train_cli(work: str, epochs: int, *extra) -> tuple:
     launched by the run)."""
     import io
 
+    # remat=false: the 128² default, auto, would probe the rungs with real
+    # steps whose launches this phase's derived counts leave out (fast128
+    # runs the probe)
     args = [*BASE128_OVERRIDES, f"device={CARD}", f"work_dir={work}", f"training.max_epochs={epochs}",
+            "+model.remat=false",
             f"+training.limit_train_batches={TRAINER_BATCHES}", "training.log_every_n_steps=4",
             "checkpointing.save_top_k=1", "early_stopping.enabled=false", *extra]
     out = io.StringIO()
@@ -2928,51 +3031,415 @@ def phase_dispatch() -> dict:
     return rows
 
 
+# ------------------------------------------- the Trainer's fast paths ---- #
+
+# validation is timed apart from the epoch: none inside fit (the quick
+# config's mid-epoch one included)
+FAST28 = ["experiment=multi_modal_cvae_quick", "training.max_epochs=1", "training.log_every_n_steps=100000",
+          "training.check_val_every_n_epoch=1000", "training.val_check_interval=1.0",
+          "training.log_images_every_n_epochs=0",
+          "early_stopping.enabled=false", "checkpointing.save_top_k=0"]
+FAST28_PREFIX = 200  # runs (a), (b) and (c200) take the epoch's first 200 steps
+IDLE_WINDOW = 50  # steps in each idle-share profile
+
+
+def fast_trainer(work: str, overrides: list) -> "Trainer":
+    return Trainer(compose(cli_train.default_config_dir(), "config",
+                           [f"device={CARD}", f"work_dir={work}", *overrides]))
+
+
+def state_tensors(state) -> dict:
+    """Every tensor a step updates, by name (the state's own)."""
+    out = {f"param.{k}": v for k, v in state.params.items()}
+    out.update({f"ema.{k}": v for k, v in (state.ema_params or {}).items()})
+    out.update({f"mu.{i}": v for i, v in enumerate(state.opt_state.mu)})
+    out.update({f"nu.{i}": v for i, v in enumerate(state.opt_state.nu)})
+    return out
+
+
+def state_snapshot(state) -> dict:
+    return {k: v.detach().clone() for k, v in state_tensors(state).items()}
+
+
+def restore_state(state, snap: dict, step: int):
+    """`state` with its tensors set back to `snap` in place and its counts
+    to `step`."""
+    with torch.no_grad():
+        for k, v in state_tensors(state).items():
+            v.copy_(snap[k])
+    state.opt_state.count = step
+    return dataclasses.replace(state, step=step)
+
+
+def phase_fast28() -> dict:
+    """The Trainer on experiment=multi_modal_cvae_quick at full width (28²,
+    bs 16, five datasets, 10,240 synthetic train rows, 640 steps an epoch)
+    with MEDVAE_FUSED_GN=1, four runs from one seed: (a) the host feeder,
+    one step a call, and (b) the device-cached feeder, one step a call,
+    each FAST28_PREFIX steps; (c200) the cached feeder with fused chunks,
+    FAST28_PREFIX steps; (c) the same, one epoch. Each: seconds, img/s and
+    peak memory; (b) and (c200) then validation, timed apart; (a), (b) and
+    (c) then the card's idle share over IDLE_WINDOW more steps of their path
+    (torch.profiler). Gates: (b) and (c200) end with the same params, EMA,
+    moments and validation metrics bit for bit; B6/B7 launch sites x steps
+    (and sites x batches in validation) by the wrappers' counts in every
+    run, and by the trace's kernel events in each profiled window, (c)'s
+    replayed one included (`traced_launches`); the native gather assembled
+    (a)'s batches; the epoch-0 order on the card is the one the port
+    computes on the CPU. Returns the launches the trace shows in (c)'s
+    window of IDLE_WINDOW replayed steps."""
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "fast28")
+    data = f"data_dir={os.path.join(work, 'data')}"
+    prefix = f"+training.limit_train_batches={FAST28_PREFIX}"
+    runs = {"a": ["+data.device_cache=false", "+training.fused_steps=off", prefix],
+            "b": ["+data.device_cache=true", "+training.fused_steps=off", prefix],
+            "c200": ["+data.device_cache=true", "+training.fused_steps=on", prefix],
+            "c": ["+data.device_cache=true", "+training.fused_steps=on"]}
+    out, ends = {}, {}
+    with fused_gn(True):
+        for tag, extra in runs.items():
+            t = fast_trainer(os.path.join(work, tag), [*FAST28, data, *extra])
+            sites = gn_swish_sites(t.model)
+            meta_model = build_model(t.model_cfg, "bf16", "meta", train=True)
+            shapes = gn_swish_shapes(meta_model, torch.zeros((16, 28, 28, 3), device="meta"),
+                                     condition=torch.zeros((16, meta_model.cond_dim), device="meta"))
+            per_call = {name: gn_kernels_per_call(name, shapes) for name in ("gn_swish_fwd", "gn_swish_bwd")}
+            feeder = t._feeder("train", True, True)
+            steps = t.steps_per_epoch if tag == "c" else FAST28_PREFIX
+            native_before = native.calls
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                t.fit()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launches()
+            want = want_launches(gn_swish_fwd=sites * steps, gn_swish_bwd=sites * steps)
+            if counts != want or t.state.step != steps:
+                raise AssertionError(f"fast28 ({tag}): {t.state.step} steps, launches {counts}, want {want}")
+            row = {"phase": "fast28", "run": tag, "options": extra, "steps": steps, "batch": t.datamodule.batch_size,
+                   "seconds": seconds, "s_per_epoch" if tag == "c" else f"s_per_{steps}_steps": seconds,
+                   "images_per_sec": steps * t.datamodule.batch_size / seconds,
+                   "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
+                   "gn_sites": sites, "feeder": type(feeder).__name__}
+            if tag == "a":
+                row["native_batches"] = native.calls - native_before
+                if not native.available() or row["native_batches"] < steps:
+                    raise AssertionError(f"fast28 (a): the native gather assembled {row['native_batches']} "
+                                         f"of {steps} batches")
+            else:
+                card_order = feeder.epoch_perm(0).cpu()
+                cpu_order = DeviceCachedFeeder(t.datamodule.train_arrays, 16, "cpu", seed=t.seed).epoch_perm(0)
+                row["epoch0_order_card_equals_cpu"] = torch.equal(card_order, cpu_order)
+                if not row["epoch0_order_card_equals_cpu"]:
+                    raise AssertionError(f"fast28 ({tag}): the card's epoch-0 order differs from the CPU's")
+            if tag in ("b", "c200"):  # the bitwise pair: validation too
+                reset_launches()
+                t0 = time.perf_counter()
+                val = t.validate()
+                torch.cuda.synchronize()
+                row["validate_seconds"] = time.perf_counter() - t0
+                val_batches = t._feeder("val", False, False).steps_per_epoch
+                if launches() != want_launches(gn_swish_fwd=sites * val_batches):
+                    raise AssertionError(f"fast28 ({tag}) validation: launches {launches()}")
+                row.update(val_launches=launches(), val_loss=val["val/loss"], val_psnr=val["val/psnr"])
+                ends[tag] = (state_snapshot(t.state), val)
+            if tag != "c200":  # the idle share over IDLE_WINDOW further steps of the same path
+                if tag == "c":
+                    run = build_chunk_runner(t.train_step, feeder, t._generator, lambda s: s)
+                    t.state, _ = run(t.state, 1, 0, 1)  # warm-up and capture
+
+                    def window():
+                        t.state, m = run(t.state, 1, 1, IDLE_WINDOW)
+                        next(iter(m.values())).item()
+                elif tag == "b":
+                    batches = list(itertools.islice(feeder.epoch(1), IDLE_WINDOW))
+
+                    def window():
+                        for batch in batches:
+                            t.state, m = t.train_step(t.state, batch, t._generator)
+                        next(iter(m.values())).item()
+                else:  # the host feeder's window pays its own gather and copies
+                    def window():
+                        for batch in itertools.islice(feeder.epoch(1), IDLE_WINDOW):
+                            t.state, m = t.train_step(t.state, batch, t._generator)
+                        next(iter(m.values())).item()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                window()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                reset_launches()
+                prof = device_breakdown(window, wall)
+                traced = traced_launches(prof["calls_by_layer"], per_call)
+                want = {name: sites * IDLE_WINDOW for name in per_call}
+                if traced != want or {k: launches()[k] for k in want} != want:
+                    raise AssertionError(f"fast28 ({tag}) window: the trace shows {traced} calls, the wrappers "
+                                         f"counted {launches()}, want {want}: {prof['calls_by_layer']}")
+                row.update(idle_window_steps=IDLE_WINDOW, idle_share=prof["idle_share"],
+                           window_ms_per_step=wall / IDLE_WINDOW, device_busy_ms=prof["device_busy_ms"],
+                           window_traced_launches=traced, by_layer_ms=prof["by_layer_ms"])
+                out[tag] = row
+            emit(row)
+            del t, feeder
+            gc.collect()
+            torch.cuda.empty_cache()
+    (b_state, b_val), (c_state, c_val) = ends["b"], ends["c200"]
+    same = [k for k in b_state if not torch.equal(b_state[k], c_state[k])]
+    drop = "epoch_time_sec"
+    same_val = {k: v for k, v in b_val.items() if k != drop} == {k: v for k, v in c_val.items() if k != drop}
+    emit({"phase": "fast28", "b_equals_c200_bitwise": not same, "steps": FAST28_PREFIX,
+          "differing_tensors": same[:5], "validation_equal": same_val, "seconds": time.perf_counter() - t_phase})
+    if same or not same_val:
+        raise AssertionError(f"fast28: fused (c200) differs from per-step (b): {same[:5]}, validation {same_val}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out["c"]["window_traced_launches"]
+
+
+FAST128 = [*["experiment=chest_base_vae", "model.resolution=128", "data.size=128"],
+           "training.max_epochs=1", "training.log_images_every_n_epochs=0", "early_stopping.enabled=false"]
+FAST128_CHUNK = 8
+# from 128, doubling towards the cap of 512 within three probes (whether 512
+# fits depends on what the run holds on the card by then)
+FAST128_AUTOBATCH = ["data.batch_size=auto", "+training.autobatch_start=128", "+training.autobatch_max=512",
+                     "+training.autobatch_probes=3"]
+REMAT_GRAD_REL = 5e-4
+
+
+def phase_fast128() -> dict:
+    """The Trainer's memory planning and fused chunks on experiment=
+    chest_base_vae at 128², full width (B4/B5 at 7 sites): batch_size=auto
+    (the probe's trajectory, the size and its seconds; remat 'full' under
+    it, as JAX); remat=auto at bs 64 (each probed rung's peak and the
+    decision); one forward and backward at the rungs block and full against
+    no remat (ms, peak, the gradients' relative L2 within REMAT_GRAD_REL,
+    and whether bit for bit); accumulate_grad_batches=2 against 1 (ms,
+    peak); and a fused chunk of FAST128_CHUNK steps against as many
+    per-step calls from the same state: bit for bit, ms a step and the idle
+    share both ways, 7 + 7 B4/B5 launches a step under replay."""
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "fast128")
+    data = f"data_dir={os.path.join(WORK, 'data')}"
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        t = fast_trainer(work, [*FAST128, data, *FAST128_AUTOBATCH])
+    probe_lines = [ln for ln in log.getvalue().splitlines() if ln.startswith(("autobatch", "remat"))]
+    emit({"phase": "fast128", "batch_size_auto": t.datamodule.batch_size, "trajectory": probe_lines,
+          "seconds_trainer_with_probe": time.perf_counter() - t0})
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        t = fast_trainer(work, [*FAST128, data, f"data.batch_size={BASE128_BATCH}", "+model.remat=auto",
+                                "+data.device_cache=true"])
+    emit({"phase": "fast128", "remat_auto_batch": BASE128_BATCH, "decision": t._resolved_remat,
+          "probed_peak_gib": {str(k): v / 2**30 for k, v in t.remat_peaks.items()},
+          "lines": [ln for ln in log.getvalue().splitlines() if ln.startswith("autoremat")],
+          "seconds_trainer_with_probe": time.perf_counter() - t0})
+    feeder = t._feeder("train", True, True)
+    batch = feeder.assemble(feeder.epoch_perm(0), torch.tensor(0, device=CARD))
+    loss_cfg = dict(t.loss_cfg)
+    grads_of = build_loss_and_grads(t.model, loss_cfg, augment=True, max_channels=1)
+    rows, base = {}, None
+    for rung in (False, "block", "full"):
+        set_remat(t.model, rung)
+
+        def fwd_bwd():
+            return grads_of(t.state, batch, torch.Generator(device=CARD).manual_seed(5))[1]
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fwd_bwd, reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        flat = torch.cat([g.float().reshape(-1) for g in fwd_bwd()]).cpu()  # on the host: no rung's peak holds another's
+        base = flat if base is None else base
+        rows[str(rung)] = {"ms": ms, "peak_gib": peak, "grad_rel_l2": torch_rel_l2(flat, base),
+                           "bitwise": torch.equal(flat, base)}
+    emit({"phase": "fast128", "remat_rungs": rows, "batch": BASE128_BATCH, "bar": REMAT_GRAD_REL})
+    if any(r["grad_rel_l2"] > REMAT_GRAD_REL for r in rows.values()):
+        raise AssertionError(f"fast128: a remat rung's gradients differ: {rows}")
+    set_remat(t.model, t._resolved_remat)
+    del base, flat
+    torch.cuda.empty_cache()
+
+    snap, step0 = state_snapshot(t.state), t.state.step
+    acc = {}
+    for k in (1, 2):
+        step = build_train_step(t.model, loss_cfg, t.tx, augment=True, max_channels=1,
+                                accumulate_grad_batches=k)
+        gen = torch.Generator(device=CARD)
+
+        def one():
+            gen.manual_seed(3)
+            t.state = restore_state(t.state, snap, step0)
+            step(t.state, batch, gen)
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        acc[k] = {"ms": cuda_ms(one, reps=3), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit({"phase": "fast128", "accumulate_grad_batches": acc, "batch": BASE128_BATCH})
+
+    seed_of = lambda s: fold_in(t.seed, 0xBEEF, s)  # noqa: E731  the Trainer's train stream
+    t.state = restore_state(t.state, snap, step0)
+    perm = feeder.epoch_perm(0)
+    gen = torch.Generator(device=CARD)
+    reset_launches()
+    for i in range(FAST128_CHUNK):
+        gen.manual_seed(seed_of(t.state.step))
+        t.state, _ = t.train_step(t.state, feeder.assemble(perm, torch.tensor(i, device=CARD)), gen)
+    torch.cuda.synchronize()
+    loop_counts, loop_end = launches(), state_snapshot(t.state)
+    t.state = restore_state(t.state, snap, step0)
+    run = build_chunk_runner(t.train_step, feeder, torch.Generator(device=CARD), seed_of)
+    reset_launches()
+    t.state, _ = run(t.state, 0, 0, FAST128_CHUNK)
+    torch.cuda.synchronize()
+    fused_counts, fused_end = launches(), state_snapshot(t.state)
+    differ = [k for k in loop_end if not torch.equal(loop_end[k], fused_end[k])]
+    want = want_launches(attention_fwd=BASE128_SITES * FAST128_CHUNK, attention_bwd=BASE128_SITES * FAST128_CHUNK)
+    row = {"phase": "fast128", "chunk": FAST128_CHUNK, "fused_equals_per_step_bitwise": not differ,
+           "differing": differ[:5], "launches_per_step_calls": loop_counts, "launches_fused": fused_counts}
+    if differ or fused_counts != want or loop_counts != want:
+        emit(row)
+        raise AssertionError(f"fast128: fused chunk vs per-step calls: {row}")
+    # the steady state both ways: replays only, and per-step calls, each
+    # window's launches read from its trace as well as from the wrappers
+    per_call = {name: KERNELS_PER_CALL[name] for name in ("attention_fwd", "attention_bwd")}
+    timing = {}
+    for how in ("per_step", "fused"):
+        if how == "fused":
+            def window():
+                t.state, m = run(t.state, 0, 0, FAST128_CHUNK)
+                next(iter(m.values())).item()
+        else:
+            def window():
+                for i in range(FAST128_CHUNK):
+                    gen.manual_seed(seed_of(t.state.step))
+                    t.state, m = t.train_step(t.state, feeder.assemble(perm, torch.tensor(i, device=CARD)),
+                                              gen)
+                next(iter(m.values())).item()
+        window()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        reset_launches()
+        prof = device_breakdown(window, wall)
+        traced = traced_launches(prof["calls_by_layer"], per_call)
+        want = {name: BASE128_SITES * FAST128_CHUNK for name in per_call}
+        if traced != want or {k: launches()[k] for k in want} != want:
+            raise AssertionError(f"fast128 ({how}): the trace shows {traced} calls, the wrappers counted "
+                                 f"{launches()}, want {want}: {prof['calls_by_layer']}")
+        timing[how] = {"ms_per_step": wall / FAST128_CHUNK, "idle_share": prof["idle_share"],
+                       "device_busy_ms": prof["device_busy_ms"], "traced_launches": traced,
+                       "images_per_sec": BASE128_BATCH * FAST128_CHUNK / wall * 1e3}
+    row.update(timing=timing, seconds=time.perf_counter() - t_phase)
+    emit(row)
+    del t, run, feeder
+    gc.collect()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return timing["fused"]["traced_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 2
     os.environ["MEDVAE_FUSED_GN"] = "0"  # the port's default; fused phases turn it on
+    seconds, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:  # command seconds by phase, printed before the card line
+        now = time.perf_counter()
+        seconds[name] = round(now - t_lap[0], 3)
+        t_lap[0] = now
+
     smi = phase_env()
+    lap("env")
     phase_build()
+    lap("build")
     kernel = phase_kernel()
+    lap("kernel")
     backward = phase_backward()
+    lap("backward")
     gn_kernel = phase_gn_kernel()
+    lap("gn_kernel")
     attn_kernel = phase_attn_kernel()
+    lap("attn_kernel")
     dispatch = phase_dispatch()
+    lap("dispatch")
     bf16_engine, fp32_engine, cpu_engine = build_engines()
     state_dict = cpu_engine.model.state_dict()
     serve_launches = phase_serve(bf16_engine)
+    lap("engines_serve")
     phase_parity(bf16_engine, fp32_engine, cpu_engine)
+    lap("parity")
     phase_http(bf16_engine)
+    lap("http")
     phase_profile(bf16_engine)
+    lap("profile")
     fused_serve_launches = phase_flagship_fused_serve(bf16_engine)
+    lap("flagship_fused_serve")
     imported, import224_launches = phase_import224(bf16_engine, state_dict)
+    lap("import224")
     del bf16_engine, fp32_engine, cpu_engine
     gc.collect()
     export224_launches = phase_export224(imported)
+    lap("export224")
     shutil.rmtree(os.path.join(WORK, "import224"), ignore_errors=True)
     train_launches = phase_train(state_dict)
+    lap("train")
     fused_train_launches = phase_flagship_fused_train(state_dict)
+    lap("flagship_fused_train")
     phase_train_parity(state_dict)
+    lap("train_parity")
     eval224_launches = phase_eval224(state_dict)
+    lap("eval224")
     cvae_launches = phase_cvae28_train(True)
+    lap("cvae28_train")
     phase_cvae28_train(False)
+    lap("cvae28_train_off")
     phase_cvae28_parity()
+    lap("cvae28_parity")
     cvae_serve_launches = phase_cvae28_serve()
+    lap("cvae28_serve")
+    fast28_launches = phase_fast28()
+    lap("fast28")
     cfg = base128_config()
     base128_weights = init_weights(build_model(cfg["model"], "fp32", "cpu", train=True), seed=0).state_dict()
     attn_launches = {"base128_train": phase_base128_train(cfg, base128_weights),
                      "base128_serve": phase_base128_serve(cfg["model"], base128_weights)}
+    lap("base128_train_serve")
     phase_base128_parity(cfg, base128_weights)
+    lap("base128_parity")
+    attn_launches["fast128"] = phase_fast128()
+    lap("fast128")
     attn_launches["trainer128"] = phase_trainer128()
+    lap("trainer128")
     attn_launches["eval128"] = phase_eval128()
+    lap("eval128")
     attn_launches["export128"] = phase_export128()
+    lap("export128")
     shutil.rmtree(WORK, ignore_errors=True)
     gan_launches = {"gan224_train": phase_gan224_train()}
+    lap("gan224_train")
     phase_gan_parity()
+    lap("gan_parity")
     gan_launches["gan_trainer"] = phase_gan_trainer()
+    lap("gan_trainer")
     phase_options_parity()
+    lap("options_parity")
+    emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 3)})
     print(smi, flush=True)
     source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
               "flash_bwd (B2: dK, dV)": "medvae_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -3018,6 +3485,7 @@ def main() -> int:
         # on (cvae28_train); then the other paths that ran the kernel
         rows.append({"name": name, "launches": cvae_launches[name],
                      "launches_cvae28_serve": cvae_serve_launches[name],
+                     "launches_fast28": fast28_launches[name],  # the trace's, 50 replayed steps
                      "launches_flagship_fused_serve": fused_serve_launches[name],
                      "launches_flagship_fused_train": fused_train_launches[name],
                      **{f"launches_{path}": c[name] for path, c in gan_launches.items()},

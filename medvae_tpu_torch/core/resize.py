@@ -4,7 +4,10 @@ Keys cubic kernel with a = −0.5 ("cubic"), half-pixel centres, antialiased
 when shrinking, weights normalized over the taps inside the image. Applied
 as two matrix products, whose backward is a product too, so it repeats bit
 for bit on the card, where F.interpolate's bilinear backward adds with
-atomics.
+atomics. Each weight matrix is made once per device and dtype and kept
+(`_device_matrix`), so a resize of a plain tensor copies nothing from the
+host, which a CUDA graph capture of a train step (train/multistep.py) could
+not take.
 """
 
 from __future__ import annotations
@@ -40,15 +43,29 @@ def resize_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
+_matrices: dict = {}  # (n_in, n_out, method, device, dtype) -> the matrix there
+
+
+def _device_matrix(n_in: int, n_out: int, method: str, x: torch.Tensor) -> torch.Tensor:
+    """`resize_matrix` on x's device in x's dtype, kept for plain tensors;
+    a tracer's tensor (torch.export's fake and functional ones) gets a
+    matrix of its own trace, never one kept."""
+    key = (n_in, n_out, method, x.device, x.dtype)
+    if type(x) is torch.Tensor and key in _matrices:
+        return _matrices[key]
+    m = torch.from_numpy(resize_matrix(n_in, n_out, method)).to(x.device, x.dtype)
+    if type(x) is torch.Tensor and type(m) is torch.Tensor:
+        _matrices[key] = m
+    return m
+
+
 def resize(x: torch.Tensor, size, method: str) -> torch.Tensor:
     """jax.image.resize of NHWC x to `size` (an int for a square, or
     (height, width)) on the spatial axes."""
     _, h, w, _ = x.shape
     out_h, out_w = (size, size) if isinstance(size, int) else size
     if h != out_h:
-        m = torch.from_numpy(resize_matrix(h, out_h, method)).to(x.device, x.dtype)
-        x = torch.einsum("bhwc,hH->bHwc", x, m)
+        x = torch.einsum("bhwc,hH->bHwc", x, _device_matrix(h, out_h, method, x))
     if w != out_w:
-        m = torch.from_numpy(resize_matrix(w, out_w, method)).to(x.device, x.dtype)
-        x = torch.einsum("bhwc,wW->bhWc", x, m)
+        x = torch.einsum("bhwc,wW->bhWc", x, _device_matrix(w, out_w, method, x))
     return x

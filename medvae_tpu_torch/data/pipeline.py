@@ -1,12 +1,23 @@
 """The data feed and on-device batch preprocessing (counterpart of
-medvae_tpu/data/pipeline.py:33-190,381-453 and medvae_tpu/train/step.py:119-139).
+medvae_tpu/data/pipeline.py and medvae_tpu/train/step.py:119-139).
 
 `DeviceFeeder` walks a split in the JAX feeder's order, bit for bit: the same
 numpy permutation per (seed, epoch), optionally modality-stratified
 (`stratified_order`), the ragged tail dropped in training and wrapped around
-with a `valid` mask in evaluation. Batches are assembled with numpy on the
-host, copied into pinned memory and on to the card with non_blocking copies,
-two batches ahead of the step.
+with a `valid` mask in evaluation. Batches are assembled on the host by the
+native gather (native/, numpy where it cannot build), copied into pinned
+memory and on to the card with non_blocking copies, two batches ahead of the
+step.
+
+`DeviceCachedFeeder` pins the split's uint8 images, labels and modality
+indices on the device once and assembles every batch there (`assemble`:
+gather, one-hot, channel table, `valid`, wraparound), in the JAX package's
+`DeviceCachedFeeder` order for the same seed, bit for bit: the epoch's
+permutation is drawn from `fold_in(PRNGKey(seed), epoch)` by core/threefry.py
+(`jax.random.permutation`, or the stratified order's within-modality
+shuffles from `uniform` and a stable argsort). `assemble` takes the step as
+a 0-d device tensor, so a captured train step (train/multistep.py) builds
+its own batch.
 
 uint8 → float [0, 1] in the compute dtype → (augment) → Normalize(0.5, 0.5) to
 [−1, 1]. The augmentation is the JAX package's: horizontal flip p = 0.5,
@@ -27,6 +38,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from medvae_tpu_torch import native
+from medvae_tpu_torch.core import threefry
 from medvae_tpu_torch.data.medmnist import CHANNELS_BY_MODALITY_INDEX, SplitArrays
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 
@@ -91,17 +104,21 @@ class DeviceFeeder:
 
     def _gather(self, idx: np.ndarray, valid: np.ndarray) -> Dict[str, np.ndarray]:
         a = self.arrays
-        onehot = np.zeros((len(idx), len(MODALITY_NAMES)), np.float32)
-        onehot[np.arange(len(idx)), a.modality_idx[idx]] = 1.0
-        return {
-            "image_u8": a.images[idx],
-            "label": a.labels[idx],
-            "modality_onehot": onehot,
-            "modality_idx": a.modality_idx[idx],
-            # natural channel count per sample, for on-device masking
-            "channels": CHANNELS_BY_MODALITY_INDEX[a.modality_idx[idx]],
-            "valid": valid.astype(np.float32),
-        }
+        batch = native.assemble_batch(a.images, a.labels, a.modality_idx, idx,
+                                      CHANNELS_BY_MODALITY_INDEX, len(MODALITY_NAMES))
+        if batch is None:  # no native library here: numpy, the same bytes
+            onehot = np.zeros((len(idx), len(MODALITY_NAMES)), np.float32)
+            onehot[np.arange(len(idx)), a.modality_idx[idx]] = 1.0
+            batch = {
+                "image_u8": a.images[idx],
+                "label": a.labels[idx],
+                "modality_onehot": onehot,
+                "modality_idx": a.modality_idx[idx],
+                # natural channel count per sample, for on-device masking
+                "channels": CHANNELS_BY_MODALITY_INDEX[a.modality_idx[idx]],
+            }
+        batch["valid"] = valid.astype(np.float32)
+        return batch
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if self.device.type != "cuda":
@@ -134,6 +151,114 @@ class DeviceFeeder:
                 yield pending.popleft()
         while pending:
             yield pending.popleft()
+
+
+class DeviceCachedFeeder:
+    """A split pinned on `device`, every batch assembled there
+    (medvae_tpu/data/pipeline.py:192-372; module docstring). The batches
+    and the `steps_per_epoch` are `DeviceFeeder`'s; only the order differs,
+    and it is the JAX package's device-cached order for the same seed."""
+
+    def __init__(
+        self,
+        arrays: SplitArrays,
+        batch_size: int,
+        device,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        seed: int = 0,
+        stratify: bool = False,
+    ):
+        self.arrays = arrays
+        self.batch_size = int(batch_size)
+        self.device = torch.device(device)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.stratify = bool(stratify) and shuffle
+        n = self._n = len(arrays)
+        if drop_last:
+            self.steps_per_epoch = max(1, n // batch_size) if n >= batch_size else 1
+        else:
+            self.steps_per_epoch = (n + batch_size - 1) // batch_size
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
+        self.images, self.labels, self.midx = put(arrays.images), put(arrays.labels), put(arrays.modality_idx)
+        self._ch_table = put(CHANNELS_BY_MODALITY_INDEX)
+        self._key = threefry.prng_key(seed)
+        if self.stratify:
+            self._strat = self._stratified_plan(np.asarray(arrays.modality_idx))
+
+    def _stratified_plan(self, midx: np.ndarray) -> tuple:
+        """The static slot → (modality, rank) interleave of the JAX feeder
+        (phase 0.5: equal-count modalities tie into an exact round-robin),
+        the (modality, max count) member table and its valid mask."""
+        present = np.unique(midx)
+        counts = np.array([np.sum(midx == m) for m in present])
+        maxc = int(counts.max())
+        members = np.zeros((len(present), maxc), np.int64)
+        pos, mod, rank = [], [], []
+        for g, (m, c) in enumerate(zip(present, counts)):
+            members[g, :c] = np.flatnonzero(midx == m)
+            pos.append((np.arange(c) + 0.5) / c)
+            mod.append(np.full(c, g))
+            rank.append(np.arange(c))
+        slots = np.argsort(np.concatenate(pos), kind="stable")
+        as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)  # noqa: E731
+        valid = torch.from_numpy(np.arange(maxc)[None, :] < counts[:, None]).to(self.device)
+        return (as_t(members), valid, as_t(np.concatenate(mod)[slots]),
+                as_t(np.concatenate(rank)[slots]))
+
+    def __len__(self) -> int:
+        return self._n
+
+    @property
+    def cache_nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.images, self.labels, self.midx))
+
+    def epoch_perm(self, epoch: int) -> torch.Tensor:
+        """The epoch's permutation of [0, n), int64 on the device (a
+        placeholder without shuffle, which `assemble` ignores)."""
+        if not self.shuffle:
+            return torch.zeros((1,), dtype=torch.int64, device=self.device)
+        key = threefry.fold_in(self._key, epoch)
+        if not self.stratify:
+            return threefry.permutation(key, self._n, self.device)
+        members, valid, slot_mod, slot_rank = self._strat
+        # uniform's floats sort as their mantissa bits; invalid slots last
+        u = threefry.uniform_mantissa(key, tuple(members.shape), self.device)
+        u = torch.where(valid, u, torch.full_like(u, 1 << 23))
+        within = torch.sort(u, dim=1, stable=True).indices
+        shuffled = torch.gather(members, 1, within)
+        return shuffled[slot_mod, slot_rank]
+
+    def assemble(self, perm: torch.Tensor, step: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Batch `step` (a 0-d int64 tensor on the device) of the order
+        `perm`: rows past the split wrap around with `valid` 0
+        (medvae_tpu/data/pipeline.py:283-300)."""
+        pos = step * self.batch_size + torch.arange(self.batch_size, device=self.device)
+        valid = (pos < self._n).to(torch.float32)
+        idx = pos % self._n
+        if self.shuffle:
+            idx = perm[idx]
+        mi = self.midx[idx]
+        return {
+            "image_u8": self.images[idx],
+            "label": self.labels[idx],
+            "modality_onehot": torch.nn.functional.one_hot(mi.long(), len(MODALITY_NAMES)).to(torch.float32),
+            "modality_idx": mi,
+            "channels": self._ch_table[mi.long()],
+            "valid": valid,
+        }
+
+    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+        perm = self.epoch_perm(epoch)
+        for step in range(self.steps_per_epoch):
+            yield self.assemble(perm, torch.tensor(step, dtype=torch.int64, device=self.device))
+
+
+def split_cache_nbytes(arrays: SplitArrays) -> int:
+    """What `DeviceCachedFeeder` pins for `arrays`, in bytes, from the host
+    arrays."""
+    return int(arrays.images.nbytes + arrays.labels.nbytes + arrays.modality_idx.nbytes)
 
 
 def augment_draws(

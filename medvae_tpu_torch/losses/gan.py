@@ -64,6 +64,8 @@ class LPIPSWithDiscriminator:
         self.biomed_clip_loss = BiomedCLIPLoss(self.clip_encoder) if self.use_biomedclip_loss else None
 
     def d_valid(self, step: int) -> float:
+        """1.0 from `discriminator_iter_start` on, else 0.0: computed on the
+        host; the step hands it to the loss heads as a 0-d device tensor."""
         return float(int(step) >= self.discriminator_iter_start)
 
     @staticmethod
@@ -78,13 +80,14 @@ class LPIPSWithDiscriminator:
         kl_per_sample_sum: torch.Tensor,
         logits_fake: torch.Tensor,
         d_weight: torch.Tensor,
-        step: int,
+        d_valid: torch.Tensor,
         split: str = "train",
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """`d_valid`: `self.d_valid(step)` as a 0-d fp32 tensor on the
+        inputs' device."""
         p_loss = self.perceptual_loss(frozen["lpips"], inputs, reconstructions)
         pix_loss = self.pixel_l1(inputs, reconstructions)
         kl_loss = kl_per_sample_sum.float().sum() / inputs.shape[0]
-        d_valid = self.d_valid(step)
         g_loss = -logits_fake.float().mean()
         eff_weight = d_valid * d_weight * self.discriminator_factor
         loss = (self.perceptual_factor * p_loss + self.pixel_factor * pix_loss
@@ -97,8 +100,7 @@ class LPIPSWithDiscriminator:
             f"{split}/total_loss": loss.detach(),
             f"{split}/kl_loss": kl_loss.detach(),
             f"{split}/p_loss": p_loss.detach(),
-            f"{split}/d_weight": torch.as_tensor(eff_weight, dtype=torch.float32,
-                                                 device=inputs.device).detach(),
+            f"{split}/d_weight": eff_weight.float().detach(),
             f"{split}/g_loss": (d_valid * g_loss).detach(),
         }
         if self.pixel_factor:
@@ -117,9 +119,9 @@ class LPIPSWithDiscriminator:
         return p
 
     def discriminator_loss(
-        self, logits_real: torch.Tensor, logits_fake: torch.Tensor, step: int, split: str = "train"
+        self, logits_real: torch.Tensor, logits_fake: torch.Tensor, d_valid: torch.Tensor,
+        split: str = "train",
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        d_valid = self.d_valid(step)
         d_loss = d_valid * hinge_d_loss(logits_real, logits_fake)
         return d_loss, {
             f"{split}/d_loss": d_loss.detach(),

@@ -67,6 +67,23 @@ def init_tower(module: nn.Module, seed: int) -> nn.Module:
     return module.eval().requires_grad_(False)
 
 
+
+
+_constants: dict = {}  # (values, device, dtype) -> the tensor there
+
+
+def _constant(values: tuple, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A tower's normalization constants on `like`'s device, made once for a
+    plain tensor (a step that a CUDA graph captures copies nothing from the
+    host); a tracer's tensor gets its own."""
+    key = (values, like.device, dtype)
+    if type(like) is torch.Tensor and key in _constants:
+        return _constants[key]
+    out = torch.tensor(values, dtype=dtype, device=like.device)
+    if type(like) is torch.Tensor and type(out) is torch.Tensor:
+        _constants[key] = out
+    return out
+
 class AlexNetFeatures(nn.Module):
     """AlexNet conv trunk emitting the five LPIPS taps (relu1..relu5); NCHW."""
 
@@ -109,8 +126,8 @@ class LPIPSNet(nn.Module):
         return x / (torch.sqrt(x.square().sum(dim=1, keepdim=True)) + 1e-10)
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        shift = torch.tensor(_LPIPS_SHIFT, device=a.device)
-        scale = torch.tensor(_LPIPS_SCALE, device=a.device)
+        shift = _constant(_LPIPS_SHIFT, a, torch.float32)
+        scale = _constant(_LPIPS_SCALE, a, torch.float32)
         fa = self.alex(_nchw((a - shift) / scale))
         fb = self.alex(_nchw((b - shift) / scale))
         total = torch.zeros((a.shape[0],), dtype=torch.float32, device=a.device)
@@ -176,8 +193,8 @@ class BiomedCLIPLoss:
         img = _to_rgb(torch.clamp((img + 1.0) / 2.0, 0.0, 1.0))
         if img.shape[1:3] != (224, 224):
             img = resize(img, 224, "cubic")
-        mean = torch.tensor(_CLIP_MEAN, dtype=img.dtype, device=img.device)
-        std = torch.tensor(_CLIP_STD, dtype=img.dtype, device=img.device)
+        mean = _constant(_CLIP_MEAN, img, img.dtype)
+        std = _constant(_CLIP_STD, img, img.dtype)
         return (img - mean) / std
 
     def __call__(self, net: nn.Module, img: torch.Tensor, rec: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,12 @@ caller names, as a flax Dense with `dtype=` does.
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from medvae_tpu_torch.ops.attention import attention
@@ -75,12 +79,85 @@ def norm_swish(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return swish(norm(x))
 
 
+class _MaskTape:
+    """The dropout masks of one rematerialized call: drawn from the step's
+    generator on the call's first run, handed back in order on each
+    recompute. `torch.utils.checkpoint` restores only the default
+    generators' states, and the port draws its masks from the step's own
+    (`dropout`), so a recompute that drew again would drop other elements
+    than the forward did and give wrong gradients."""
+
+    def __init__(self):
+        self.masks: list = []
+        self.runs = 0
+        self.replaying = False
+        self.next = 0
+
+
+_tapes = threading.local()  # each thread's stack of the tapes of calls running on it
+
+
+def _tape_stack() -> list:
+    if not hasattr(_tapes, "stack"):
+        _tapes.stack = []
+    return _tapes.stack
+
+
+def _keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
+    """A fresh mask, or the forward's where a rematerialized call is being
+    recomputed; recorded by every recording call around it (the outermost
+    replaying call serves a nested one's first run)."""
+    stack = _tape_stack()
+    replay = next((t for t in stack if t.replaying), None)
+    if replay is not None:
+        mask = replay.masks[replay.next]
+        replay.next += 1
+    else:
+        mask = torch.rand(shape, generator=generator, device=device) < keep
+    for tape in stack:
+        if not tape.replaying:
+            tape.masks.append(mask)
+    return mask
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """The "conv" rung's policy: keep the convolutions' outputs, recompute
+    the rest (the JAX rung's save_only_these_names("resblock_conv"))."""
+    if op is torch.ops.aten.convolution.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, *args, save_convs: bool = False):
+    """`fn(*args)` with its activations rematerialized in the backward pass
+    (non-reentrant `torch.utils.checkpoint`), its dropout masks taped
+    (`_MaskTape`); `save_convs` keeps the convolutions' outputs."""
+    tape = _MaskTape()
+
+    def run(*inner):
+        tape.replaying, tape.next = tape.runs > 0, 0
+        tape.runs += 1
+        stack = _tape_stack()
+        stack.append(tape)
+        try:
+            return fn(*inner)
+        finally:
+            stack.pop()
+
+    kwargs = {}
+    if save_convs:
+        kwargs["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                 _save_conv_outputs)
+    return ckpt.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
     """flax's nn.Dropout: keep each element with probability 1 − rate and
     scale the kept ones by 1 / (1 − rate); the mask is drawn from `generator`
-    (the train step's, on x's device; the default one when None)."""
+    (the train step's, on x's device; the default one when None), or inside
+    a rematerialized call's recompute taken from its tape."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = _keep_mask(x.shape, keep, generator, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -98,7 +175,13 @@ class ResnetBlock(nn.Module):
     `temb_channels` it owns `temb_proj`, and a temb given to forward adds
     Dense(swish(temb)) after conv1 (medvae_tpu/nn/blocks.py:134-137); flax
     creates that Dense only where a temb is passed, so only the encoder of
-    the `inject` ConditionalVAE builds it."""
+    the `inject` ConditionalVAE builds it.
+
+    `remat` ("block", "conv" or False; set by encoder_decoder.set_remat)
+    rematerializes the block in training's backward pass: "block" keeps only
+    its input, "conv" its convolutions' outputs too."""
+
+    remat: str | bool = False
 
     def __init__(self, in_channels: int, out_channels: int | None = None, dropout: float = 0.0,
                  temb_channels: int = 0):
@@ -120,6 +203,12 @@ class ResnetBlock(nn.Module):
         self, x: torch.Tensor, generator: torch.Generator | None = None,
         temb: torch.Tensor | None = None,
     ) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(self._forward, x, generator, temb, save_convs=self.remat == "conv")
+        return self._forward(x, generator, temb)
+
+    def _forward(self, x: torch.Tensor, generator: torch.Generator | None,
+                 temb: torch.Tensor | None) -> torch.Tensor:
         h = self.conv1(norm_swish(self.norm1, x))
         if temb is not None:
             h = h + dense(self.temb_proj, swish(temb), h.dtype)[:, :, None, None]

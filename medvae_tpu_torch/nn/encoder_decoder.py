@@ -14,7 +14,15 @@ ConditionalVAE's conditioning as the JAX Encoder does
 (medvae_tpu/nn/encoder_decoder.py:95-166): a `temb` for every down and mid
 res block (built with `temb_channels`), or `film`, one (scale, shift) pair
 a level applied after the level's blocks and before its downsample. The
-decoder takes neither. Remat is not ported.
+decoder takes neither.
+
+Remat (`set_remat(module, rung)`, medvae_tpu/nn/encoder_decoder.py:26-62 and
+medvae_tpu/models/base_vae.py:23-30): False keeps every activation;
+"block" (or True) rematerializes each ResnetBlock, "conv" each block but
+keeps its convolutions' outputs, "full" the whole Encoder and Decoder with
+"block" nested inside. It changes no parameter, so a built and initialised
+model can move between rungs; dropout masks are taped so the recompute
+drops what the forward dropped (nn/blocks.py:remat).
 """
 
 from __future__ import annotations
@@ -32,7 +40,34 @@ from medvae_tpu_torch.nn.blocks import (
     Upsample,
     make_attn,
     norm_swish,
+    remat,
 )
+
+REMAT_RUNGS = (False, "block", "conv", "full")
+
+
+def remat_rung(value) -> str | bool:
+    """A config's `model.remat` as a rung: False, "block", "conv" or
+    "full" (True means "block"); JAX's ValueError for anything else."""
+    if value in (None, False, 0) or str(value).lower() in ("false", "0", "none", "off"):
+        return False
+    if value is True or str(value).lower() in ("true", "1", "block"):
+        return "block"
+    if str(value).lower() in ("conv", "full"):
+        return str(value).lower()
+    raise ValueError(f"remat={value!r}: expected False, True/'block', 'conv', or 'full'")
+
+
+def set_remat(module: nn.Module, rung) -> nn.Module:
+    """Put every Encoder, Decoder and ResnetBlock under `module` on `rung`
+    (see the module docstring); returns `module`."""
+    rung = remat_rung(rung)
+    for m in module.modules():
+        if isinstance(m, ResnetBlock):
+            m.remat = "block" if rung == "full" else rung
+        elif isinstance(m, (Encoder, Decoder)):
+            m.remat_full = rung == "full"
+    return module
 
 
 def _mid(channels: int, dropout: float, attn_type: str, temb_channels: int = 0) -> nn.Module:
@@ -48,6 +83,8 @@ def _run_mid(mid: nn.Module, h: torch.Tensor, generator, temb=None) -> torch.Ten
 
 
 class Encoder(nn.Module):
+    remat_full = False  # the "full" rung: the whole forward rematerialized
+
     def __init__(
         self,
         *,
@@ -98,6 +135,11 @@ class Encoder(nn.Module):
     ) -> torch.Tensor:
         """`temb`: (b, temb_channels); `film`: a (scale, shift) pair of
         (b, C_level) a level."""
+        if self.remat_full and self.training and torch.is_grad_enabled():
+            return remat(self._forward, x, generator, temb, film)
+        return self._forward(x, generator, temb, film)
+
+    def _forward(self, x, generator, temb, film) -> torch.Tensor:
         h = self.conv_in(x)
         for i_level, level in enumerate(self.down):
             for j, block in enumerate(level.block):
@@ -114,6 +156,8 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
+    remat_full = False  # the "full" rung: the whole forward rematerialized
+
     def __init__(
         self,
         *,
@@ -156,6 +200,11 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
 
     def forward(self, z: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.remat_full and self.training and torch.is_grad_enabled():
+            return remat(self._forward, z, generator)
+        return self._forward(z, generator)
+
+    def _forward(self, z: torch.Tensor, generator) -> torch.Tensor:
         h = _run_mid(self.mid, self.conv_in(z), generator)
         for level in reversed(self.up):
             for j, block in enumerate(level.block):

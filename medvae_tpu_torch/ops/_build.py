@@ -117,3 +117,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def last_failure(name: str) -> str:
+    """The words csrc/<name>.cu's library left for the last failure of one
+    of its launchers on the calling thread (hopper.cuh's
+    `medvae_last_failure`)."""
+    fn = load(name).medvae_last_failure
+    fn.argtypes, fn.restype = [], ctypes.c_char_p
+    return (fn() or b"").decode(errors="replace")

@@ -121,8 +121,10 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     The operands are widened to fp32 for both products; a bf16 value is
     exact in fp32, so this is the JAX einsum with preferred fp32 output."""
     c = q.shape[-1]
+    # c^-½ in fp32, as a CPU scalar operand: no host-to-device copy, which a
+    # captured step (train/multistep.py) could not take
     scale = torch.tensor(float(c), dtype=torch.float32) ** -0.5
-    w = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale.to(q.device)
+    w = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     w = torch.softmax(w, dim=-1)
     return torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
 
@@ -188,7 +190,9 @@ def _launch(name: str, tensors, q: torch.Tensor) -> None:
             *(t.data_ptr() for t in tensors), b, n, c, float(c) ** -0.5, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        from medvae_tpu_torch.ops import _build
+
+        raise RuntimeError(f"{name} kernel launch failed (code {err}): {_build.last_failure('attention')}")
     with _count_lock:
         launches[name] += 1
 

@@ -57,9 +57,10 @@
 //    ragged tails of rows, keys and channels are zero-filled on load, masked in
 //    the softmax and not stored.
 //
-// C interface (bound with ctypes; each launcher returns cudaGetLastError() after
-// its launches; `scratch` is a buffer of medvae_attention_bwd_scratch_bytes
-// the caller allocates):
+// C interface (bound with ctypes; each launcher returns 0, a cudaError_t of its
+// own calls, or one of hopper.cuh's kErr* codes, and names the failure in
+// medvae_last_failure(); `scratch` is a buffer of
+// medvae_attention_bwd_scratch_bytes the caller allocates):
 //   int medvae_attention_max_tokens()   the largest n the launchers take
 //   int medvae_attention_bf16_instance(n, c)   1: Hopper instance, 0: FMA
 //   long long medvae_attention_bwd_scratch_bytes(b, n, c, is_bf16)
@@ -69,6 +70,7 @@
 //   int medvae_attention_bwd_f32 (q, k, v, g, dq, dk, dv, scratch, b, n, c, scale, stream)
 //   int medvae_attention_{fwd,bwd}_bf16_fma(...)   the FMA instance at any shape
 //   int medvae_attention_wgmma_selftest(x, y, z, s, o_k, o_t, o_r, stream)
+//   const char* medvae_last_failure()   the last failure on this thread, in words
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -398,11 +400,11 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int b, int 
   const size_t smem = smem_bytes<32>(n, 1);
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return fail((int)err, "attention_fwd_kernel: cudaFuncSetAttribute: CUDA error %d", (int)err);
   attention_fwd_kernel<T><<<dim3((n + 31) / 32, b), threads<32>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), n, c, scale);
-  return (int)cudaGetLastError();
+  return launch_status("attention_fwd_kernel");
 }
 
 template <int BM, typename T>
@@ -411,10 +413,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, void*
   const size_t smem = smem_bytes<BM>(n, 2);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_kernel<BM, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_cols_kernel<BM, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(attention_bwd_cols_kernel<BM, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (err != cudaSuccess) return fail((int)err, "attention_bwd kernels: cudaFuncSetAttribute: CUDA error %d", (int)err);
   const dim3 grid((n + BM - 1) / BM, b);
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
@@ -423,11 +426,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, void*
   float* st = static_cast<float*>(stats);
   attention_bwd_rows_kernel<BM, T><<<grid, threads<BM>(), smem, stream>>>(
       tq, tk, tv, tg, static_cast<T*>(dq), st, b, n, c, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (int status = launch_status("attention_bwd_rows_kernel")) return status;
   attention_bwd_cols_kernel<BM, T><<<grid, threads<BM>(), smem, stream>>>(
       tq, tk, tv, tg, static_cast<T*>(dk), static_cast<T*>(dv), st, b, n, c, scale);
-  return (int)cudaGetLastError();
+  return launch_status("attention_bwd_cols_kernel");
 }
 
 // B5 with 32-row blocks where their two (n, 36) buffers fit (n <= 736), else 16
@@ -995,21 +997,23 @@ int launch_rows(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap&
   constexpr size_t smem = rows_smem_bytes(kFwd);
   cudaError_t err = cudaFuncSetAttribute(attention_rows_wgmma_kernel<kFwd>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return fail((int)err, "attention_rows_wgmma_kernel: cudaFuncSetAttribute: CUDA error %d", (int)err);
   int blocks = 0;
   err = grid_blocks((long long)b * ((n + kHRows - 1) / kHRows), &blocks);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return fail((int)err, "attention_rows_wgmma_kernel: grid size: CUDA error %d", (int)err);
   attention_rows_wgmma_kernel<kFwd><<<blocks, kHThreads, smem, stream>>>(
       tq, tk, tg, tv, static_cast<bf16*>(out), b, n, c, scale);
-  return (int)cudaGetLastError();
+  return launch_status(kFwd ? "attention_rows_wgmma_kernel<fwd>" : "attention_rows_wgmma_kernel<bwd>");
 }
 
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, int b, int n, int c,
                      float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, b, n, c, kHRows) || !encode_map(&tk, k, b, n, c, kHKeys) ||
-      !encode_map(&tv, v, b, n, c, kHKeys)) {
-    return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if ((err = encode_map_named(&tq, q, b, n, c, kHRows, "q")) ||
+      (err = encode_map_named(&tk, k, b, n, c, kHKeys, "k")) ||
+      (err = encode_map_named(&tv, v, b, n, c, kHKeys, "v"))) {
+    return err;
   }
   return launch_rows<true>(tq, tk, tq, tv, o, b, n, c, scale, stream);
 }
@@ -1021,29 +1025,33 @@ int launch_cols(const CUtensorMap& ts, const CUtensorMap& tq, const CUtensorMap&
   constexpr size_t smem = cols_smem_bytes<NBW>();
   cudaError_t err = cudaFuncSetAttribute(attention_cols_wgmma_kernel<NBW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return fail((int)err, "attention_cols_wgmma_kernel: cudaFuncSetAttribute: CUDA error %d", (int)err);
   const long long tiles = (long long)b * ((n + kHRows - 1) / kHRows) * 3 *
                           ((c / 64 + 2 * NBW - 1) / (2 * NBW));
-  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (tiles > INT_MAX) return fail((int)cudaErrorInvalidValue, "attention_cols_wgmma_kernel: %lld tiles", tiles);
   int blocks = 0;
   err = grid_blocks(tiles, &blocks);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return fail((int)err, "attention_cols_wgmma_kernel: grid size: CUDA error %d", (int)err);
   attention_cols_wgmma_kernel<NBW><<<blocks, kHThreads, smem, stream>>>(
       ts, tq, tk, tg, static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), b, n,
       c, (int)tiles, scale);
-  return (int)cudaGetLastError();
+  return launch_status("attention_cols_wgmma_kernel");
 }
 
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* g, void* dq,
                      void* dk, void* dv, void* scratch, int b, int n, int c, float scale,
                      cudaStream_t stream) {
   CUtensorMap tq, tk, tg, tv, tk64, ts;
-  if (!encode_map(&tq, q, b, n, c, kHRows) || !encode_map(&tk, k, b, n, c, kHKeys) ||
-      !encode_map(&tg, g, b, n, c, kHRows) || !encode_map(&tv, v, b, n, c, kHKeys) ||
-      !encode_map(&tk64, k, b, n, c, kHRows) || !encode_map(&ts, scratch, 6 * b, n, pad64(n), kHRows)) {
-    return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if ((err = encode_map_named(&tq, q, b, n, c, kHRows, "q")) ||
+      (err = encode_map_named(&tk, k, b, n, c, kHKeys, "k")) ||
+      (err = encode_map_named(&tg, g, b, n, c, kHRows, "g")) ||
+      (err = encode_map_named(&tv, v, b, n, c, kHKeys, "v")) ||
+      (err = encode_map_named(&tk64, k, b, n, c, kHRows, "k (64-row boxes)")) ||
+      (err = encode_map_named(&ts, scratch, 6 * b, n, pad64(n), kHRows, "scratch"))) {
+    return err;
   }
-  int err = launch_rows<false>(tq, tk, tg, tv, scratch, b, n, c, scale, stream);
+  err = launch_rows<false>(tq, tk, tg, tv, scratch, b, n, c, scale, stream);
   if (err != 0) return err;
   return c % 256 == 0 ? launch_cols<2>(ts, tq, tk64, tg, dq, dk, dv, b, n, c, scale, stream)
                       : launch_cols<1>(ts, tq, tk64, tg, dq, dk, dv, b, n, c, scale, stream);
@@ -1067,31 +1075,37 @@ extern "C" long long medvae_attention_bwd_scratch_bytes(int b, int n, int c, int
 
 extern "C" int medvae_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                          int b, int n, int c, float scale, void* stream) {
+  if (int stale = check_no_pending_error("medvae_attention_fwd_bf16")) return stale;
+  if (int err = bind_context(q, "medvae_attention_fwd_bf16")) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (takes_wgmma(b, n, c)) return launch_fwd_wgmma(q, k, v, o, b, n, c, scale, s);
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(b, n, c)) return fail((int)cudaErrorInvalidValue, "shape (%d, %d, %d) out of the kernels' range", b, n, c);
   return launch_fwd<bf16>(q, k, v, o, b, n, c, scale, s);
 }
 
 extern "C" int medvae_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                         int b, int n, int c, float scale, void* stream) {
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (int stale = check_no_pending_error("medvae_attention_fwd_f32")) return stale;
+  if (bad_shape(b, n, c)) return fail((int)cudaErrorInvalidValue, "shape (%d, %d, %d) out of the kernels' range", b, n, c);
   return launch_fwd<float>(q, k, v, o, b, n, c, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int medvae_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                          const void* g, void* dq, void* dk, void* dv, void* scratch,
                                          int b, int n, int c, float scale, void* stream) {
+  if (int stale = check_no_pending_error("medvae_attention_bwd_bf16")) return stale;
+  if (int err = bind_context(q, "medvae_attention_bwd_bf16")) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (takes_wgmma(b, n, c)) return launch_bwd_wgmma(q, k, v, g, dq, dk, dv, scratch, b, n, c, scale, s);
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(b, n, c)) return fail((int)cudaErrorInvalidValue, "shape (%d, %d, %d) out of the kernels' range", b, n, c);
   return launch_bwd_any<bf16>(q, k, v, g, dq, dk, dv, scratch, b, n, c, scale, s);
 }
 
 extern "C" int medvae_attention_bwd_f32(const void* q, const void* k, const void* v,
                                         const void* g, void* dq, void* dk, void* dv, void* stats,
                                         int b, int n, int c, float scale, void* stream) {
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (int stale = check_no_pending_error("medvae_attention_bwd_f32")) return stale;
+  if (bad_shape(b, n, c)) return fail((int)cudaErrorInvalidValue, "shape (%d, %d, %d) out of the kernels' range", b, n, c);
   return launch_bwd_any<float>(q, k, v, g, dq, dk, dv, stats, b, n, c, scale,
                            static_cast<cudaStream_t>(stream));
 }
@@ -1101,7 +1115,7 @@ extern "C" int medvae_attention_bwd_f32(const void* q, const void* k, const void
 // wrappers never call these.
 extern "C" int medvae_attention_fwd_bf16_fma(const void* q, const void* k, const void* v, void* o,
                                              int b, int n, int c, float scale, void* stream) {
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(b, n, c)) return fail((int)cudaErrorInvalidValue, "shape (%d, %d, %d) out of the kernels' range", b, n, c);
   return launch_fwd<bf16>(q, k, v, o, b, n, c, scale, static_cast<cudaStream_t>(stream));
 }
 
@@ -1109,7 +1123,7 @@ extern "C" int medvae_attention_bwd_bf16_fma(const void* q, const void* k, const
                                              const void* g, void* dq, void* dk, void* dv,
                                              void* stats, int b, int n, int c, float scale,
                                              void* stream) {
-  if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(b, n, c)) return fail((int)cudaErrorInvalidValue, "shape (%d, %d, %d) out of the kernels' range", b, n, c);
   return launch_bwd_any<bf16>(q, k, v, g, dq, dk, dv, stats, b, n, c, scale,
                           static_cast<cudaStream_t>(stream));
 }
@@ -1120,6 +1134,7 @@ extern "C" int medvae_attention_bwd_bf16_fma(const void* q, const void* k, const
 extern "C" int medvae_attention_wgmma_selftest(const void* x, const void* y, const void* z, void* s,
                                                void* o_k, void* o_t, void* o_r, void* stream) {
   CUtensorMap tx, ty, tz;
+  if (int err = bind_context(x, "medvae_attention_wgmma_selftest")) return err;
   if (!encode_map(&tx, x, 1, 64, 64, 64) || !encode_map(&ty, y, 1, 128, 64, 128) ||
       !encode_map(&tz, z, 1, 64, 64, 64)) {
     return (int)cudaErrorInvalidValue;

@@ -844,6 +844,7 @@ extern "C" int medvae_flash_bwd_bf16(const void* q, const void* k, const void* v
                                      const void* lse, const void* delta, void* dq, void* dk, void* dv,
                                      void* planes, int b, int n, int c, float scale, void* stream) {
   if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (int err = bind_context(q, "medvae_flash_bwd_bf16")) return err;
   return launch_bwd_wgmma(q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta), dq,
                           dk, dv, planes, b, n, c, scale, static_cast<cudaStream_t>(stream));
 }
@@ -854,6 +855,7 @@ extern "C" int medvae_flash_bwd_bf16(const void* q, const void* k, const void* v
 extern "C" int medvae_flash_bwd_selftest(const void* x, const void* z, void* o256, void* o256t, void* o128,
                                          void* o128t, void* st, void* stream) {
   CUtensorMap tx, tz, tst;
+  if (int err = bind_context(x, "medvae_flash_bwd_selftest")) return err;
   if (!encode_map(&tx, x, 1, 64, 64, 64) || !encode_map(&tz, z, 1, 64, 256, 64) ||
       !encode_map(&tst, st, 1, 64, 128, 64)) {
     return (int)cudaErrorInvalidValue;

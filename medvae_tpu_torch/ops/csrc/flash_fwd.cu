@@ -804,6 +804,7 @@ extern "C" int medvae_flash_fwd_bf16(const void* q, const void* k, const void* v
                                      void* lse, int b, int n, int c, float scale,
                                      void* stream) {
   if (bad_shape(b, n, c)) return (int)cudaErrorInvalidValue;
+  if (int err = bind_context(q, "medvae_flash_fwd_bf16")) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (takes_wgmma(c) ? c : 0) {  // the instance is chosen by c alone
@@ -827,6 +828,7 @@ extern "C" int medvae_flash_fwd_bf16_instance(int c) { return takes_wgmma(c) ? 1
 extern "C" int medvae_flash_wgmma_selftest(const void* q, const void* k, const void* v, void* s,
                                            void* o, void* o_staged, void* stream) {
   CUtensorMap tq, tk, tv;
+  if (int err = bind_context(q, "medvae_flash_wgmma_selftest")) return err;
   if (!encode_map(&tq, q, 1, kWgRows, 128, kWgRows) || !encode_map(&tk, k, 1, kWgKeys, 128, kWgKeys) ||
       !encode_map(&tv, v, 1, kWgKeys, 128, kWgKeys)) {
     return (int)cudaErrorInvalidValue;

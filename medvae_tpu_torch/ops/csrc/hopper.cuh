@@ -13,6 +13,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -192,38 +193,136 @@ __device__ __forceinline__ void wgmma_m64n64_ss_tb(float* d, uint64_t da, uint64
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The launchers' own failure codes, beside cudaError_t's (all below 1000):
+// the entry point of cuTensorMapEncodeTiled was not resolved, the encoder
+// refused a map, or an error was pending on this thread before the launch.
+// The words of the last failure on the calling thread are in
+// medvae_last_failure() (below).
+constexpr int kErrEntryPoint = 1001;
+constexpr int kErrEncode = 1002;
+constexpr int kErrStale = 1003;
+
+thread_local char g_failure[384];
+
+template <typename... A>
+int fail(int code, const char* fmt, A... args) {
+  snprintf(g_failure, sizeof(g_failure), fmt, args...);
+  return code;
+}
+
 // cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no link against libcuda.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {  // resolved once, thread-safely
+// needs no link against libcuda. The resolution's own outcome is kept, so a
+// failure names it.
+struct TensorMapEncoder {
+  PFN_cuTensorMapEncodeTiled_v12000 fn;
+  cudaError_t err;
+  cudaDriverEntryPointQueryResult found;
+};
+
+const TensorMapEncoder& tensor_map_encoder() {
+  static const TensorMapEncoder resolved = [] {  // resolved once, thread-safely
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
 #else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
 #endif
-    return found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
+    TensorMapEncoder out{nullptr, err, found};
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      out.fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+    return out;
   }();
-  return fn;
+  return resolved;
+}
+
+// At the entry of a launcher that encodes maps: when no context is current
+// on the calling thread, make the primary context of the device that holds
+// `ptr` current (cudaSetDevice initializes and binds it since CUDA 12); a
+// thread with a current context keeps it, and its device.
+// cuTensorMapEncodeTiled is a driver call and needs a current context, where
+// a runtime call binds one implicitly: on a thread whose first CUDA work is a
+// launcher of this library (autograd's device thread running B5 when the
+// backward reached it through no PyTorch op that touched the runtime there;
+// PyTorch's device guard skips cudaSetDevice when the device is already the
+// thread's), the encoder returned CUDA_ERROR_INVALID_CONTEXT (201).
+int bind_context(const void* ptr, const char* launcher) {
+  static const PFN_cuCtxGetCurrent_v4000 current = [] {  // resolved once, thread-safely
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuCtxGetCurrent", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuCtxGetCurrent", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<PFN_cuCtxGetCurrent_v4000>(p)
+                                                : nullptr;
+  }();
+  CUcontext ctx = nullptr;
+  if (current != nullptr && current(&ctx) == CUDA_SUCCESS && ctx != nullptr) return 0;
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  if (err == cudaSuccess) err = cudaSetDevice(attr.device);
+  if (err != cudaSuccess) {
+    return fail((int)err, "%s: binding the context of the operands' device: CUDA error %d (%s)",
+                launcher, (int)err, cudaGetErrorString(err));
+  }
+  return 0;
 }
 
 // A 3-D map over a contiguous bf16 (b, n, c) tensor, innermost first, with
 // boxes of 64 channels x `rows` rows x 1 batch element, 128-byte swizzle,
-// and zero fill past n.
-bool encode_map(CUtensorMap* map, const void* ptr, int b, int n, int c, int rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
+// and zero fill past n, in the calling thread's context (`bind_context`).
+// Returns 0, kErrEntryPoint or kErrEncode; a failure names the map (`name`)
+// in medvae_last_failure().
+int encode_map_named(CUtensorMap* map, const void* ptr, int b, int n, int c, int rows,
+                     const char* name) {
+  const TensorMapEncoder& enc = tensor_map_encoder();
+  if (enc.fn == nullptr) {
+    return fail(kErrEntryPoint,
+                "cuTensorMapEncodeTiled was not resolved (runtime error %d, query result %d) "
+                "for map %s",
+                (int)enc.err, (int)enc.found, name);
+  }
   const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)n, (cuuint64_t)b};
   const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)n * c * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUresult r = enc.fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) {
+    return fail(kErrEncode,
+                "cuTensorMapEncodeTiled refused map %s (CUresult %d): address %p, dims (%d, %d, "
+                "%d), box rows %d",
+                name, (int)r, ptr, c, n, b, rows);
+  }
+  return 0;
+}
+
+bool encode_map(CUtensorMap* map, const void* ptr, int b, int n, int c, int rows) {
+  return encode_map_named(map, ptr, b, n, c, rows, "(unnamed)") == 0;
+}
+
+// At a launcher's entry: kErrStale, naming the error, when a runtime error of
+// this library is already pending on this thread (it would otherwise come
+// back from the launch's own cudaGetLastError()), else 0.
+int check_no_pending_error(const char* launcher) {
+  const cudaError_t pending = cudaGetLastError();
+  if (pending == cudaSuccess) return 0;
+  return fail(kErrStale, "%s: runtime error %d (%s) was pending before the launch", launcher,
+              (int)pending, cudaGetErrorString(pending));
+}
+
+// After a launch: the launch's cudaError_t, named in medvae_last_failure().
+int launch_status(const char* kernel) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) return 0;
+  return fail((int)err, "%s: launch failed: CUDA error %d (%s)", kernel, (int)err,
+              cudaGetErrorString(err));
 }
 
 // D(64 x 128, fp32) += A(64 x 16, smem) B(16 x 128, smem), both K-major.
@@ -395,3 +494,7 @@ cudaError_t grid_blocks(long long tiles, int* blocks) {
 }
 
 }  // namespace
+
+// The words of the last failure of a launcher of this library on the calling
+// thread (each library that includes this header has its own).
+extern "C" const char* medvae_last_failure() { return g_failure; }

@@ -18,6 +18,13 @@ PyTorch's own pieces differ:
 
 Params, moments and updates are lists of tensors; `update` advances the state
 in place (no second copy of the moments) and returns the updates.
+
+An update reads nothing from the host while it runs, so a CUDA graph can
+capture it (train/multistep.py): `prepare` computes the step's learning rate
+and bias corrections on the host (float32, as before) and fills them into
+0-d tensors on the params' device (`OptState.scalars`); `apply` is the
+device arithmetic over them. `update` is the two in turn, and the captured
+path runs the same `apply`.
 """
 
 from __future__ import annotations
@@ -76,6 +83,9 @@ class OptState:
     count: int  # updates applied so far
     mu: List[torch.Tensor]  # first moments
     nu: List[torch.Tensor]  # second moments
+    # the next update's −lr and bias corrections: 0-d fp32 on the params'
+    # device, filled by Optimizer.prepare
+    scalars: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,35 +99,56 @@ class Optimizer:
     clip: Optional[float] = 1.0
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
+        device = params[0].device if len(params) else torch.device("cpu")
+        scalars = {k: torch.zeros((), dtype=torch.float32, device=device) for k in ("neg_lr", "bc1", "bc2")}
         return OptState(count=0, mu=[torch.zeros_like(p) for p in params],
-                        nu=[torch.zeros_like(p) for p in params])
+                        nu=[torch.zeros_like(p) for p in params], scalars=scalars)
 
     def _bias_correction(self, decay: float, count: int) -> float:
         return float(np.float32(1.0) - np.float32(decay) ** np.int32(count))
 
     @torch.no_grad()
-    def update(
+    def prepare(self, state: OptState) -> None:
+        """Fill `state.scalars` for the update that follows `state.count`
+        updates: −schedule(count) and the float32 bias corrections of
+        count + 1 (each cast to float32 as a Python scalar operand is)."""
+        count = state.count + 1
+        values = {"neg_lr": -self.schedule(state.count), "bc1": self._bias_correction(self.b1, count),
+                  "bc2": self._bias_correction(self.b2, count)}
+        for name, value in values.items():
+            state.scalars[name].fill_(value)
+
+    @torch.no_grad()
+    def apply(
         self, grads: Sequence[torch.Tensor], state: OptState, params: Sequence[torch.Tensor]
-    ) -> Tuple[List[torch.Tensor], OptState]:
-        """(updates, state) for `grads`; the caller adds the updates to the
-        params. `state` is advanced in place and returned."""
+    ) -> List[torch.Tensor]:
+        """The updates for `grads` from the prepared scalars, the moments
+        advanced in place; device work only (capturable). The caller adds
+        the updates to the params."""
+        s = state.scalars
         grads = [torch.where(torch.isnan(g), 0.0, g.float()) for g in grads]
         if self.clip:
             norm = global_norm(grads)
             keep = norm < self.clip
             grads = [torch.where(keep, g, (g / norm) * self.clip) for g in grads]
-        lr = self.schedule(state.count)
-        state.count += 1
-        bc1 = self._bias_correction(self.b1, state.count)
-        bc2 = self._bias_correction(self.b2, state.count)
         updates = []
         for g, m, v, p in zip(grads, state.mu, state.nu, params):
             m.copy_((1.0 - self.b1) * g + self.b1 * m)
             v.copy_((1.0 - self.b2) * g.square() + self.b2 * v)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            u = (m / s["bc1"]) / (torch.sqrt(v / s["bc2"]) + self.eps)
             if self.kind == "adamw":
                 u = u + self.weight_decay * p
-            updates.append(u * -lr)
+            updates.append(u * s["neg_lr"])
+        return updates
+
+    def update(
+        self, grads: Sequence[torch.Tensor], state: OptState, params: Sequence[torch.Tensor]
+    ) -> Tuple[List[torch.Tensor], OptState]:
+        """(updates, state) for `grads`: `prepare`, `apply`, and the count
+        advanced. `state` is advanced in place and returned."""
+        self.prepare(state)
+        updates = self.apply(grads, state, params)
+        state.count += 1
         return updates, state
 
 

@@ -40,8 +40,10 @@ term is multiplied by 0, so D still runs and moves its statistics, and adamw
 still decays its params, as in the JAX package. Metrics are the loss's log
 (`train/total_loss` … `train/logits_fake`), without a grad norm.
 
-`accumulate_grad_batches` > 1 is not ported yet and raises
-NotImplementedError, on the GAN path too.
+`build_train_step` returns a `TrainStep`: a callable whose host part
+(`prepare`, `finish`) and device part (`run`) a CUDA graph can split, and
+which splits a batch into `accumulate_grad_batches` microbatches, on the GAN
+path too (see `TrainStep`).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from medvae_tpu_torch.core.rng import fold_in
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import preprocess
 from medvae_tpu_torch.losses.elbo import DisentangledVAELoss, VAELoss, gaussian_kl
@@ -249,8 +252,7 @@ def build_loss_and_grads(
     (loss_dict, grads)`: the train step up to the gradients of the loss with
     respect to `state.params`, in their order (zeros for a param the loss
     does not reach, as jax.grad gives)."""
-    criterion = make_criterion(loss_cfg, model)
-    forward = make_forward_fn(model)
+    grads_of = _loss_and_grads_of(model, loss_cfg)
     compute_dtype = model.dtype
 
     def loss_and_grads(
@@ -259,48 +261,39 @@ def build_loss_and_grads(
         generator: Optional[torch.Generator] = None,
         draws: Optional[Dict[str, torch.Tensor]] = None,
     ):
-        params = list(state.params.values())
         x = preprocess(
             batch, generator, augment=augment, max_channels=max_channels,
             dtype=compute_dtype, draws=draws,
         )
-        outputs = forward(x, batch, generator)
-        loss_dict = criterion(state.frozen, outputs, x)
-        grads = _grads_or_zeros(loss_dict["loss"], params)
-        return {k: v.detach() for k, v in loss_dict.items()}, grads
+        return grads_of(state, x, batch, generator)
 
     return loss_and_grads
 
 
-def build_gan_grads(
-    model: torch.nn.Module,
-    disc: torch.nn.Module,
-    loss_cfg: Dict[str, Any],
-    *,
-    augment: bool = False,
-    max_channels: int = 3,
-):
-    """`gan_grads(state, batch, generator=None, draws=None) -> (g_grads,
-    d_grads, logs)`: steps (1)-(5) of the GAN step (module docstring), the
-    generator's gradients in `state.params`' order and D's in
-    `state.disc_params`' (medvae_tpu/train/step.py:make_gan_grads_fn). D's
-    BatchNorm statistics are updated in place, twice."""
+def _loss_and_grads_of(model: torch.nn.Module, loss_cfg: Dict[str, Any]) -> Callable:
+    """(state, x, batch, generator) -> (loss_dict, grads) on a preprocessed x."""
+    criterion = make_criterion(loss_cfg, model)
+    forward = make_forward_fn(model)
+
+    def grads_of(state: TrainState, x: torch.Tensor, batch, generator):
+        outputs = forward(x, batch, generator)
+        loss_dict = criterion(state.frozen, outputs, x)
+        grads = _grads_or_zeros(loss_dict["loss"], list(state.params.values()))
+        return {k: v.detach() for k, v in loss_dict.items()}, grads
+
+    return grads_of
+
+
+def _gan_grads_of(model: torch.nn.Module, disc: torch.nn.Module, loss_cfg: Dict[str, Any]) -> Callable:
+    """(state, x, batch, generator, d_valid) -> (g_grads, d_grads, logs):
+    steps (1)-(5) of the GAN step on a preprocessed x (module docstring)."""
     gan_loss = make_gan_loss(loss_cfg)
     forward = make_forward_fn(model)
     decode = make_decode_fn(model)
     conv_out = model.decoder.conv_out.weight
     redecode = any(m.dropout for m in model.decoder.modules() if isinstance(m, ResnetBlock))
 
-    def gan_grads(
-        state: TrainState,
-        batch: Dict[str, torch.Tensor],
-        generator: Optional[torch.Generator] = None,
-        draws: Optional[Dict[str, torch.Tensor]] = None,
-    ):
-        x = preprocess(
-            batch, generator, augment=augment, max_channels=max_channels,
-            dtype=model.dtype, draws=draws,
-        )
+    def gan_grads(state: TrainState, x: torch.Tensor, batch, generator, d_valid: torch.Tensor):
         outputs = forward(x, batch, generator)
         recon = outputs["reconstruction"]
         kl = gaussian_kl(outputs["mean"], outputs["logvar"])
@@ -321,20 +314,52 @@ def build_gan_grads(
         d_weight = adaptive_weight([nll_grad], [g_grad])
 
         loss, g_log = gan_loss.generator_loss(state.frozen, x, recon, kl_per_sample, logits_fake,
-                                              d_weight, state.step)
+                                              d_weight, d_valid)
         g_grads = _grads_or_zeros(loss, list(state.params.values()))
 
         recon = recon.detach()
         logits_real = disc(discriminator_input(x), train=True)
         logits_fake = disc(discriminator_input(recon), train=True)
-        d_loss, d_log = gan_loss.discriminator_loss(logits_real, logits_fake, state.step)
+        d_loss, d_log = gan_loss.discriminator_loss(logits_real, logits_fake, d_valid)
         d_grads = _grads_or_zeros(d_loss, list(state.disc_params.values()))
         return g_grads, d_grads, {**g_log, **d_log}
 
     return gan_grads
 
 
-def _apply(params, updates, lr_scale: float) -> None:
+def build_gan_grads(
+    model: torch.nn.Module,
+    disc: torch.nn.Module,
+    loss_cfg: Dict[str, Any],
+    *,
+    augment: bool = False,
+    max_channels: int = 3,
+):
+    """`gan_grads(state, batch, generator=None, draws=None) -> (g_grads,
+    d_grads, logs)`: steps (1)-(5) of the GAN step (module docstring), the
+    generator's gradients in `state.params`' order and D's in
+    `state.disc_params`' (medvae_tpu/train/step.py:make_gan_grads_fn). D's
+    BatchNorm statistics are updated in place, twice."""
+    gan_loss = make_gan_loss(loss_cfg)
+    grads_of = _gan_grads_of(model, disc, loss_cfg)
+
+    def gan_grads(
+        state: TrainState,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Dict[str, torch.Tensor]] = None,
+    ):
+        x = preprocess(
+            batch, generator, augment=augment, max_channels=max_channels,
+            dtype=model.dtype, draws=draws,
+        )
+        d_valid = torch.tensor(gan_loss.d_valid(state.step), device=x.device)
+        return grads_of(state, x, batch, generator, d_valid)
+
+    return gan_grads
+
+
+def _apply(params, updates, lr_scale: torch.Tensor) -> None:
     with torch.no_grad():
         for p, u in zip(params, updates):
             p.add_(u * lr_scale)
@@ -345,6 +370,129 @@ def _ema(state: TrainState, ema_decay: float) -> None:
         with torch.no_grad():
             for e, p in zip(state.ema_params.values(), state.params.values()):
                 e.copy_(e * ema_decay + p * (1.0 - ema_decay))
+
+
+def _microbatches(x: torch.Tensor, batch: Dict[str, torch.Tensor], k: int):
+    """k (x, batch) slices of the leading axis; a batch k does not divide
+    raises JAX's ValueError."""
+    if x.shape[0] % k != 0:
+        raise ValueError(f"batch size {x.shape[0]} not divisible by accumulate_grad_batches={k}")
+    mb = x.shape[0] // k
+    return [(x[i * mb:(i + 1) * mb], {n: t[i * mb:(i + 1) * mb] for n, t in batch.items()})
+            for i in range(k)]
+
+
+def _accumulate(total: Optional[list], part: list) -> list:
+    """total + part, leaf by leaf in fp32, from zeros as JAX's scan carries."""
+    if total is None:
+        total = [torch.zeros_like(t, dtype=torch.float32) for t in part]
+    for acc, t in zip(total, part):
+        acc.add_(t)
+    return total
+
+
+class TrainStep:
+    """`step(state, batch, generator=None, draws=None) -> (state, metrics)`,
+    in three parts that a CUDA graph can split (train/multistep.py):
+
+      * `prepare(state, generator)`, on the host: fills the step's 0-d
+        device scalars (each optimizer's −lr and bias corrections,
+        `lr_scale`, the GAN's d_valid) and seeds the microbatch generators;
+      * `run(state, batch, generator, draws) -> metrics`: the step's device
+        work, reading nothing from the host; the params, moments, EMA and
+        D's state are updated in place;
+      * `finish(state) -> state`: the counts advanced.
+
+    Calling the object runs the three; a captured chunk replays `run` and
+    calls the other two around each replay, so both paths run this code.
+
+    With `accumulate_grad_batches` k > 1 (medvae_tpu/train/step.py:465-517,
+    :555-): the batch, preprocessed whole, is split into k microbatches;
+    their gradients (G's and D's on the GAN path, with D's BatchNorm
+    statistics threaded through them in turn) and loss dicts are summed in
+    fp32 and divided by k, then one update is applied. Microbatch i draws
+    its noise and dropout from its own generator, seeded with
+    `fold_in(generator.initial_seed(), i)`.
+    """
+
+    def __init__(self, run_grads: Callable, optimizers: Callable, *, gan_loss=None, grad_norm: bool = False,
+                 ema_decay: float = 0.0, accumulate_grad_batches: int = 1, augment: bool = False,
+                 max_channels: int = 3, compute_dtype: torch.dtype = torch.float32):
+        self._run_grads = run_grads  # (state, x, batch, generator, d_valid) -> (grads by optimizer, logs)
+        self._optimizers = optimizers  # state -> [(optimizer, its params, its state)]
+        self.gan_loss = gan_loss
+        self.grad_norm = grad_norm  # metrics["train/grad_norm"] of the (averaged) gradients
+        self.ema_decay = ema_decay
+        self.k = int(accumulate_grad_batches)
+        self.augment, self.max_channels, self.compute_dtype = augment, max_channels, compute_dtype
+        self._scalars: Dict[str, torch.Tensor] = {}
+        self._mb_generators: list = []
+
+    def _scalar(self, name: str, device) -> torch.Tensor:
+        if name not in self._scalars:
+            self._scalars[name] = torch.zeros((), dtype=torch.float32, device=device)
+        return self._scalars[name]
+
+    def microbatch_generators(self, generator: Optional[torch.Generator]) -> list:
+        """The k microbatch generators on `generator`'s device (none when
+        k is 1 or there is no generator)."""
+        if self.k <= 1 or generator is None:
+            return []
+        if not self._mb_generators:
+            self._mb_generators = [torch.Generator(device=generator.device) for _ in range(self.k)]
+        return self._mb_generators
+
+    def prepare(self, state: TrainState, generator: Optional[torch.Generator] = None) -> None:
+        device = next(iter(state.params.values())).device
+        for tx, _, opt_state in self._optimizers(state):
+            tx.prepare(opt_state)
+        self._scalar("lr_scale", device).fill_(float(state.lr_scale))
+        if self.gan_loss is not None:
+            self._scalar("d_valid", device).fill_(self.gan_loss.d_valid(state.step))
+        for i, gen in enumerate(self.microbatch_generators(generator)):
+            gen.manual_seed(fold_in(generator.initial_seed(), i))
+
+    def run(self, state: TrainState, batch: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator] = None,
+            draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        x = preprocess(batch, generator, augment=self.augment, max_channels=self.max_channels,
+                       dtype=self.compute_dtype, draws=draws)
+        d_valid = self._scalars.get("d_valid")
+        if self.k <= 1:
+            grads, logs = self._run_grads(state, x, batch, generator, d_valid)
+        else:
+            gens = self.microbatch_generators(generator) or [None] * self.k
+            grads = logs = None
+            for (x_i, batch_i), gen in zip(_microbatches(x, batch, self.k), gens):
+                g_i, logs_i = self._run_grads(state, x_i, batch_i, gen, d_valid)
+                grads = [_accumulate(None if grads is None else grads[j], g) for j, g in enumerate(g_i)]
+                names = list(logs_i)
+                summed = _accumulate(None if logs is None else [logs[n] for n in names],
+                                     [logs_i[n] for n in names])
+                logs = dict(zip(names, summed))
+            grads = [[g / self.k for g in part] for part in grads]
+            logs = {n: v / self.k for n, v in logs.items()}
+        if self.grad_norm:
+            logs["train/grad_norm"] = global_norm(grads[0])
+        lr_scale = self._scalars["lr_scale"]
+        updates = [tx.apply(g, opt_state, params)
+                   for (tx, params, opt_state), g in zip(self._optimizers(state), grads)]
+        for (_, params, _), u in zip(self._optimizers(state), updates):
+            _apply(params, u, lr_scale)
+        _ema(state, self.ema_decay)
+        return logs
+
+    def finish(self, state: TrainState) -> TrainState:
+        for _, _, opt_state in self._optimizers(state):
+            opt_state.count += 1
+        return dataclasses.replace(state, step=state.step + 1)
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[Dict[str, torch.Tensor]] = None):
+        self.prepare(state, generator)
+        metrics = self.run(state, batch, generator, draws)
+        return self.finish(state), metrics
 
 
 def build_train_step(
@@ -358,52 +506,37 @@ def build_train_step(
     accumulate_grad_batches: int = 1,
     disc: Optional[torch.nn.Module] = None,
     disc_tx: Optional[Optimizer] = None,
-):
+) -> TrainStep:
     """The standard single-optimizer train step, or with `disc` and
-    `disc_tx` the GAN step; see the module docstring."""
-    if accumulate_grad_batches > 1:
-        raise NotImplementedError("accumulate_grad_batches > 1 is not ported yet")
+    `disc_tx` the GAN step; see the module docstring and `TrainStep`."""
+    common = dict(ema_decay=ema_decay, accumulate_grad_batches=accumulate_grad_batches,
+                  augment=augment, max_channels=max_channels, compute_dtype=model.dtype)
     if str(loss_cfg.get("type", "vae")) == "lpips_discriminator":
         if disc is None or disc_tx is None:
             raise ValueError("the lpips_discriminator loss trains with a discriminator and its "
                              "optimizer: pass disc= and disc_tx=")
-        gan_grads = build_gan_grads(model, disc, loss_cfg, augment=augment, max_channels=max_channels)
+        gan_grads = _gan_grads_of(model, disc, loss_cfg)
 
-        def gan_step(
-            state: TrainState,
-            batch: Dict[str, torch.Tensor],
-            generator: Optional[torch.Generator] = None,
-            draws: Optional[Dict[str, torch.Tensor]] = None,
-        ):
-            g_grads, d_grads, logs = gan_grads(state, batch, generator, draws)
-            params, d_params = list(state.params.values()), list(state.disc_params.values())
-            updates, opt_state = tx.update(g_grads, state.opt_state, params)
-            d_updates, d_opt_state = disc_tx.update(d_grads, state.disc_opt_state, d_params)
-            _apply(params, updates, state.lr_scale)
-            _apply(d_params, d_updates, state.lr_scale)
-            _ema(state, ema_decay)
-            return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state,
-                                       disc_opt_state=d_opt_state), logs
+        def run_gan(state, x, batch, generator, d_valid):
+            g_grads, d_grads, logs = gan_grads(state, x, batch, generator, d_valid)
+            return (g_grads, d_grads), logs
 
-        return gan_step
-    loss_and_grads = build_loss_and_grads(model, loss_cfg, augment=augment, max_channels=max_channels)
+        def gan_optimizers(state):
+            return [(tx, list(state.params.values()), state.opt_state),
+                    (disc_tx, list(state.disc_params.values()), state.disc_opt_state)]
 
-    def step(
-        state: TrainState,
-        batch: Dict[str, torch.Tensor],
-        generator: Optional[torch.Generator] = None,
-        draws: Optional[Dict[str, torch.Tensor]] = None,
-    ):
-        params = list(state.params.values())
-        loss_dict, grads = loss_and_grads(state, batch, generator, draws)
+        return TrainStep(run_gan, gan_optimizers, gan_loss=make_gan_loss(loss_cfg), **common)
+    grads_of = _loss_and_grads_of(model, loss_cfg)
+
+    def run_plain(state, x, batch, generator, d_valid):
+        loss_dict, grads = grads_of(state, x, batch, generator)
         metrics = {f"train/{k}": v for k, v in loss_dict.items()}
-        metrics["train/grad_norm"] = global_norm(grads)
-        updates, opt_state = tx.update(grads, state.opt_state, params)
-        _apply(params, updates, state.lr_scale)
-        _ema(state, ema_decay)
-        return dataclasses.replace(state, step=state.step + 1, opt_state=opt_state), metrics
+        return (grads,), metrics
 
-    return step
+    def optimizers(state):
+        return [(tx, list(state.params.values()), state.opt_state)]
+
+    return TrainStep(run_plain, optimizers, grad_norm=True, **common)
 
 
 def build_eval_step(
@@ -424,21 +557,30 @@ def build_eval_step(
         gan_loss = make_gan_loss(loss_cfg)
     criterion = make_criterion(loss_cfg, model)
 
+    d_valid: Dict[Any, torch.Tensor] = {}  # the GAN gate's 0-d tensor by device, filled by prepare
+
+    def prepare(state: TrainState) -> None:
+        if gan_loss is not None:
+            device = next(iter(state.params.values())).device
+            if device not in d_valid:
+                d_valid[device] = torch.zeros((), dtype=torch.float32, device=device)
+            d_valid[device].fill_(gan_loss.d_valid(state.step))
+
     def gan_terms(state, outputs, x):
         recon = outputs["reconstruction"]
         kl = gaussian_kl(outputs["mean"], outputs["logvar"])
         logits_fake = disc(discriminator_input(recon), train=False)
         loss, g_log = gan_loss.generator_loss(
             state.frozen, x, recon, kl.reshape(kl.shape[0], -1).sum(dim=1), logits_fake,
-            torch.zeros((), device=x.device), state.step, split="val")
+            torch.zeros((), device=x.device), d_valid[x.device], split="val")
         logits_real = disc(discriminator_input(x), train=False)
-        _, d_log = gan_loss.discriminator_loss(logits_real, logits_fake, state.step, split="val")
+        _, d_log = gan_loss.discriminator_loss(logits_real, logits_fake, d_valid[x.device], split="val")
         return {"loss": loss, **{k.split("/", 1)[1]: v for k, v in {**g_log, **d_log}.items()}}
     forward = make_forward_fn(model)
     n_mod = max(n_modalities, len(MODALITY_NAMES), int(getattr(model, "num_modalities", 0) or 0))
 
     @torch.no_grad()
-    def eval_step(
+    def run(
         state: TrainState, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:
         was_training = model.training
@@ -467,4 +609,13 @@ def build_eval_step(
             metrics["val/_zmod_sum_by_mod"] = onehot.T @ (z_mod.float() * v[:, None])
         return metrics
 
+    def eval_step(
+        state: TrainState, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        prepare(state)
+        return run(state, batch, generator)
+
+    # the host part and the device part apart, for a captured eval
+    # (train/multistep.py:build_eval_chunk_runner)
+    eval_step.prepare, eval_step.run = prepare, run
     return eval_step

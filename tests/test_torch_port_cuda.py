@@ -903,3 +903,249 @@ def test_export_round_trip_on_the_card(gen, tmp_path, monkeypatch):
     assert tuple(a - b for a, b in zip(after, before)) == (3, 2, sites)
     want = InferenceEngine(model, buckets=(4,), device="cuda").reconstruct(x, modality=m)
     np.testing.assert_array_equal(got, want)
+
+
+# --------------------------- B5's first launch on a thread (ROADMAP §C) ---- #
+
+
+def _fresh_process(code: str) -> None:
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_b5_through_autograd_after_b6_b7_in_a_fresh_process(gen):
+    """B6/B7 through autograd, then B5 through autograd as the process's
+    first attention work: autograd's device thread reaches B5 with no
+    PyTorch op before it there, so no context was current on that thread
+    and cuTensorMapEncodeTiled refused the map (CUresult 201) until the
+    launcher bound the device's context itself (hopper.cuh:bind_context)."""
+    _fresh_process(
+        "import torch\n"
+        "from medvae_tpu_torch.ops import attention as at, groupnorm_swish as gs\n"
+        "x = torch.randn(4, 64, 28, 28, device='cuda', dtype=torch.bfloat16, requires_grad=True)\n"
+        "w = torch.ones(64, device='cuda', requires_grad=True)\n"
+        "b = torch.zeros(64, device='cuda', requires_grad=True)\n"
+        "torch.autograd.grad(gs.GroupNormSwish.apply(x, w, b, 32, 1e-6).float().sum(), (x, w, b))\n"
+        "q, k, v, g = (torch.randn(4, 256, 1024, device='cuda').to(torch.bfloat16) for _ in range(4))\n"
+        "leaves = [t.requires_grad_(True) for t in (q, k, v)]\n"
+        "torch.autograd.grad(at.FusedAttention.apply(*leaves), leaves, g)\n"
+        "torch.cuda.synchronize()\n"
+        "assert at.launches == {'attention_fwd': 1, 'attention_bwd': 1}, at.launches\n")
+
+
+def test_chip_smoke_attention_phase_after_the_flash_phase_in_a_fresh_process(gen):
+    """The order that failed (ROADMAP §C): phase_build, phase_kernel (B1
+    only), then phase_attn_kernel, whose FusedAttention check runs B5 on
+    autograd's device thread first."""
+    _fresh_process("import chip_smoke as c; c.phase_build(); c.phase_kernel(); c.phase_attn_kernel()")
+
+
+def test_b5_launches_from_a_fresh_thread(gen):
+    """B5 called directly on a new host thread, whose first CUDA work it is."""
+    import threading
+
+    q, k, v, g = _qkv(gen, (4, 256, 1024), torch.bfloat16, 4)
+    want = at.fused_attention_bwd(q, k, v, g)
+    got = {}
+
+    def work():
+        try:
+            got["grads"] = at.fused_attention_bwd(q, k, v, g)
+        except RuntimeError as e:
+            got["error"] = str(e)
+
+    thread = threading.Thread(target=work)
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive() and "error" not in got, got.get("error")
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))
+
+
+# ------------------------------------------ fast paths under graph replay ---- #
+
+FAST_MODELS = {
+    # B6/B7 at every GroupNorm+SiLU site (MEDVAE_FUSED_GN=1), dropout 0.1
+    "gn": dict(_target_="BaseVAE", input_channels=3, latent_dim=4, hidden_channels=32, ch_mult=(1, 2),
+               num_res_blocks=1, attn_resolutions=(), resolution=28, dropout=0.1),
+    # attention at 16² x 64 channels in bf16: B4/B5's Hopper instance, 4 sites
+    "attention": dict(_target_="BaseVAE", input_channels=1, latent_dim=4, hidden_channels=64,
+                      ch_mult=(1, 1), num_res_blocks=1, attn_resolutions=(16,), resolution=32, dropout=0.1),
+}
+
+
+def _fast_run(kind: str, accumulate: int):
+    from medvae_tpu_torch.config.models import build_model, init_weights
+    from medvae_tpu_torch.train import optim, state as tstate, step as tstep
+
+    model = init_weights(build_model(FAST_MODELS[kind], "bf16", "cuda", train=True), seed=1)
+    tx = optim.build_optimizer({"type": "adamw", "lr": 1e-3, "weight_decay": 1e-4},
+                               {"type": "cosine", "T_max": 2}, steps_per_epoch=3)
+    state = tstate.create_train_state(model, tx, {}, ema_decay=0.99)
+    step = tstep.build_train_step(model, {"type": "vae", "kl_weight": 1e-3}, tx, augment=True,
+                                  max_channels=FAST_MODELS[kind]["input_channels"], ema_decay=0.99,
+                                  accumulate_grad_batches=accumulate)
+    return state, step
+
+
+def _all_launches():
+    return {**at.launches, **fa.launches, **gs.launches}
+
+
+def _reset_all():
+    for mod in (at, fa, gs):
+        mod.reset_launches()
+
+
+@pytest.mark.parametrize("kind, accumulate", [("gn", 1), ("gn", 2), ("attention", 1)])
+def test_fused_chunk_equals_per_step_calls_bit_for_bit(gen, monkeypatch, kind, accumulate):
+    """Seven steps as chunks (1, 4, 2) of replays of one captured step, and
+    as per-step calls: params, EMA, moments and the last metrics bit for
+    bit, and the kernels' counts under replay the per-step calls' counts."""
+    from medvae_tpu_torch.data.medmnist import SplitArrays
+    from medvae_tpu_torch.data.pipeline import DeviceCachedFeeder
+    from medvae_tpu_torch.train.multistep import build_chunk_runner
+
+    monkeypatch.setenv("MEDVAE_FUSED_GN", "1" if kind == "gn" else "0")
+    cfg = FAST_MODELS[kind]
+    size, ch = cfg["resolution"], cfg["input_channels"]
+    rs = np.random.RandomState(0)
+    split = SplitArrays(images=rs.randint(0, 256, (96, size, size, ch)).astype(np.uint8),
+                        labels=np.zeros(96, np.int32), modality_idx=rs.randint(0, 5, 96).astype(np.int32),
+                        channels=ch)
+    feeder = DeviceCachedFeeder(split, 8, "cuda", seed=3)
+    seed_of = lambda s: 77 + s  # noqa: E731
+    state, step = _fast_run(kind, accumulate)
+    loop_gen, perm = torch.Generator(device="cuda"), feeder.epoch_perm(2)
+    _reset_all()
+    for i in range(7):
+        loop_gen.manual_seed(seed_of(state.step))
+        state, loop_metrics = step(state, feeder.assemble(perm, torch.tensor(i, device="cuda")), loop_gen)
+    torch.cuda.synchronize()
+    loop_launches = _all_launches()
+    want = {**{k: v.clone() for k, v in state.params.items()},
+            **{f"ema.{k}": v.clone() for k, v in state.ema_params.items()},
+            **{f"nu{i}": v.clone() for i, v in enumerate(state.opt_state.nu)}}
+
+    state, step = _fast_run(kind, accumulate)
+    run = build_chunk_runner(step, feeder, torch.Generator(device="cuda"), seed_of)
+    _reset_all()
+    for step0, n in ((0, 1), (1, 4), (5, 2)):
+        state, metrics = run(state, 2, step0, n)
+    torch.cuda.synchronize()
+    got = {**state.params, **{f"ema.{k}": v for k, v in state.ema_params.items()},
+           **{f"nu{i}": v for i, v in enumerate(state.opt_state.nu)}}
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for k in loop_metrics:
+        assert torch.equal(metrics[k], loop_metrics[k]), k
+    assert _all_launches() == loop_launches
+    kernels = ("gn_swish_fwd", "gn_swish_bwd") if kind == "gn" else ("attention_fwd", "attention_bwd")
+    assert all(loop_launches[k] > 0 for k in kernels), loop_launches
+
+
+def _state_tensors(state):
+    """Every tensor a step updates, by name: params, EMA, both optimizers'
+    moments, the discriminator's params and batch statistics."""
+    out = dict(state.params)
+    for prefix, tensors in (("ema.", state.ema_params), ("disc.", state.disc_params),
+                            ("disc_stats.", state.disc_batch_stats)):
+        out.update({prefix + k: v for k, v in (tensors or {}).items()})
+    for prefix, opt in (("opt.", state.opt_state), ("disc_opt.", state.disc_opt_state)):
+        if opt is not None:
+            out.update({f"{prefix}mu{i}": v for i, v in enumerate(opt.mu)})
+            out.update({f"{prefix}nu{i}": v for i, v in enumerate(opt.nu)})
+    return out
+
+
+# the GAN step (a concat ConditionalVAE, the fp32 PatchGAN and LPIPS tower,
+# the discriminator's gate opening at step 3, inside the second chunk) and
+# the disentangled flagship's step with its fp32 towers (LPIPS and the
+# BiomedCLIP ViT), its attention at 16² x 64 through B4/B5 and at the 8² x
+# 128 mid blocks through flash attention (B1-B3)
+LOSS_CASES = {
+    "gan": ({"_target_": "ConditionalVAE", "input_channels": 3, "latent_dim": 8, "hidden_channels": 32,
+             "ch_mult": [1, 2, 4], "num_res_blocks": 1, "attn_resolutions": [], "resolution": 28,
+             "dropout": 0.1},
+            {"type": "lpips_discriminator", "pixel_factor": 1.0, "discriminator_iter_start": 3}),
+    "disentangled": ({"_target_": "DisentangledConditionalVAE", "num_modalities": 5, "shared_latent_dim": 4,
+                      "modality_latent_dim": 4, "hidden_channels": 64, "ch_mult": [1, 2],
+                      "num_res_blocks": 1, "attn_resolutions": [16], "resolution": 16, "dropout": 0.1},
+                     {"type": "disentangled_vae", "recon_loss_type": "mse", "kl_weight": 1.0,
+                      "separation_weight": 0.1, "contrastive_weight": 0.2, "perceptual_weight": 0.1,
+                      "biomedclip_weight": 0.1, "clip_encoder": "vit"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOSS_CASES))
+def test_fused_chunk_of_the_loss_steps_equals_per_step_calls_bit_for_bit(gen, monkeypatch, case):
+    """The GAN step and the disentangled flagship's step, with their fp32
+    loss towers, as chunks (1, 4, 2) of replays of one captured step and as
+    seven per-step calls: every tensor the step updates and the last
+    metrics bit for bit, and the kernels' counts under replay the per-step
+    calls' counts, each kernel of the path launched. A host value baked
+    into the capture (a Python number of the losses, the GAN's gate) would
+    show as a difference."""
+    from medvae_tpu_torch.config.models import build_model, init_weights
+    from medvae_tpu_torch.data.medmnist import SplitArrays
+    from medvae_tpu_torch.data.pipeline import DeviceCachedFeeder
+    from medvae_tpu_torch.nn.discriminator import build_discriminator
+    from medvae_tpu_torch.train import optim, state as tstate, step as tstep
+    from medvae_tpu_torch.train.multistep import build_chunk_runner
+
+    monkeypatch.setenv("MEDVAE_FUSED_GN", "1")
+    monkeypatch.setattr(at, "uses_flash", lambda n, c: True)
+    cfg, loss = LOSS_CASES[case]
+    size = cfg["resolution"]
+    rs = np.random.RandomState(0)
+    split = SplitArrays(images=rs.randint(0, 256, (64, size, size, 3)).astype(np.uint8),
+                        labels=np.zeros(64, np.int32), modality_idx=rs.randint(0, 5, 64).astype(np.int32),
+                        channels=3)
+    feeder = DeviceCachedFeeder(split, 4, "cuda", seed=3)
+    weights = init_weights(build_model(cfg, "fp32", "cpu", train=True), seed=0).state_dict()
+    frozen = tstep.make_frozen(loss, "cuda", seed=0)
+    seed_of = lambda s: 91 + s  # noqa: E731
+
+    def fresh():
+        model = build_model(cfg, "bf16", "cuda", train=True)
+        model.load_state_dict(weights)
+        opt = {"type": "adamw", "lr": 1e-4, "weight_decay": 1e-4}
+        tx = optim.build_optimizer(opt, {"type": "cosine", "T_max": 2}, steps_per_epoch=3)
+        gan = {}
+        if case == "gan":
+            gan = {"disc": build_discriminator(None, "cuda", seed=7), "disc_tx": optim.discriminator_optimizer(opt)}
+        state = tstate.create_train_state(model, tx, frozen, ema_decay=0.99, **gan)
+        step = tstep.build_train_step(model, loss, tx, augment=True, max_channels=3, ema_decay=0.99, **gan)
+        return state, step
+
+    state, step = fresh()
+    loop_gen, perm = torch.Generator(device="cuda"), feeder.epoch_perm(1)
+    _reset_all()
+    for i in range(7):
+        loop_gen.manual_seed(seed_of(state.step))
+        state, loop_metrics = step(state, feeder.assemble(perm, torch.tensor(i, device="cuda")), loop_gen)
+    torch.cuda.synchronize()
+    loop_launches = _all_launches()
+    want = {k: v.clone() for k, v in _state_tensors(state).items()}
+
+    state, step = fresh()
+    run = build_chunk_runner(step, feeder, torch.Generator(device="cuda"), seed_of)
+    _reset_all()
+    for step0, n in ((0, 1), (1, 4), (5, 2)):
+        state, metrics = run(state, 1, step0, n)
+    torch.cuda.synchronize()
+    got = _state_tensors(state)
+    assert sorted(got) == sorted(want)
+    assert [k for k in want if not torch.equal(got[k], want[k])] == []
+    assert [k for k in loop_metrics if not torch.equal(metrics[k], loop_metrics[k])] == []
+    assert _all_launches() == loop_launches
+    kernels = ("gn_swish_fwd", "gn_swish_bwd") + (
+        ("flash_fwd", "flash_bwd", "attention_fwd", "attention_bwd") if case == "disentangled" else ())
+    assert all(loop_launches[k] > 0 for k in kernels), loop_launches
+    if case == "gan":  # the gate opened inside the chunks: the adversarial terms moved
+        assert float(metrics["train/d_weight"]) > 0 and float(metrics["train/d_loss"]) > 0

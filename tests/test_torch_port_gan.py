@@ -214,10 +214,11 @@ def test_generator_and_discriminator_loss_dicts_match_jax(jax_side, step):
         tl = tstep.make_gan_loss(cfg)
         jloss, jlog = jl.generator_loss(jax_side["frozen"], jnp.asarray(x), jnp.asarray(rec),
                                         jnp.asarray(kl), jnp.asarray(lf), jnp.asarray(0.7), jnp.asarray(step))
+        d_valid = torch.tensor(tl.d_valid(step))  # the step's host value as a 0-d tensor
         tloss, tlog = tl.generator_loss(frozen, torch.from_numpy(x), torch.from_numpy(rec),
-                                        torch.from_numpy(kl), torch.from_numpy(lf), torch.tensor(0.7), step)
+                                        torch.from_numpy(kl), torch.from_numpy(lf), torch.tensor(0.7), d_valid)
         _, jd = jl.discriminator_loss(jnp.asarray(lr_), jnp.asarray(lf), jnp.asarray(step))
-        _, td = tl.discriminator_loss(torch.from_numpy(lr_), torch.from_numpy(lf), step)
+        _, td = tl.discriminator_loss(torch.from_numpy(lr_), torch.from_numpy(lf), d_valid)
         want, got = {**jlog, **jd}, {**tlog, **td}
         assert set(got) == set(want) and ("train/pix_loss" in got) == bool(pixel)
         for k in want:
@@ -384,8 +385,10 @@ def test_before_the_gate_d_still_moves_its_stats_and_decays(jax_side):
 def test_gan_step_options_and_refusals(jax_side):
     model, disc, frozen = _port(jax_side, "base")
     ttx, tdtx = toptim.build_optimizer(*OPT), toptim.discriminator_optimizer(*OPT)
-    with pytest.raises(NotImplementedError, match="accumulate"):
-        tstep.build_train_step(model, LOSS, ttx, disc=disc, disc_tx=tdtx, accumulate_grad_batches=2)
+    step = tstep.build_train_step(model, LOSS, ttx, disc=disc, disc_tx=tdtx, accumulate_grad_batches=3)
+    state = tstate.create_train_state(model, ttx, frozen, disc=disc, disc_tx=tdtx)
+    with pytest.raises(ValueError, match=f"batch size {B} not divisible by accumulate_grad_batches=3"):
+        step(state, _torch_batch(_batches(1, 1, conditional=False)[0]))
     with pytest.raises(ValueError, match="disc="):
         tstep.build_train_step(model, LOSS, ttx)
     with pytest.raises(NotImplementedError, match="fp32 loss towers"):

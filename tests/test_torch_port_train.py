@@ -274,22 +274,24 @@ def test_every_build_turns_tf32_off(build, monkeypatch):
 
 
 def test_unported_step_options_raise():
-    """The GAN and tower-only loss types build; gradient accumulation and
-    bf16 towers still raise, on every loss type."""
+    """The GAN and tower-only loss types build; bf16 towers still raise, on
+    every loss type; gradient accumulation takes only a batch its k divides."""
     from medvae_tpu_torch.nn.discriminator import build_discriminator
 
     model = _small("fp32", train=True)
     tx = toptim.build_optimizer(*OPT)
-    with pytest.raises(NotImplementedError):
-        tstep.build_train_step(model, LOSS, tx, accumulate_grad_batches=2)
+    step = tstep.build_train_step(model, dict(LOSS, perceptual_weight=0.0, biomedclip_weight=0.0), tx,
+                                  accumulate_grad_batches=4)
+    with pytest.raises(ValueError, match=f"batch size {B} not divisible by accumulate_grad_batches=4"):
+        step(tstate.create_train_state(model, tx), _torch_batch(_batches()[0]))
     disc = build_discriminator({"input_nc": 3, "ndf": 8, "n_layers": 2}, "cpu", seed=0)
     gan = {"disc": disc, "disc_tx": toptim.discriminator_optimizer(*OPT)}
     for loss_type in ("lpips_discriminator", "lpips", "biomedclip"):
         extra = gan if loss_type == "lpips_discriminator" else {}
         assert callable(tstep.build_train_step(model, {"type": loss_type}, tx, **extra))
         assert callable(tstep.build_eval_step(model, {"type": loss_type}, disc=extra.get("disc")))
-        with pytest.raises(NotImplementedError, match="accumulate"):
-            tstep.build_train_step(model, {"type": loss_type}, tx, accumulate_grad_batches=2, **extra)
+        assert callable(tstep.build_train_step(model, {"type": loss_type}, tx, accumulate_grad_batches=2,
+                                               **extra))
         with pytest.raises(NotImplementedError, match="fp32 loss towers"):
             tstep.build_train_step(model, {"type": loss_type, "tower_dtype": "bfloat16"}, tx, **extra)
     with pytest.raises(NotImplementedError, match="fp32 loss towers"):

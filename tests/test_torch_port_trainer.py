@@ -122,9 +122,7 @@ def test_trainer_rejects_geometry_mismatch(tmp_path, config_dir):
 
 
 @pytest.mark.parametrize("override", [
-    "+data.device_cache=true", "+training.fused_steps=on", "data.batch_size=auto",
-    "+model.remat=block", "debug.nan_checks=true", "mesh.data=2",
-    "debug.profile=true", "+parallel.explicit_shard_map=true",
+    "debug.nan_checks=true", "mesh.data=2", "debug.profile=true", "+parallel.explicit_shard_map=true",
 ])
 def test_trainer_names_what_is_not_ported(tmp_path, config_dir, override):
     with pytest.raises(NotImplementedError, match="not ported"):
