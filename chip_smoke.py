@@ -114,9 +114,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            1e-3, each of the 28 attention q/k/v/proj_out weight gradients
            ATTN_GRAD_REL, beside a repeat of the card's step;
   trainer128  `medvae_tpu_torch.cli.train` on experiment=chest_base_vae at
-           128² (2 epochs of 8 batches, validation and test), the same command
+           128² (1 epoch of 8 batches, validation and test), the same command
            with one more epoch and resume=true ("Resuming at optimizer step
-           16"), then 3 epochs uninterrupted: the resumed params against those,
+           8"), then 2 epochs uninterrupted: the resumed params against those,
            launches counted (7 B4 a train step or eval batch, 7 B5 a train
            step, 7 + 4 for epoch 0's media grids), the media PNGs decoded to
            their sizes, and the final checkpoint served (7 B4). Its work
@@ -146,11 +146,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            statistics 1e-5, beside a repeat of the card's step and a 1e-6
            nudge of the noise;
   gan_trainer  cli/train.py on experiment=multi_modal_cvae_gan_quick with
-           MEDVAE_FUSED_GN=1 (2 epochs of 6 batches, the gate at step 3), then
-           resume +1 epoch, then 3 epochs uninterrupted: B6/B7 launches, the
+           MEDVAE_FUSED_GN=1 (1 epoch of 6 batches, the gate at step 3), then
+           resume +1 epoch, then 2 epochs uninterrupted: B6/B7 launches, the
            adversarial terms past the gate, the resumed generator's and D's
            params and statistics against the uninterrupted ones (RESUME_BAR,
-           beside the 2-epoch ones), epoch 0's media PNGs, and the final
+           beside the first run's), epoch 0's media PNGs, and the final
            checkpoint served;
   eval224  the full-width flagship (the serve phase's seeded weights) saved
            as a port checkpoint beside a config.yaml of
@@ -199,13 +199,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   fast28   the Trainer on experiment=multi_modal_cvae_quick at full width
            (28², bs 16, 640 steps an epoch) with MEDVAE_FUSED_GN=1, four
            runs from one seed: (a) host feeder, (b) the device-cached
-           feeder, (c200) cached with fused chunks (replays of one captured
-           CUDA graph), each the epoch's first 200 steps; (c) as (c200), one
+           feeder, (cpre) cached with fused chunks (replays of one captured
+           CUDA graph), each the epoch's first 100 steps; (c) as (cpre), one
            epoch. Each: seconds, img/s, peak memory; (a), (b), (c): the
-           card's idle share over 50 more steps; gates: (b) and (c200) bit
+           card's idle share over 30 more steps; gates: (b) and (cpre) bit
            for bit (params, EMA, moments, validation), B6/B7 launches =
            sites x steps by the wrappers' counts (and sites x batches in
-           validation) and, in each profiled window, (c)'s 50 replays
+           validation) and, in each profiled window, (c)'s 30 replays
            included, by the trace's kernel events; the native gather used
            in (a), the card's epoch-0 order the CPU's;
   fast128  experiment=chest_base_vae at 128²: batch_size=auto (the probe's
@@ -217,6 +217,34 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            step, by the wrappers' counts and, in a window of 8 replays and
            one of 8 per-step calls, by the trace's kernel events; ms a step
            and idle share both ways.
+  bench_serve  medvae_tpu_torch.cli.bench_serve's cells at --reps 3
+           --min-seconds 0 on flagship224 (the serve phase's engine and
+           weights) and quick28 (multi_modal_cvae_quick, MEDVAE_FUSED_GN=1):
+           ms and img/s of every method and bucket, single-image p50/p99,
+           MicroBatcher req/s and p50/p99; B1 and B6 launches as derived from
+           the calls; the bucket-32 reconstruct within 10 % of serve's;
+  towers_bf16  the train phase's flagship step with loss.tower_dtype=
+           bfloat16: step 0's loss terms against the fp32 towers' (relative),
+           2 warmup and 5 timed steps (5/5 B1/flash_bwd each), ms and peak
+           memory beside train's, and the towers alone fp32 against bf16
+           (torch.profiler's device ms, event ms);
+  sweep    `cli/train.py -m` on multi_modal_cvae_quick with the switch on,
+           three jobs of 8 steps swept on training.optimizer.lr (the third
+           repeats the first): summary.json, each job's B6/B7 launches, the
+           repeated job bit for bit;
+  resilient  cli/train_resilient.py's supervise on the quick experiment (2
+           epochs of 12 steps, `last` every 4), its first child killed with
+           SIGKILL once `last` exists, relaunched once with +resume=true: the
+           resumed child's own B6/B7 launches (read from the child) sites x
+           the steps left after `last` (and the test batches), the final
+           params bit for bit an uninterrupted run's;
+  bench_modes  BENCH_MODE=generate and pipeline (cached and BENCH_CACHE=0)
+           with the switch on: their JSON lines and B6/B7 launches;
+  options  the quick experiment with debug.nan_checks (bit for bit off/on,
+           FloatingPointError on chip_smoke's NaN batch), debug.profile (the
+           trace's B6/B7 kernel events as derived), data.normalize=false (a
+           fused epoch, finite losses) and SGD fused against per-step calls,
+           bit for bit.
 The repeat of train_parity, cvae28_parity and base128_parity is gated at
 0.0: the fused chunks rest on it. Then the card line from nvidia-smi, the
 kernels line, and {"ok": true, "device": {...}} last.
@@ -1022,6 +1050,7 @@ def phase_serve(engine) -> int:
         engine.reconstruct(x, modality=m)
         times = host_samples_ms(lambda: engine.reconstruct(x, modality=m), reps=max(5, 40 // b))
         ms = statistics.median(times)
+        SUMMARY.setdefault("serve_ms", {})[b] = ms
         emit({"phase": "serve", "method": "reconstruct", "bucket": b,
               "ms_per_batch": ms, "images_per_sec": b / ms * 1e3,
               "min_ms": min(times), "max_ms": max(times), "samples_ms": times})
@@ -1315,6 +1344,7 @@ def phase_train(state_dict) -> dict:
     state, times, totals = run_steps("train", step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
                                      want)
     median = statistics.median(times)
+    SUMMARY["train"] = {"ms": median, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     emit({"phase": "train", "batch": TRAIN_BATCH, "resolution": int(model.resolution),
           "ms_per_step_median": median, "ms_per_step_min": min(times),
           "ms_per_step_max": max(times), "samples_ms": times,
@@ -1810,7 +1840,8 @@ BASE128_OVERRIDES = ["experiment=chest_base_vae", "model.resolution=128", "data.
 BASE128_SITES = 7  # encoder level 3 (two), encoder mid, decoder mid, decoder level 3 (three)
 BASE128_PER_CHUNK = {"reconstruct": 7, "encode": 3, "decode": 4, "sample": 4}
 BASE128_BATCH = 64
-WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_work")
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "build", "chip_smoke_work")
 
 
 def base128_config():
@@ -1993,7 +2024,7 @@ def phase_base128_parity(cfg, state_dict) -> None:
         raise AssertionError(f"base128 parity out of bars: {row}")
 
 
-TRAINER_EPOCHS, TRAINER_BATCHES = 2, 8
+TRAINER_EPOCHS, TRAINER_BATCHES = 1, 8  # the first run's epochs (one more resumed) and batches
 # resumed params against the uninterrupted run's, relative L2: bit for bit on
 # the CPU; on the card cuDNN's algorithms need not repeat, so a bar
 RESUME_BAR = 1e-3
@@ -2047,14 +2078,15 @@ def want_media(size: int) -> dict:
 
 
 def phase_trainer128() -> dict:
-    """cli/train.py on experiment=chest_base_vae at 128² (2 epochs of 8
-    batches, validation and test on), then the same command with one more
-    epoch and resume=true, then 3 epochs uninterrupted: steps, img/s and the
+    """cli/train.py on experiment=chest_base_vae at 128² (TRAINER_EPOCHS
+    epochs of 8 batches, validation and test on), then the same command with
+    one more epoch and resume=true, then TRAINER_EPOCHS + 1 epochs
+    uninterrupted: steps, img/s and the
     validation per epoch, B4/B5 launches (7 a train step, 7 a validation or
     test batch, 7 + 4 for epoch 0's media grids: a validation batch
     reconstructed and 16 prior samples decoded), the media files, the
     resumed params against the uninterrupted ones (within RESUME_BAR, and the
-    two-epoch params past it as a control); and the final checkpoint served
+    first run's params past it as a control); and the final checkpoint served
     through InferenceEngine (7 B4 a reconstruct). The uninterrupted run stays
     in WORK for eval128."""
     split, whole = os.path.join(WORK, "split"), os.path.join(WORK, "whole")
@@ -2085,8 +2117,8 @@ def phase_trainer128() -> dict:
             totals[k] += counts[k]
 
     text, first_rows, seconds, counts = train_cli(split, TRAINER_EPOCHS, data)
-    check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS, 1)
-    two_epochs = final_params(split)
+    check(f"{TRAINER_EPOCHS} epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS, 1)
+    first_run = final_params(split)
     gc.collect()
     text, rows, seconds, counts = train_cli(split, TRAINER_EPOCHS + 1, data, "resume=true")
     resumed_at = TRAINER_EPOCHS * TRAINER_BATCHES
@@ -2104,7 +2136,7 @@ def phase_trainer128() -> dict:
     gc.collect()
     shutil.rmtree(split, ignore_errors=True)
     text, rows, seconds, counts = train_cli(whole, TRAINER_EPOCHS + 1, data)
-    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1, 1)
+    check(f"{TRAINER_EPOCHS + 1} epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1, 1)
     whole_params = final_params(whole)
     media = media_sizes(os.path.join(whole, "logs", "chest_base_vae"))
     diff = max((resumed[k] - whole_params[k]).abs().max().item() for k in whole_params)
@@ -2114,10 +2146,10 @@ def phase_trainer128() -> dict:
         return float(torch.sqrt(sum(((params[k] - whole_params[k]).double() ** 2).sum()
                                     for k in whole_params)) / norm)
 
-    rel, control = rel_to_whole(resumed), rel_to_whole(two_epochs)
+    rel, control = rel_to_whole(resumed), rel_to_whole(first_run)
     row = {"phase": "trainer128", "resumed_vs_uninterrupted_max_abs": diff,
            "resumed_vs_uninterrupted_rel_l2": rel, "bar": RESUME_BAR,
-           "control_two_epochs_vs_three_rel_l2": control, "media": media,
+           "control_first_run_vs_uninterrupted_rel_l2": control, "media": media,
            "served_final_checkpoint": {"shape": list(rec.shape), "finite": bool(np.isfinite(rec).all()),
                                        "launches": serve_counts}}
     emit(row)
@@ -2357,15 +2389,15 @@ def gan_snapshot(work: str, name: str = "multi_modal_cvae_gan_quick_final") -> d
 
 def phase_gan_trainer() -> dict:
     """cli/train.py on experiment=multi_modal_cvae_gan_quick with
-    MEDVAE_FUSED_GN=1 (2 epochs of GAN_TRAINER_BATCHES batches, the gate at
+    MEDVAE_FUSED_GN=1 (TRAINER_EPOCHS epochs of GAN_TRAINER_BATCHES batches, the gate at
     step GAN_TRAINER_GATE, validation and test on), the same command with one
-    more epoch and resume=true, then 3 epochs uninterrupted: B6/B7 launches
+    more epoch and resume=true, then TRAINER_EPOCHS + 1 epochs uninterrupted: B6/B7 launches
     (B7 at every site a train step; B6 too, plus the decoder's sites again
     for the adaptive weight's pass without dropout, and at every site an
     eval batch, and for epoch 0's media grids at every site and the decoder's
     again), the media files, d_weight and d_loss past the gate, the resumed
     generator's and discriminator's params and BatchNorm statistics against
-    the uninterrupted ones (RESUME_BAR, beside the 2-epoch ones as a
+    the uninterrupted ones (RESUME_BAR, beside the first run's as a
     control); then the final checkpoint served through InferenceEngine (one
     reconstruct, B6 at every site)."""
     cfg = compose(cli_train.default_config_dir(), "config", [*GAN_QUICK_OVERRIDES,
@@ -2403,11 +2435,11 @@ def phase_gan_trainer() -> dict:
         return train
 
     text, first_rows, seconds, counts = gan_cli(split, TRAINER_EPOCHS)
-    train = check("2 epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS, 1)
+    train = check(f"{TRAINER_EPOCHS} epochs", text, first_rows, seconds, counts, TRAINER_EPOCHS, 1)
     past = [r for r in train if r["step"] > GAN_TRAINER_GATE]
     if not past or not all(r["train/d_weight"] > 0 and r["train/d_loss"] > 0 for r in past):
         raise AssertionError(f"gan_trainer: past the gate d_weight/d_loss {past}")
-    two_epochs = gan_snapshot(split)
+    first_run = gan_snapshot(split)
     gc.collect()
     text, rows, seconds, counts = gan_cli(split, TRAINER_EPOCHS + 1, "resume=true")
     resumed_at = TRAINER_EPOCHS * GAN_TRAINER_BATCHES
@@ -2428,7 +2460,7 @@ def phase_gan_trainer() -> dict:
     gc.collect()
     shutil.rmtree(split, ignore_errors=True)
     text, rows, seconds, counts = gan_cli(whole, TRAINER_EPOCHS + 1)
-    check("3 epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1, 1)
+    check(f"{TRAINER_EPOCHS + 1} epochs uninterrupted", text, rows, seconds, counts, TRAINER_EPOCHS + 1, 1)
     whole_params = gan_snapshot(whole)
     media = media_sizes(os.path.join(whole, "logs", "multi_modal_cvae_gan_quick"))
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2441,13 +2473,13 @@ def phase_gan_trainer() -> dict:
     row = {"phase": "gan_trainer", "bar": RESUME_BAR,
            "generator_resumed_vs_uninterrupted_rel_l2": rel_to_whole(resumed, "G."),
            "discriminator_resumed_vs_uninterrupted_rel_l2": rel_to_whole(resumed, "D."),
-           "control_generator_two_epochs_vs_three_rel_l2": rel_to_whole(two_epochs, "G."),
-           "control_discriminator_two_epochs_vs_three_rel_l2": rel_to_whole(two_epochs, "D."), "media": media,
+           "control_generator_first_run_vs_uninterrupted_rel_l2": rel_to_whole(first_run, "G."),
+           "control_discriminator_first_run_vs_uninterrupted_rel_l2": rel_to_whole(first_run, "D."), "media": media,
            "served_final_checkpoint": {"shape": list(rec.shape), "finite": bool(np.isfinite(rec).all()),
                                        "launches": serve_counts}}
     emit(row)
     ok = all(row[f"{w}_resumed_vs_uninterrupted_rel_l2"] <= RESUME_BAR
-             < row[f"control_{w}_two_epochs_vs_three_rel_l2"] for w in ("generator", "discriminator"))
+             < row[f"control_{w}_first_run_vs_uninterrupted_rel_l2"] for w in ("generator", "discriminator"))
     if not (ok and np.isfinite(rec).all() and rec.shape == (8, res, res, c)
             and serve_counts == {"gn_swish_fwd": sites, "gn_swish_bwd": 0} and media == want_media(res)):
         raise AssertionError(f"gan_trainer: {row}")
@@ -3039,8 +3071,8 @@ FAST28 = ["experiment=multi_modal_cvae_quick", "training.max_epochs=1", "trainin
           "training.check_val_every_n_epoch=1000", "training.val_check_interval=1.0",
           "training.log_images_every_n_epochs=0",
           "early_stopping.enabled=false", "checkpointing.save_top_k=0"]
-FAST28_PREFIX = 200  # runs (a), (b) and (c200) take the epoch's first 200 steps
-IDLE_WINDOW = 50  # steps in each idle-share profile
+FAST28_PREFIX = 100  # runs (a), (b) and (cpre) take the epoch's first 100 steps
+IDLE_WINDOW = 30  # steps in each idle-share profile
 
 
 def fast_trainer(work: str, overrides: list) -> "Trainer":
@@ -3076,11 +3108,11 @@ def phase_fast28() -> dict:
     bs 16, five datasets, 10,240 synthetic train rows, 640 steps an epoch)
     with MEDVAE_FUSED_GN=1, four runs from one seed: (a) the host feeder,
     one step a call, and (b) the device-cached feeder, one step a call,
-    each FAST28_PREFIX steps; (c200) the cached feeder with fused chunks,
+    each FAST28_PREFIX steps; (cpre) the cached feeder with fused chunks,
     FAST28_PREFIX steps; (c) the same, one epoch. Each: seconds, img/s and
-    peak memory; (b) and (c200) then validation, timed apart; (a), (b) and
+    peak memory; (b) and (cpre) then validation, timed apart; (a), (b) and
     (c) then the card's idle share over IDLE_WINDOW more steps of their path
-    (torch.profiler). Gates: (b) and (c200) end with the same params, EMA,
+    (torch.profiler). Gates: (b) and (cpre) end with the same params, EMA,
     moments and validation metrics bit for bit; B6/B7 launch sites x steps
     (and sites x batches in validation) by the wrappers' counts in every
     run, and by the trace's kernel events in each profiled window, (c)'s
@@ -3094,7 +3126,7 @@ def phase_fast28() -> dict:
     prefix = f"+training.limit_train_batches={FAST28_PREFIX}"
     runs = {"a": ["+data.device_cache=false", "+training.fused_steps=off", prefix],
             "b": ["+data.device_cache=true", "+training.fused_steps=off", prefix],
-            "c200": ["+data.device_cache=true", "+training.fused_steps=on", prefix],
+            "cpre": ["+data.device_cache=true", "+training.fused_steps=on", prefix],
             "c": ["+data.device_cache=true", "+training.fused_steps=on"]}
     out, ends = {}, {}
     with fused_gn(True):
@@ -3136,7 +3168,7 @@ def phase_fast28() -> dict:
                 row["epoch0_order_card_equals_cpu"] = torch.equal(card_order, cpu_order)
                 if not row["epoch0_order_card_equals_cpu"]:
                     raise AssertionError(f"fast28 ({tag}): the card's epoch-0 order differs from the CPU's")
-            if tag in ("b", "c200"):  # the bitwise pair: validation too
+            if tag in ("b", "cpre"):  # the bitwise pair: validation too
                 reset_launches()
                 t0 = time.perf_counter()
                 val = t.validate()
@@ -3147,7 +3179,7 @@ def phase_fast28() -> dict:
                     raise AssertionError(f"fast28 ({tag}) validation: launches {launches()}")
                 row.update(val_launches=launches(), val_loss=val["val/loss"], val_psnr=val["val/psnr"])
                 ends[tag] = (state_snapshot(t.state), val)
-            if tag != "c200":  # the idle share over IDLE_WINDOW further steps of the same path
+            if tag != "cpre":  # the idle share over IDLE_WINDOW further steps of the same path
                 if tag == "c":
                     run = build_chunk_runner(t.train_step, feeder, t._generator, lambda s: s)
                     t.state, _ = run(t.state, 1, 0, 1)  # warm-up and capture
@@ -3187,14 +3219,14 @@ def phase_fast28() -> dict:
             del t, feeder
             gc.collect()
             torch.cuda.empty_cache()
-    (b_state, b_val), (c_state, c_val) = ends["b"], ends["c200"]
+    (b_state, b_val), (c_state, c_val) = ends["b"], ends["cpre"]
     same = [k for k in b_state if not torch.equal(b_state[k], c_state[k])]
     drop = "epoch_time_sec"
     same_val = {k: v for k, v in b_val.items() if k != drop} == {k: v for k, v in c_val.items() if k != drop}
-    emit({"phase": "fast28", "b_equals_c200_bitwise": not same, "steps": FAST28_PREFIX,
+    emit({"phase": "fast28", "b_equals_cpre_bitwise": not same, "steps": FAST28_PREFIX,
           "differing_tensors": same[:5], "validation_equal": same_val, "seconds": time.perf_counter() - t_phase})
     if same or not same_val:
-        raise AssertionError(f"fast28: fused (c200) differs from per-step (b): {same[:5]}, validation {same_val}")
+        raise AssertionError(f"fast28: fused (cpre) differs from per-step (b): {same[:5]}, validation {same_val}")
     shutil.rmtree(work, ignore_errors=True)
     return out["c"]["window_traced_launches"]
 
@@ -3352,6 +3384,479 @@ def phase_fast128() -> dict:
     return timing["fused"]["traced_launches"]
 
 
+# ------------------------------------------------ slice 14: run surface ---- #
+
+# the quick CVAE experiment of every new phase (28², bs 16, five synthetic
+# datasets, MEDVAE_FUSED_GN=1), one synthetic data directory for all of them
+QUICK28 = ["experiment=multi_modal_cvae_quick", "training.log_every_n_steps=100000",
+           "training.log_images_every_n_epochs=0", "early_stopping.enabled=false"]
+QUICK28_NAME = "multi_modal_cvae_quick"
+SWEEP_BATCHES = 8
+SWEEP_LRS = ("1e-3", "2e-3", "1e-3")  # job 2 repeats job 0's overrides
+RESILIENT_BATCHES, RESILIENT_EVERY = 12, 4  # 2 epochs of 12 steps, `last` every 4
+PROFILE_WINDOW = 20  # debug.profile traces the steps [0, min(20, steps_per_epoch))
+OPTIONS_BATCHES = 24
+BENCH_SERVE_REPS = 3  # --reps, with --min-seconds 0, so the calls (and launches) are known
+SERVE_MS_BAR = 0.10  # bench_serve's bucket-32 reconstruct against the serve phase's
+SUMMARY: dict = {}  # numbers one phase hands a later one (the serve and train phases')
+
+
+def quick_data() -> str:
+    return f"data_dir={os.path.join(WORK, 'quick28_data')}"
+
+
+def quick_sites() -> dict:
+    """GroupNorm+SiLU sites of the quick CVAE: the whole model (a train
+    step's B6 and B7 calls each), its encoder and its decoder (serving);
+    and the kernels a B6 and a B7 call launch at its bs-16 shapes."""
+    cfg = compose(cli_train.default_config_dir(), "config", [QUICK28[0]])
+    model = build_model(dict(cfg["model"]), "bf16", "meta", train=True)
+    shapes = gn_swish_shapes(model, torch.zeros((16, 28, 28, 3), device="meta"),
+                             condition=torch.zeros((16, model.cond_dim), device="meta"))
+    return {"model": gn_swish_sites(model), "encoder": gn_swish_sites(model.encoder),
+            "decoder": gn_swish_sites(model.decoder),
+            "per_call": {name: gn_kernels_per_call(name, shapes) for name in ("gn_swish_fwd", "gn_swish_bwd")}}
+
+
+def quick_eval_batches(split: str) -> int:
+    """Batches (bs 16) of the quick experiment's `split`, its whole split."""
+    cfg = compose(cli_train.default_config_dir(), "config", [QUICK28[0], quick_data()])
+    dm = instantiate(dict(cfg["data"]))
+    dm.setup(None)
+    return -(-len(dm.split(split)) // int(dm.batch_size))
+
+
+def final_snapshot(checkpoint_dir: str) -> dict:
+    path = os.path.join(checkpoint_dir, QUICK28_NAME, f"{QUICK28_NAME}_final", "checkpoint.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+
+
+def differing(a: dict, b: dict) -> list:
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def phase_sweep() -> dict:
+    """`cli/train.py -m` on the quick experiment, MEDVAE_FUSED_GN=1: three
+    jobs of SWEEP_BATCHES steps, validation and test, swept on
+    training.optimizer.lr (SWEEP_LRS: job 2 repeats job 0). Gates: three
+    `ok` jobs in summary.json with JAX's keys, each job's B6/B7 launches
+    sites x (steps + eval batches) and sites x steps (read at each job's end;
+    the CLI zeroes the counters before each job), job 2 equal to job 0 bit
+    for bit in its validation and test metrics and final params."""
+    work = os.path.join(WORK, "sweep")
+    args = ["-m", *QUICK28, f"device={CARD}", f"work_dir={work}", quick_data(), "training.max_epochs=1",
+            f"+training.limit_train_batches={SWEEP_BATCHES}", "training.optimizer.lr=" + ",".join(SWEEP_LRS)]
+    per_job = []
+    run_one = cli_train._run_one
+
+    def counted(overrides):
+        out = run_one(overrides)
+        torch.cuda.synchronize()
+        per_job.append({k: launches()[k] for k in gs.launches})
+        return out
+
+    t0 = time.perf_counter()
+    with fused_gn(True), mock.patch.object(cli_train, "_run_one", counted), \
+            contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = cli_train.main(args)
+    seconds = time.perf_counter() - t0
+    (stamp,) = os.listdir(os.path.join(work, "logs", "multirun"))
+    sweep_dir = os.path.join(work, "logs", "multirun", stamp)
+    with open(os.path.join(sweep_dir, "summary.json")) as f:
+        summary = json.load(f)
+    sites = quick_sites()["model"]
+    evals = quick_eval_batches("val") + quick_eval_batches("test")
+    want = {"gn_swish_fwd": sites * (SWEEP_BATCHES + evals), "gn_swish_bwd": sites * SWEEP_BATCHES}
+    drop = "epoch_time_sec"
+    same_val = ({k: v for k, v in summary[0]["val"].items() if k != drop}
+                == {k: v for k, v in summary[2]["val"].items() if k != drop}) and summary[0]["test"] == summary[2]["test"]
+    diff = differing(*(final_snapshot(os.path.join(sweep_dir, str(j), "checkpoints")) for j in (0, 2)))
+    row = {"phase": "sweep", "rc": rc, "jobs": len(summary), "seconds": seconds,
+           "job_seconds": [r["seconds"] for r in summary], "labels": [r["label"] for r in summary],
+           "status": [r["status"] for r in summary], "keys": sorted(summary[0]),
+           "val_loss": [r["val"]["val/loss"] for r in summary], "launches_by_job": per_job,
+           "want_launches_a_job": want, "gn_sites": sites, "eval_batches": evals,
+           "job2_equals_job0_metrics": same_val, "job2_equals_job0_params": not diff,
+           "table": printed.getvalue().split("Multirun summary")[-1].strip().splitlines()}
+    emit(row)
+    if (rc != 0 or row["status"] != ["ok"] * 3 or row["keys"] != sorted(
+            ["job", "overrides", "label", "status", "val", "test", "seconds"])
+            or any(c != want for c in per_job) or not same_val or diff):
+        raise AssertionError(f"sweep: {row}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(c[k] for c in per_job) for k in gs.launches}
+
+
+# a training child of the supervised run: the train CLI, then (on a normal
+# exit) the kernel wrappers' counts of this process written to argv[1]
+RESILIENT_CHILD = """
+import json, sys
+from medvae_tpu_torch.cli import train
+from medvae_tpu_torch.ops import attention, flash_attention, groupnorm_swish
+code = train.main(sys.argv[2:])
+if code == 0:
+    with open(sys.argv[1], "w") as f:
+        json.dump({**flash_attention.launches, **groupnorm_swish.launches, **attention.launches}, f)
+raise SystemExit(code)
+"""
+
+
+def phase_resilient() -> dict:
+    """`cli/train_resilient.py:supervise` on the quick experiment (2 epochs
+    of RESILIENT_BATCHES steps, `last` every RESILIENT_EVERY steps, the
+    test split at the end, MEDVAE_FUSED_GN=1), through an injected runner
+    that starts each training child (the train CLI's `main` in a fresh
+    interpreter, RESILIENT_CHILD) and SIGKILLs the first once its `last`
+    exists: the supervisor relaunches it once with +resume=true. Gates: exit
+    0, one restart, resume appended once, the resumed child's B6/B7 launches
+    sites x (steps left after `last` + test batches) and sites x steps left,
+    the final params equal an uninterrupted run's (in this process, its
+    launches sites x (all steps + test batches)) bit for bit. Returns the
+    resumed child's launches and the uninterrupted run's."""
+    import signal
+
+    from medvae_tpu_torch.cli import train_resilient
+
+    work, ref = os.path.join(WORK, "resilient"), os.path.join(WORK, "resilient_ref")
+    common = [*QUICK28, f"device={CARD}", quick_data(), "training.max_epochs=2",
+              "training.check_val_every_n_epoch=1000", f"+training.limit_train_batches={RESILIENT_BATCHES}",
+              f"+checkpointing.every_n_steps={RESILIENT_EVERY}"]
+    last = os.path.join(work, "logs", "checkpoints", QUICK28_NAME, "last", "checkpoint.pt")
+    env = dict(os.environ, MEDVAE_FUSED_GN="1")
+    launched, killed_at, counts_at = [], [], []
+    os.makedirs(WORK, exist_ok=True)
+    log_path = os.path.join(WORK, "resilient_children.log")
+
+    def runner(argv):
+        launched.append(list(argv))
+        counts_at.append(os.path.join(WORK, f"resilient_child{len(launched)}_launches.json"))
+        with open(log_path, "a") as log:
+            proc = subprocess.Popen([sys.executable, "-c", RESILIENT_CHILD, counts_at[-1], *argv], stdout=log,
+                                    stderr=subprocess.STDOUT, env=env, cwd=REPO)
+            if len(launched) == 1:  # the crash comes from outside the package
+                while proc.poll() is None and not os.path.exists(last):
+                    time.sleep(0.05)
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGKILL)
+                    killed_at.append(time.perf_counter() - t0)
+            return proc.wait()
+
+    t0 = time.perf_counter()
+    code = train_resilient.supervise([*common, f"work_dir={work}"], runner=runner, backoff_s=0.5)
+    seconds = time.perf_counter() - t0
+    child = [json.load(open(p)) if os.path.exists(p) else None for p in counts_at]
+    reset_launches()
+    t1 = time.perf_counter()
+    with fused_gn(True), contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_train.main([*common, f"work_dir={ref}"])
+    ref_seconds = time.perf_counter() - t1
+    counts = {k: launches()[k] for k in gs.launches}
+    with open(log_path) as f:
+        resumed_line = [line.strip() for line in f if line.startswith("Resuming at optimizer step")]
+    diff = differing(final_snapshot(os.path.join(work, "logs", "checkpoints")),
+                     final_snapshot(os.path.join(ref, "logs", "checkpoints")))
+    sites = quick_sites()["model"]
+    steps, tests = 2 * RESILIENT_BATCHES, quick_eval_batches("test")
+    want = {"gn_swish_fwd": sites * (steps + tests), "gn_swish_bwd": sites * steps}
+    found = re.match(r"Resuming at optimizer step (\d+)", resumed_line[0]) if resumed_line else None
+    resumed_at = int(found.group(1)) if found else None
+    left = steps - resumed_at if resumed_at is not None else None
+    want_child = (want_launches(gn_swish_fwd=sites * (left + tests), gn_swish_bwd=sites * left)
+                  if left is not None else None)
+    row = {"phase": "resilient", "exit_code": code, "launches_of_the_cli": len(launched),
+           "restarts": len(launched) - 1, "killed_after_s": killed_at, "resume_appended": launched[-1][-1],
+           "resumed": resumed_line, "resumed_at_step": resumed_at, "seconds": seconds,
+           "children_launches": child, "want_resumed_child": want_child, "uninterrupted_seconds": ref_seconds,
+           "final_params_equal_uninterrupted": not diff, "differing": diff[:5],
+           "uninterrupted_launches": counts, "want": want}
+    emit(row)
+    if (code != 0 or rc != 0 or len(launched) != 2 or not killed_at or launched[1] != launched[0] + ["+resume=true"]
+            or not resumed_line or diff or counts != want or child[0] is not None or child[-1] != want_child):
+        raise AssertionError(f"resilient: {row}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(ref, ignore_errors=True)
+    return {"resilient": {k: child[-1][k] for k in gs.launches}, "resilient_reference": counts}
+
+
+@contextlib.contextmanager
+def bench_env(**values):
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_bench_modes() -> dict:
+    """medvae_tpu_torch.bench's BENCH_MODE=generate and pipeline (cached,
+    and BENCH_CACHE=0) with MEDVAE_FUSED_GN=1 and BENCH_SECONDS=2: their
+    JSON lines, and B6/B7 launches as derived (generate: the decoder's sites
+    x calls, the warm-up's included; pipeline: sites x steps, the warm-up
+    epoch's and the flop count's included)."""
+    sites = gn_swish_sites(build_model(CVAE_BENCH, "bf16", "meta", train=True))
+    dec_sites = gn_swish_sites(build_model(bench.GENERATE_MODEL, "bf16", "meta").decoder)
+    epoch_steps = 8
+    out, totals = {}, dict.fromkeys(gs.launches, 0)
+    with fused_gn(True), bench_env(BENCH_SECONDS=2, BENCH_EPOCH_STEPS=epoch_steps):
+        for tag, mode, cache in (("generate", bench.generation_bench, None),
+                                 ("pipeline_cached", bench.pipeline_bench, "1"),
+                                 ("pipeline_host", bench.pipeline_bench, "0")):
+            with bench_env(BENCH_CACHE=cache or "1"):
+                reset_launches()
+                t0 = time.perf_counter()
+                r = mode()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            counts = launches()
+            if tag == "generate":
+                want = want_launches(gn_swish_fwd=dec_sites * (r["calls"] + 1))
+            else:
+                n = epoch_steps + 1 + r["steps"]  # warm-up epoch, the counted step, the timed ones
+                want = want_launches(gn_swish_fwd=sites * n, gn_swish_bwd=sites * n)
+            emit({"phase": "bench_modes", "mode": tag, "result": r, "launches": counts, "seconds": seconds})
+            if counts != want:
+                raise AssertionError(f"bench_modes {tag}: launches {counts}, want {want}")
+            for k in totals:
+                totals[k] += counts[k]
+            out[tag] = r
+            gc.collect()
+            torch.cuda.empty_cache()
+    return totals
+
+
+def phase_bench_serve(flagship_engine) -> dict:
+    """medvae_tpu_torch.cli.bench_serve's cells on both surfaces at
+    --reps BENCH_SERVE_REPS --min-seconds 0: flagship224 on the serve
+    phase's engine (its seeded weights), quick28 built from its experiment
+    with MEDVAE_FUSED_GN=1. Every (method, bucket) ms and img/s, single-image
+    p50/p99, MicroBatcher req/s and p50/p99. Gates: B1's launches on
+    flagship224 and B6's on quick28 as derived from the calls; the
+    MicroBatcher's a whole number of chunks, at most one a request;
+    flagship224's bucket-32 reconstruct within SERVE_MS_BAR of the serve
+    phase's median."""
+    from medvae_tpu_torch.cli import bench_serve
+
+    reps = BENCH_SERVE_REPS
+    calls = reps + 2  # two warm calls, then reps
+    single = max(reps, 50) + 2
+    q = quick_sites()
+    per_chunk = {"flagship224": ("flash_fwd", PER_CHUNK),
+                 "quick28": ("gn_swish_fwd", {"reconstruct": q["encoder"] + q["decoder"], "encode": q["encoder"],
+                                              "decode": q["decoder"], "sample": q["decoder"]})}
+    results, totals = {"device": torch.cuda.get_device_name(0), "surfaces": []}, {}
+    for name in ("flagship224", "quick28"):
+        experiment, buckets = bench_serve.SURFACES[name]
+        kernel, chunk = per_chunk[name]
+        with fused_gn(name == "quick28"):
+            engine = flagship_engine if name == "flagship224" else bench_serve.build_from_experiment(experiment, buckets)
+            if tuple(engine.buckets) != tuple(buckets):
+                raise AssertionError(f"bench_serve {name}: buckets {engine.buckets}, want {buckets}")
+            reset_launches()
+            t0 = time.perf_counter()
+            r = bench_serve.bench_surface(name, engine, reps, 0.0)
+            surface_counts = launches()
+            per_bucket = sum(chunk.values()) * (1 + calls) + chunk["encode"]  # warm-up, the timed calls, the mean
+            want = want_launches(**{kernel: len(buckets) * per_bucket + single * chunk["reconstruct"]})
+            reset_launches()
+            r["microbatcher"] = bench_serve.bench_microbatcher(engine, clients=16, per_client=8,
+                                                               max_batch=bench_serve.MICROBATCH[name], max_delay_ms=2.0)
+            mb = launches()[kernel]
+            requests = r["microbatcher"]["requests"] + bench_serve.MICROBATCH[name]  # the warm-up's too
+            r.update(experiment=experiment, seconds=time.perf_counter() - t0, launches=surface_counts,
+                     microbatcher_launches={kernel: mb})
+            results["surfaces"].append(r)
+            emit({"phase": "bench_serve", **r})
+            if surface_counts != want:
+                raise AssertionError(f"bench_serve {name}: launches {surface_counts}, want {want}")
+            if mb % chunk["reconstruct"] or not chunk["reconstruct"] <= mb <= requests * chunk["reconstruct"]:
+                raise AssertionError(f"bench_serve {name}: the MicroBatcher launched {mb} {kernel}")
+            totals[name] = surface_counts[kernel] + mb
+            if name == "quick28":
+                del engine
+                gc.collect()
+                torch.cuda.empty_cache()
+    cell = next(c for c in results["surfaces"][0]["cells"] if c["method"] == "reconstruct" and c["bucket"] == 32)
+    serve_ms = SUMMARY["serve_ms"][32]
+    gap = abs(cell["ms_per_batch"] - serve_ms) / serve_ms
+    emit({"phase": "bench_serve", "bucket32_reconstruct_ms": cell["ms_per_batch"], "serve_phase_ms": serve_ms,
+          "relative_gap": gap, "bar": SERVE_MS_BAR})
+    out_dir = os.path.join(REPO, "logs", "serve_bench")  # the CLI's default --out
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    if gap > SERVE_MS_BAR:
+        raise AssertionError(f"bench_serve: bucket-32 reconstruct {cell['ms_per_batch']} ms against the serve "
+                             f"phase's {serve_ms} ms")
+    return totals
+
+
+TOWERS_TIMED = 5
+
+
+def phase_towers_bf16(state_dict) -> dict:
+    """The flagship step of the `train` phase with loss.tower_dtype=bfloat16
+    (LPIPS and the CLIP ViT in bf16, their params fp32): each loss term of
+    step 0 against the fp32 towers' on the same state, batch and draws
+    (relative difference), 2 warmup and TOWERS_TIMED timed steps with 5/5
+    B1/flash_bwd launches each (ms, peak memory) beside the train phase's
+    fp32-tower step, and the towers' own device time (torch.profiler) and
+    event time, fp32 against bf16: LPIPS and CLIP forward and backward to the
+    reconstruction at the step's shapes (bs 32, 224², bf16 images)."""
+    from medvae_tpu_torch.losses.perceptual import BiomedCLIPLoss, LPIPSLoss
+
+    torch.cuda.empty_cache()
+    loss_bf16 = dict(FLAGSHIP_LOSS, tower_dtype="bfloat16")
+    model, frozen = train_model(state_dict, "bf16", CARD)
+    batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
+    gen = torch.Generator(device=CARD)
+    terms = {}
+    for tag, cfg in (("fp32", FLAGSHIP_LOSS), ("bf16", loss_bf16)):
+        model.load_state_dict(state_dict)
+        tx = bench_optimizer()
+        step = build_train_step(model, cfg, tx, augment=True, max_channels=3)
+        _, metrics = step(create_train_state(model, tx, frozen), batch, gen.manual_seed(0))
+        terms[tag] = {k.split("/", 1)[1]: float(v) for k, v in metrics.items()}
+    rel = {k: abs(terms["bf16"][k] - v) / max(abs(v), 1e-30) for k, v in terms["fp32"].items()}
+    model.load_state_dict(state_dict)
+    tx = bench_optimizer()
+    state = create_train_state(model, tx, frozen)
+    step = build_train_step(model, loss_bf16, tx, augment=True, max_channels=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, times, totals = run_steps("towers_bf16", step, state, batch, gen.manual_seed(0), WARMUP_STEPS,
+                                     TOWERS_TIMED, want_launches(**PER_TRAIN_STEP))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, tx
+    g = torch.Generator(device=CARD).manual_seed(13)
+    x = (torch.rand((TRAIN_BATCH, 224, 224, 3), generator=g, device=CARD) * 2 - 1).bfloat16()
+    rec = (torch.rand((TRAIN_BATCH, 224, 224, 3), generator=g, device=CARD) * 2 - 1).bfloat16().requires_grad_(True)
+    towers = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        lp, bc = LPIPSLoss(dtype=dtype), BiomedCLIPLoss("vit", dtype=dtype)
+
+        def both():
+            torch.autograd.grad(0.1 * lp(frozen["lpips"], x, rec) + 0.1 * bc(frozen["clip"], x, rec), rec)
+
+        device = device_kernels(both)
+        towers[tag] = {"device_ms": sum(v[0] for v in device.values()), "kernels": sum(v[1] for v in device.values()),
+                       "event_ms": cuda_ms(both, reps=5)}
+    fp32 = SUMMARY["train"]
+    row = {"phase": "towers_bf16", "batch": TRAIN_BATCH, "ms_per_step_median": statistics.median(times),
+           "samples_ms": times, "peak_memory_gib": peak, "fp32_towers_ms_per_step_median": fp32["ms"],
+           "fp32_towers_peak_memory_gib": fp32["peak_gib"], "loss_terms_fp32": terms["fp32"],
+           "loss_terms_bf16": terms["bf16"], "loss_terms_rel_diff": rel, "towers_alone": towers}
+    emit(row)
+    del model, frozen, batch, x, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+class NanFeeder:
+    """A train feeder whose batch `at` carries a NaN image (a float image
+    passes the step's uint8 cast); chip_smoke's own, so the NaN comes from
+    outside the package."""
+
+    def __init__(self, feeder, at: int):
+        self.feeder, self.at, self.steps_per_epoch = feeder, at, feeder.steps_per_epoch
+
+    def epoch(self, epoch: int):
+        for i, batch in enumerate(self.feeder.epoch(epoch)):
+            if i == self.at:
+                image = batch["image_u8"].float()
+                image[0] = float("nan")
+                batch = dict(batch, image_u8=image)
+            yield batch
+
+
+def trace_kernel_calls(path: str) -> dict:
+    """Kernel events of a Chrome trace by `_category`."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return dict(collections.Counter(_category(e.get("name", "")) for e in events if e.get("cat") == "kernel"))
+
+
+def phase_options() -> None:
+    """The Trainer's last options on the quick experiment, MEDVAE_FUSED_GN=1:
+    debug.nan_checks (a clean run of OPTIONS_BATCHES/4 steps bit for bit the
+    run without it; with NanFeeder's batch 2 it raises FloatingPointError
+    and takes no third update); debug.profile (the trace of the first
+    PROFILE_WINDOW steps holds sites x PROFILE_WINDOW B6 and B7 calls by
+    its kernel events); data.normalize=false (one whole epoch, fused,
+    finite losses and validation); SGD in a fused chunk of OPTIONS_BATCHES
+    steps against per-step calls, bit for bit (params and the trace)."""
+    work = os.path.join(WORK, "options")
+    base = [*QUICK28, quick_data(), "training.max_epochs=1", "+data.device_cache=true"]
+    q = quick_sites()
+    sites, per_call = q["model"], q["per_call"]
+    out = {}
+    with fused_gn(True), contextlib.redirect_stdout(io.StringIO()):
+        ends = {}
+        for tag, extra in (("off", []), ("on", ["debug.nan_checks=true"])):
+            t = fast_trainer(os.path.join(work, f"nan_{tag}"), [*base, "training.check_val_every_n_epoch=1000",
+                                                                 f"+training.limit_train_batches={OPTIONS_BATCHES // 4}",
+                                                                 "+training.fused_steps=off", *extra])
+            t.fit()
+            ends[tag] = state_snapshot(t.state)
+        t = fast_trainer(os.path.join(work, "nan"), [*base, "training.check_val_every_n_epoch=1000",
+                                                     f"+training.limit_train_batches={OPTIONS_BATCHES // 4}",
+                                                     "debug.nan_checks=true"])
+        t._feeders[("train", True, True)] = NanFeeder(t._feeder("train", True, True), at=2)
+        try:
+            t.fit()
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        out["nan_checks"] = {"clean_on_equals_off": not differing(ends["on"], ends["off"]), "raised": raised,
+                             "steps_taken": t.state.step}
+        t = fast_trainer(os.path.join(work, "profile"), [*base, "training.check_val_every_n_epoch=1000",
+                                                         f"+training.limit_train_batches={OPTIONS_BATCHES}",
+                                                         "debug.profile=true"])
+        t.fit()
+        calls = trace_kernel_calls(os.path.join(t.logger.dir, "profile", "trace.json"))
+        out["profile"] = {"trace_calls": traced_launches(calls, per_call), "kernel_events": calls,
+                          "want": {k: sites * PROFILE_WINDOW for k in per_call}}
+        t = fast_trainer(os.path.join(work, "normalize"), [*base, "data.normalize=false", "+training.fused_steps=on",
+                                                           "training.log_every_n_steps=64"])
+        t0 = time.perf_counter()
+        val = t.fit()
+        with open(os.path.join(t.logger.dir, "metrics.jsonl")) as f:
+            losses = [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+        out["normalize_false"] = {"steps": t.state.step, "seconds": time.perf_counter() - t0, "train_losses": losses,
+                                  "val_loss": val.get("val/loss"), "val_psnr": val.get("val/psnr")}
+        sgd = {}
+        for tag in ("off", "on"):
+            t = fast_trainer(os.path.join(work, f"sgd_{tag}"), [*base, "training.optimizer.type=sgd",
+                                                                "training.check_val_every_n_epoch=1000",
+                                                                f"+training.limit_train_batches={OPTIONS_BATCHES}",
+                                                                f"+training.fused_steps={tag}"])
+            reset_launches()
+            t.fit()
+            sgd[tag] = (state_snapshot(t.state), {k: launches()[k] for k in gs.launches})
+        out["sgd"] = {"fused_equals_per_step": not differing(sgd["on"][0], sgd["off"][0]),
+                      "launches": {k: v[1] for k, v in sgd.items()}, "moments": len(t.state.opt_state.mu),
+                      "second_moments": len(t.state.opt_state.nu)}
+    emit({"phase": "options", **out})
+    n = out["normalize_false"]
+    if not (out["nan_checks"]["clean_on_equals_off"] and out["nan_checks"]["raised"]
+            and "at train step 2" in out["nan_checks"]["raised"] and out["nan_checks"]["steps_taken"] == 2):
+        raise AssertionError(f"options nan_checks: {out['nan_checks']}")
+    if out["profile"]["trace_calls"] != out["profile"]["want"]:
+        raise AssertionError(f"options profile: {out['profile']}")
+    if not (n["steps"] > 0 and n["train_losses"] and np.isfinite(n["train_losses"]).all()
+            and np.isfinite(n["val_loss"])):
+        raise AssertionError(f"options normalize=false: {n}")
+    want = {"gn_swish_fwd": sites * OPTIONS_BATCHES, "gn_swish_bwd": sites * OPTIONS_BATCHES}
+    if not out["sgd"]["fused_equals_per_step"] or any(v != want for v in out["sgd"]["launches"].values()):
+        raise AssertionError(f"options sgd: {out['sgd']}, want {want}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -3390,6 +3895,8 @@ def main() -> int:
     lap("profile")
     fused_serve_launches = phase_flagship_fused_serve(bf16_engine)
     lap("flagship_fused_serve")
+    bench_serve_launches = phase_bench_serve(bf16_engine)
+    lap("bench_serve")
     imported, import224_launches = phase_import224(bf16_engine, state_dict)
     lap("import224")
     del bf16_engine, fp32_engine, cpu_engine
@@ -3403,6 +3910,8 @@ def main() -> int:
     lap("flagship_fused_train")
     phase_train_parity(state_dict)
     lap("train_parity")
+    towers_launches = phase_towers_bf16(state_dict)
+    lap("towers_bf16")
     eval224_launches = phase_eval224(state_dict)
     lap("eval224")
     cvae_launches = phase_cvae28_train(True)
@@ -3439,6 +3948,15 @@ def main() -> int:
     lap("gan_trainer")
     phase_options_parity()
     lap("options_parity")
+    slice14 = {"sweep": phase_sweep()}
+    lap("sweep")
+    slice14.update(phase_resilient())
+    lap("resilient")
+    slice14["bench_modes"] = phase_bench_modes()
+    lap("bench_modes")
+    phase_options()
+    lap("options")
+    shutil.rmtree(WORK, ignore_errors=True)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 3)})
     print(smi, flush=True)
     source = {"flash_fwd": "medvae_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3462,6 +3980,8 @@ def main() -> int:
                launches_eval224=eval224_launches["flash_fwd"],
                launches_import224=import224_launches["flash_fwd"],
                launches_export224=export224_launches["flash_fwd"],
+               launches_bench_serve=bench_serve_launches["flagship224"],
+               launches_towers_bf16=towers_launches["flash_fwd"],
                op_ms=dispatch["flash_attention"]["op_ms"],
                dispatch_us=dispatch["flash_attention"]["dispatch_us"],
                ms_with_lse=backward["flash_fwd_lse"]["ms"],
@@ -3475,6 +3995,7 @@ def main() -> int:
     r = backward["flash_bwd"]
     for name, err in (("flash_bwd (B2: dK, dV)", r["max_abs_err_dkv"]), ("flash_bwd (B3: dQ)", r["max_abs_err_dq"])):
         rows.append({"name": name, "launches": train_launches["flash_bwd"], "max_abs_err": err,
+                     "launches_towers_bf16": towers_launches["flash_bwd"],
                      "covers": "dq, dk and dv in one launch",
                      **{k: r[k] for k in ("instance", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "bound_with_planes_ms", "library_ms",
@@ -3489,8 +4010,10 @@ def main() -> int:
                      "launches_flagship_fused_serve": fused_serve_launches[name],
                      "launches_flagship_fused_train": fused_train_launches[name],
                      **{f"launches_{path}": c[name] for path, c in gan_launches.items()},
+                     **{f"launches_{path}": c[name] for path, c in slice14.items()},
                      **({"launches_eval224_fused": eval224_launches["gn_swish_fwd"],
                          "launches_export224": export224_launches["gn_swish_fwd"],
+                         "launches_bench_serve": bench_serve_launches["quick28"],
                          "op_ms": dispatch["gn_swish_fwd"]["op_ms"],
                          "dispatch_us": dispatch["gn_swish_fwd"]["dispatch_us"]}
                         if name == "gn_swish_fwd" else {}),

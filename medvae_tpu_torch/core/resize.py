@@ -7,7 +7,9 @@ for bit on the card, where F.interpolate's bilinear backward adds with
 atomics. Each weight matrix is made once per device and dtype and kept
 (`_device_matrix`), so a resize of a plain tensor copies nothing from the
 host, which a CUDA graph capture of a train step (train/multistep.py) could
-not take.
+not take. A kept matrix is made outside inference mode, whatever mode its
+first caller is in: one made under the engine's `torch.inference_mode()`
+could not be saved for a later backward in the same process.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def _device_matrix(n_in: int, n_out: int, method: str, x: torch.Tensor) -> torch
     key = (n_in, n_out, method, x.device, x.dtype)
     if type(x) is torch.Tensor and key in _matrices:
         return _matrices[key]
-    m = torch.from_numpy(resize_matrix(n_in, n_out, method)).to(x.device, x.dtype)
+    with torch.inference_mode(False):
+        m = torch.from_numpy(resize_matrix(n_in, n_out, method)).to(x.device, x.dtype)
     if type(x) is torch.Tensor and type(m) is torch.Tensor:
         _matrices[key] = m
     return m

@@ -320,9 +320,11 @@ def normalize_and_augment(
     augment: bool = False,
     dtype: torch.dtype = torch.float32,
     draws: Optional[Dict[str, torch.Tensor]] = None,
+    normalize: bool = True,
 ) -> torch.Tensor:
-    """uint8 NHWC → float, augmented when `augment` (with `draws`, or draws
-    from `generator`), then mapped to [−1, 1]."""
+    """uint8 NHWC → float in [0, 1], augmented when `augment` (with `draws`,
+    or draws from `generator`), then mapped to [−1, 1] unless `normalize` is
+    False (medvae_tpu/data/pipeline.py:381-417)."""
     x = image_u8.to(dtype) / torch.tensor(255.0, dtype=dtype)
     if augment:
         if draws is None:
@@ -335,7 +337,7 @@ def normalize_and_augment(
         con = draws["contrast"].to(device=x.device, dtype=torch.float32)[:, None, None, None]
         mean = x.mean(dim=(1, 2, 3), keepdim=True)
         x = torch.clamp((x * bri - mean) * con + mean, 0.0, 1.0)
-    return x * 2.0 - 1.0
+    return x * 2.0 - 1.0 if normalize else x
 
 
 def preprocess(
@@ -346,11 +348,12 @@ def preprocess(
     max_channels: int,
     dtype: torch.dtype = torch.float32,
     draws: Optional[Dict[str, torch.Tensor]] = None,
+    normalize: bool = True,
 ) -> torch.Tensor:
     """The train step's input: normalized (and augmented) images with the
     channels a modality lacks zeroed again after normalization."""
     x = normalize_and_augment(
-        batch["image_u8"], generator, augment=augment, dtype=dtype, draws=draws
+        batch["image_u8"], generator, augment=augment, dtype=dtype, draws=draws, normalize=normalize
     )
     if "channels" in batch and max_channels > 1:
         arange = torch.arange(max_channels, device=x.device)

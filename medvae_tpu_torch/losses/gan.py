@@ -58,10 +58,12 @@ class LPIPSWithDiscriminator:
     use_biomedclip_loss: bool = False
     biomedclip_factor: float = 1.0
     clip_encoder: str = "simple"
+    tower_dtype: torch.dtype = torch.float32  # the towers' compute dtype (`loss.tower_dtype`)
 
     def __post_init__(self):
-        self.perceptual_loss = LPIPSLoss()
-        self.biomed_clip_loss = BiomedCLIPLoss(self.clip_encoder) if self.use_biomedclip_loss else None
+        self.perceptual_loss = LPIPSLoss(dtype=self.tower_dtype)
+        self.biomed_clip_loss = (BiomedCLIPLoss(self.clip_encoder, dtype=self.tower_dtype)
+                                 if self.use_biomedclip_loss else None)
 
     def d_valid(self, step: int) -> float:
         """1.0 from `discriminator_iter_start` on, else 0.0: computed on the

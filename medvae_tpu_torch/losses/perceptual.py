@@ -12,10 +12,17 @@
 A loss object holds the configuration; the tower itself is an nn.Module that
 the train state keeps in `frozen` (the JAX package's frozen param trees), made
 by `init(seed)` with requires_grad off. The gradient still flows through the
-tower into the reconstruction. The towers compute in fp32 (the JAX package's
-default `tower_dtype`) whatever the dtype of the images they are given. Module
-and parameter names are the JAX package's (`alex.conv1`, `lin0`, `Conv_0`,
-`Dense_1`, …). NHWC in.
+tower into the reconstruction. Module and parameter names are the JAX
+package's (`alex.conv1`, `lin0`, `Conv_0`, `Dense_1`, …). NHWC in.
+
+A loss's `dtype` is the towers' compute dtype (`loss.tower_dtype`,
+medvae_tpu/train/step.py:147-158): fp32 by default, whatever the dtype of the
+images; with bf16 the convolutions and dense layers take bf16 operands (the
+params stay fp32, as under Flax's `dtype`, and each frozen layer keeps one
+bf16 copy of them: losses/clip_vit.py:_weights), while the
+LPIPS scaling constants follow the tower dtype, and the channel
+unit-normalize, the lin heads and the feature distances reduce in fp32 (the
+ViT's LayerNorms and attention logits: losses/clip_vit.py).
 
 The resizes are core/resize.py's, built by hand as jax.image.resize builds
 them: F.interpolate's bicubic uses a = −0.75 and gives other numbers.
@@ -23,13 +30,15 @@ them: F.interpolate's bicubic uses a = −0.75 and gives other numbers.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from medvae_tpu_torch.core.precision import configure_backends
 from medvae_tpu_torch.core.resize import resize
-from medvae_tpu_torch.losses.clip_vit import CLIPViT
+from medvae_tpu_torch.losses.clip_vit import CLIPViT, conv, dense
 
 _LPIPS_SHIFT = (-0.030, -0.088, -0.188)
 _LPIPS_SCALE = (0.458, 0.448, 0.450)
@@ -75,11 +84,14 @@ _constants: dict = {}  # (values, device, dtype) -> the tensor there
 def _constant(values: tuple, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A tower's normalization constants on `like`'s device, made once for a
     plain tensor (a step that a CUDA graph captures copies nothing from the
-    host); a tracer's tensor gets its own."""
+    host); a tracer's tensor gets its own. Made outside inference mode, so
+    that a constant first made under `torch.inference_mode()` can still be
+    saved for a backward (core/resize.py's matrices alike)."""
     key = (values, like.device, dtype)
     if type(like) is torch.Tensor and key in _constants:
         return _constants[key]
-    out = torch.tensor(values, dtype=dtype, device=like.device)
+    with torch.inference_mode(False):
+        out = torch.tensor(values, dtype=dtype, device=like.device)
     if type(like) is torch.Tensor and type(out) is torch.Tensor:
         _constants[key] = out
     return out
@@ -95,12 +107,12 @@ class AlexNetFeatures(nn.Module):
         self.conv4 = nn.Conv2d(384, 256, 3, padding=1)
         self.conv5 = nn.Conv2d(256, 256, 3, padding=1)
 
-    def forward(self, x: torch.Tensor):
-        t1 = F.relu(self.conv1(x))
-        t2 = F.relu(self.conv2(F.max_pool2d(t1, 3, 2)))
-        t3 = F.relu(self.conv3(F.max_pool2d(t2, 3, 2)))
-        t4 = F.relu(self.conv4(t3))
-        t5 = F.relu(self.conv5(t4))
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32):
+        t1 = F.relu(conv(self.conv1, x, dtype))
+        t2 = F.relu(conv(self.conv2, F.max_pool2d(t1, 3, 2), dtype))
+        t3 = F.relu(conv(self.conv3, F.max_pool2d(t2, 3, 2), dtype))
+        t4 = F.relu(conv(self.conv4, t3, dtype))
+        t5 = F.relu(conv(self.conv5, t4, dtype))
         return t1, t2, t3, t4, t5
 
 
@@ -123,13 +135,14 @@ class LPIPSNet(nn.Module):
 
     @staticmethod
     def _unit_normalize(x: torch.Tensor) -> torch.Tensor:
+        x = x.float()  # the channel sum of squares in fp32 whatever the taps' dtype
         return x / (torch.sqrt(x.square().sum(dim=1, keepdim=True)) + 1e-10)
 
-    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        shift = _constant(_LPIPS_SHIFT, a, torch.float32)
-        scale = _constant(_LPIPS_SCALE, a, torch.float32)
-        fa = self.alex(_nchw((a - shift) / scale))
-        fb = self.alex(_nchw((b - shift) / scale))
+    def forward(self, a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        shift = _constant(_LPIPS_SHIFT, a, dtype)
+        scale = _constant(_LPIPS_SCALE, a, dtype)
+        fa = self.alex(_nchw((a - shift) / scale), dtype)
+        fb = self.alex(_nchw((b - shift) / scale), dtype)
         total = torch.zeros((a.shape[0],), dtype=torch.float32, device=a.device)
         for i, (xa, xb) in enumerate(zip(fa, fb)):
             diff = (self._unit_normalize(xa) - self._unit_normalize(xb)).square()
@@ -139,9 +152,13 @@ class LPIPSNet(nn.Module):
 
 
 class LPIPSLoss:
-    """Batch-mean LPIPS between inputs and reconstructions in model space."""
+    """Batch-mean LPIPS between inputs and reconstructions in model space;
+    `dtype` the trunk's compute dtype."""
 
     MIN_SIZE = 64  # AlexNet's stride/pool chain needs 64 px
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        self.dtype = dtype
 
     def init(self, seed: int, device="cpu") -> LPIPSNet:
         return init_tower(LPIPSNet().to(device), seed)
@@ -152,7 +169,7 @@ class LPIPSLoss:
         if a.shape[1] < self.MIN_SIZE or a.shape[2] < self.MIN_SIZE:
             a = resize(a, self.MIN_SIZE, "linear")
             b = resize(b, self.MIN_SIZE, "linear")
-        return net(a, b).mean()
+        return net(a, b, self.dtype).mean()
 
 
 class SimpleCLIPEncoder(nn.Module):
@@ -167,22 +184,28 @@ class SimpleCLIPEncoder(nn.Module):
         self.Dense_0 = nn.Linear(256, embed_dim)
         self.Dense_1 = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.max_pool2d(F.relu(self.Conv_0(_nchw(x.float()))), 2, 2)
-        h = F.max_pool2d(F.relu(self.Conv_1(h)), 2, 2)
-        h = F.relu(self.Conv_2(h)).mean(dim=(2, 3))
-        return self.Dense_1(F.relu(self.Dense_0(h)))
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        h = F.max_pool2d(F.relu(conv(self.Conv_0, _nchw(x), dtype)), 2, 2)
+        h = F.max_pool2d(F.relu(conv(self.Conv_1, h, dtype)), 2, 2)
+        h = F.relu(conv(self.Conv_2, h, dtype)).mean(dim=(2, 3))
+        return dense(self.Dense_1, F.relu(dense(self.Dense_0, h, dtype)), dtype)
 
 
 class BiomedCLIPLoss:
     """Squared feature distance between the embeddings of the input and of the
-    reconstruction. (The JAX class's latent term, `compute_lat_loss`, is set
-    by no caller and is not ported.)"""
+    reconstruction (`compute_rec_loss`), plus with `compute_lat_loss` the
+    distance to the embedding of the latent: latent / 4.6 pooled over its
+    channels, resized linearly to 224², tiled to 3 channels and fed to the
+    tower without the CLIP normalization (medvae_tpu/losses/perceptual.py:
+    210-288). `dtype` is the tower's compute dtype."""
 
-    def __init__(self, encoder: str = "simple"):
+    def __init__(self, encoder: str = "simple", compute_rec_loss: bool = True,
+                 compute_lat_loss: bool = False, dtype: torch.dtype = torch.float32):
         if encoder not in ("vit", "simple"):
             raise ValueError(f"Unknown clip encoder: {encoder}")
         self.encoder = encoder
+        self.compute_rec_loss, self.compute_lat_loss = compute_rec_loss, compute_lat_loss
+        self.dtype = dtype
 
     def init(self, seed: int, device="cpu") -> nn.Module:
         cls = CLIPViT if self.encoder == "vit" else SimpleCLIPEncoder
@@ -197,7 +220,16 @@ class BiomedCLIPLoss:
         std = _constant(_CLIP_STD, img, img.dtype)
         return (img - mean) / std
 
-    def __call__(self, net: nn.Module, img: torch.Tensor, rec: torch.Tensor) -> torch.Tensor:
-        img_features = net(self._preprocess(img))
-        rec_features = net(self._preprocess(rec))
-        return (img_features - rec_features).square().sum(dim=1).mean()
+    def __call__(self, net: nn.Module, img: torch.Tensor, rec: Optional[torch.Tensor] = None,
+                 latent: Optional[torch.Tensor] = None) -> torch.Tensor:
+        img_features = net(self._preprocess(img), self.dtype).float()
+        total = torch.zeros((), dtype=torch.float32, device=img.device)
+        if self.compute_rec_loss and rec is not None:
+            rec_features = net(self._preprocess(rec), self.dtype).float()
+            total = total + (img_features - rec_features).square().sum(dim=1).mean()
+        if self.compute_lat_loss and latent is not None:
+            lat = (latent / 4.6).mean(dim=-1, keepdim=True)  # pooled over channels (NHWC)
+            lat = resize(lat, 224, "linear").repeat(1, 1, 1, 3)
+            lat_features = net(lat, self.dtype).float()
+            total = total + (img_features - lat_features).square().sum(dim=1).mean()
+        return total

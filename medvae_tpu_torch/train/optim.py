@@ -1,9 +1,8 @@
 """Optimizers and LR schedules (counterpart of medvae_tpu/train/optim.py).
 
 `build_optimizer` returns the JAX package's optax chain written out in
-PyTorch: zero_nans → clip_by_global_norm → Adam / AdamW, with the learning
-rate from `build_schedule`. (The JAX package's SGD option is used by no
-config and is not ported.) It follows optax op for op, where
+PyTorch: zero_nans → clip_by_global_norm → Adam / AdamW / SGD, with the
+learning rate from `build_schedule`. It follows optax op for op, where
 PyTorch's own pieces differ:
 
   * zero_nans zeroes NaN only and leaves ±inf;
@@ -14,7 +13,11 @@ PyTorch's own pieces differ:
   * AdamW decays every param by exactly the configured weight decay (optax's
     `add_decayed_weights`, before the learning rate), where
     torch.optim.AdamW would default to 0.01;
-  * the learning rate of the k-th update is schedule(k - 1).
+  * the learning rate of the k-th update is schedule(k - 1);
+  * SGD is optax.sgd (medvae_tpu/train/optim.py:91-92): a momentum trace
+    t ← g + momentum·t (`optimizer.momentum`, 0.9 by default; no Nesterov,
+    no weight decay), the update −lr·t; the trace lives in `mu`, and `nu`
+    stays empty.
 
 Params, moments and updates are lists of tensors; `update` advances the state
 in place (no second copy of the moments) and returns the updates.
@@ -90,19 +93,20 @@ class OptState:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    kind: str  # adam | adamw
+    kind: str  # adam | adamw | sgd
     schedule: Schedule
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.0
     clip: Optional[float] = 1.0
+    momentum: float = 0.9  # sgd's trace decay
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         device = params[0].device if len(params) else torch.device("cpu")
         scalars = {k: torch.zeros((), dtype=torch.float32, device=device) for k in ("neg_lr", "bc1", "bc2")}
-        return OptState(count=0, mu=[torch.zeros_like(p) for p in params],
-                        nu=[torch.zeros_like(p) for p in params], scalars=scalars)
+        nu = [] if self.kind == "sgd" else [torch.zeros_like(p) for p in params]
+        return OptState(count=0, mu=[torch.zeros_like(p) for p in params], nu=nu, scalars=scalars)
 
     def _bias_correction(self, decay: float, count: int) -> float:
         return float(np.float32(1.0) - np.float32(decay) ** np.int32(count))
@@ -131,6 +135,10 @@ class Optimizer:
             norm = global_norm(grads)
             keep = norm < self.clip
             grads = [torch.where(keep, g, (g / norm) * self.clip) for g in grads]
+        if self.kind == "sgd":
+            for g, t in zip(grads, state.mu):
+                t.copy_(g + self.momentum * t)
+            return [t * s["neg_lr"] for t in state.mu]
         updates = []
         for g, m, v, p in zip(grads, state.mu, state.nu, params):
             m.copy_((1.0 - self.b1) * g + self.b1 * m)
@@ -164,8 +172,8 @@ def build_optimizer(
     so a cosine's `eta_min` stays absolute (alpha = eta_min / scaled lr);
     `betas_override` replaces the configured betas."""
     kind = str(optimizer_cfg.get("type", "adamw")).lower()
-    if kind not in ("adam", "adamw"):
-        raise ValueError(f"optimizer type {kind!r} is not ported (adam, adamw)")
+    if kind not in ("adam", "adamw", "sgd"):
+        raise ValueError(f"Unknown optimizer type: {kind}")
     lr = float(optimizer_cfg.get("lr", 1e-4)) * lr_scale
     betas = tuple(betas_override or optimizer_cfg.get("betas", (0.9, 0.999)))
     return Optimizer(
@@ -176,6 +184,7 @@ def build_optimizer(
         eps=float(optimizer_cfg.get("eps", 1e-8)),
         weight_decay=float(optimizer_cfg.get("weight_decay", 0.0)),
         clip=float(gradient_clip_val) if gradient_clip_val else None,
+        momentum=float(optimizer_cfg.get("momentum", 0.9)),
     )
 
 

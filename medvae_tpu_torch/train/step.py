@@ -44,6 +44,13 @@ still decays its params, as in the JAX package. Metrics are the loss's log
 (`prepare`, `finish`) and device part (`run`) a CUDA graph can split, and
 which splits a batch into `accumulate_grad_batches` microbatches, on the GAN
 path too (see `TrainStep`).
+
+Options of the JAX steps: `normalize=False` (`data.normalize: false`) leaves
+the images in [0, 1] (medvae_tpu/train/step.py:124-132); `loss.tower_dtype`
+sets the towers' compute dtype (`_tower_dtype`); `nan_checks=True`
+(`debug.nan_checks`) raises FloatingPointError on the first step whose
+metrics or gradients hold a NaN, before the optimizer (which zeroes NaN
+gradients, as optax's zero_nans does) could hide it.
 """
 
 from __future__ import annotations
@@ -66,12 +73,19 @@ from medvae_tpu_torch.train.metrics import kl_metrics, latent_metrics, psnr, rec
 from medvae_tpu_torch.train.optim import Optimizer, global_norm
 from medvae_tpu_torch.train.state import TrainState
 
-def _check_tower_dtype(loss_cfg: Dict[str, Any]) -> None:
-    """The towers compute in fp32, the JAX package's default `tower_dtype`
-    (medvae_tpu/train/step.py:147-158); its bf16 option is set by no config
-    and is not ported."""
-    if str(loss_cfg.get("tower_dtype", "float32") or "float32") != "float32":
-        raise NotImplementedError("only fp32 loss towers are ported")
+def _tower_dtype(loss_cfg: Dict[str, Any]) -> torch.dtype:
+    """The towers' compute dtype, `loss.tower_dtype` (medvae_tpu/train/
+    step.py:147-158): float32 by default, or bfloat16; their params stay
+    fp32 and their reductions fp32 either way."""
+    name = str(loss_cfg.get("tower_dtype", "float32") or "float32")
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(name)
+    if dtype is None:
+        raise ValueError(f"loss.tower_dtype={name!r}: expected float32 or bfloat16")
+    return dtype
+
+
+def _clip_loss(loss_cfg: Dict[str, Any]) -> BiomedCLIPLoss:
+    return BiomedCLIPLoss(encoder=loss_cfg.get("clip_encoder", "simple"), dtype=_tower_dtype(loss_cfg))
 
 
 def _towers(loss_cfg: Dict[str, Any]):
@@ -79,9 +93,8 @@ def _towers(loss_cfg: Dict[str, Any]):
     `disentangled_vae` config."""
     p_w = float(loss_cfg.get("perceptual_weight", 0.0) or 0.0)
     bc_w = float(loss_cfg.get("biomedclip_weight", 0.0) or 0.0)
-    _check_tower_dtype(loss_cfg)
-    lp = LPIPSLoss() if p_w else None
-    bc = BiomedCLIPLoss(encoder=loss_cfg.get("clip_encoder", "simple")) if bc_w else None
+    lp = LPIPSLoss(dtype=_tower_dtype(loss_cfg)) if p_w else None
+    bc = _clip_loss(loss_cfg) if bc_w else None
     return lp, bc, p_w, bc_w
 
 
@@ -95,11 +108,10 @@ def _tower_plan(loss_cfg: Dict[str, Any]) -> Dict[str, Any]:
     if loss_type == "disentangled_vae":
         lp, bc, _, _ = _towers(loss_cfg)
     elif loss_type in ("lpips", "biomedclip", "lpips_discriminator"):
-        _check_tower_dtype(loss_cfg)
         lp = None if loss_type == "biomedclip" else LPIPSLoss()
         clip = loss_type == "biomedclip" or (loss_type == "lpips_discriminator"
                                              and bool(loss_cfg.get("use_biomedclip_loss")))
-        bc = BiomedCLIPLoss(encoder=loss_cfg.get("clip_encoder", "simple")) if clip else None
+        bc = _clip_loss(loss_cfg) if clip else None
     else:
         return {}
     plan = {} if lp is None else {"lpips": (11, lp)}
@@ -163,8 +175,7 @@ def make_criterion(loss_cfg: Dict[str, Any], model) -> Callable:
         return criterion
 
     if loss_type == "lpips":
-        _check_tower_dtype(loss_cfg)
-        lp = LPIPSLoss()
+        lp = LPIPSLoss(dtype=_tower_dtype(loss_cfg))
 
         def lpips_criterion(frozen, outputs, targets):
             loss = lp(frozen["lpips"], targets, outputs["reconstruction"])
@@ -173,8 +184,7 @@ def make_criterion(loss_cfg: Dict[str, Any], model) -> Callable:
         return lpips_criterion
 
     if loss_type == "biomedclip":
-        _check_tower_dtype(loss_cfg)
-        bc = BiomedCLIPLoss(encoder=loss_cfg.get("clip_encoder", "simple"))
+        bc = _clip_loss(loss_cfg)
 
         def clip_criterion(frozen, outputs, targets):
             loss = bc(frozen["clip"], targets, outputs["reconstruction"])
@@ -189,8 +199,7 @@ def make_criterion(loss_cfg: Dict[str, Any], model) -> Callable:
 
 def make_gan_loss(loss_cfg: Dict[str, Any]) -> LPIPSWithDiscriminator:
     """The GAN loss of an `lpips_discriminator` config
-    (medvae_tpu/train/step.py:253-271). The towers compute in fp32 only."""
-    _check_tower_dtype(loss_cfg)
+    (medvae_tpu/train/step.py:253-271)."""
     return LPIPSWithDiscriminator(
         discriminator_factor=float(loss_cfg.get("discriminator_factor", 1.0)),
         perceptual_factor=float(loss_cfg.get("perceptual_factor", 1.0)),
@@ -200,6 +209,7 @@ def make_gan_loss(loss_cfg: Dict[str, Any]) -> LPIPSWithDiscriminator:
         use_biomedclip_loss=bool(loss_cfg.get("use_biomedclip_loss", False)),
         biomedclip_factor=float(loss_cfg.get("biomedclip_factor", 1.0)),
         clip_encoder=str(loss_cfg.get("clip_encoder", "simple")),
+        tower_dtype=_tower_dtype(loss_cfg),
     )
 
 
@@ -247,6 +257,7 @@ def build_loss_and_grads(
     *,
     augment: bool = False,
     max_channels: int = 3,
+    normalize: bool = True,
 ):
     """`loss_and_grads(state, batch, generator=None, draws=None) ->
     (loss_dict, grads)`: the train step up to the gradients of the loss with
@@ -263,7 +274,7 @@ def build_loss_and_grads(
     ):
         x = preprocess(
             batch, generator, augment=augment, max_channels=max_channels,
-            dtype=compute_dtype, draws=draws,
+            dtype=compute_dtype, draws=draws, normalize=normalize,
         )
         return grads_of(state, x, batch, generator)
 
@@ -334,6 +345,7 @@ def build_gan_grads(
     *,
     augment: bool = False,
     max_channels: int = 3,
+    normalize: bool = True,
 ):
     """`gan_grads(state, batch, generator=None, draws=None) -> (g_grads,
     d_grads, logs)`: steps (1)-(5) of the GAN step (module docstring), the
@@ -351,7 +363,7 @@ def build_gan_grads(
     ):
         x = preprocess(
             batch, generator, augment=augment, max_channels=max_channels,
-            dtype=model.dtype, draws=draws,
+            dtype=model.dtype, draws=draws, normalize=normalize,
         )
         d_valid = torch.tensor(gan_loss.d_valid(state.step), device=x.device)
         return grads_of(state, x, batch, generator, d_valid)
@@ -413,11 +425,18 @@ class TrainStep:
     fp32 and divided by k, then one update is applied. Microbatch i draws
     its noise and dropout from its own generator, seeded with
     `fold_in(generator.initial_seed(), i)`.
+
+    With `nan_checks`, `run` reads back on the host whether any metric or
+    gradient holds a NaN, before the update, and raises FloatingPointError
+    naming the step and the first such tensor (metrics first, then the
+    generator's gradients in param order, then D's); the read is a host
+    sync, so a step with the checks is never captured.
     """
 
     def __init__(self, run_grads: Callable, optimizers: Callable, *, gan_loss=None, grad_norm: bool = False,
                  ema_decay: float = 0.0, accumulate_grad_batches: int = 1, augment: bool = False,
-                 max_channels: int = 3, compute_dtype: torch.dtype = torch.float32):
+                 max_channels: int = 3, compute_dtype: torch.dtype = torch.float32, normalize: bool = True,
+                 nan_checks: bool = False):
         self._run_grads = run_grads  # (state, x, batch, generator, d_valid) -> (grads by optimizer, logs)
         self._optimizers = optimizers  # state -> [(optimizer, its params, its state)]
         self.gan_loss = gan_loss
@@ -425,6 +444,7 @@ class TrainStep:
         self.ema_decay = ema_decay
         self.k = int(accumulate_grad_batches)
         self.augment, self.max_channels, self.compute_dtype = augment, max_channels, compute_dtype
+        self.normalize, self.nan_checks = normalize, nan_checks
         self._scalars: Dict[str, torch.Tensor] = {}
         self._mb_generators: list = []
 
@@ -456,7 +476,7 @@ class TrainStep:
             generator: Optional[torch.Generator] = None,
             draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         x = preprocess(batch, generator, augment=self.augment, max_channels=self.max_channels,
-                       dtype=self.compute_dtype, draws=draws)
+                       dtype=self.compute_dtype, draws=draws, normalize=self.normalize)
         d_valid = self._scalars.get("d_valid")
         if self.k <= 1:
             grads, logs = self._run_grads(state, x, batch, generator, d_valid)
@@ -474,6 +494,8 @@ class TrainStep:
             logs = {n: v / self.k for n, v in logs.items()}
         if self.grad_norm:
             logs["train/grad_norm"] = global_norm(grads[0])
+        if self.nan_checks:
+            self._raise_on_nan(state, grads, logs)
         lr_scale = self._scalars["lr_scale"]
         updates = [tx.apply(g, opt_state, params)
                    for (tx, params, opt_state), g in zip(self._optimizers(state), grads)]
@@ -481,6 +503,21 @@ class TrainStep:
             _apply(params, u, lr_scale)
         _ema(state, self.ema_decay)
         return logs
+
+    def _raise_on_nan(self, state: TrainState, grads: list, logs: Dict[str, torch.Tensor]) -> None:
+        names = [f"metric {k}" for k in logs]
+        tensors = list(logs.values())
+        groups = [("param", state.params)]
+        if self.gan_loss is not None:
+            groups.append(("discriminator param", state.disc_params))
+        for (kind, params), part in zip(groups, grads):
+            names += [f"the gradient of {kind} {n}" for n in params]
+            tensors += list(part)
+        flags = torch.stack([torch.isnan(t).any() for t in tensors]).cpu()
+        if bool(flags.any()):
+            first = int(flags.nonzero()[0])
+            raise FloatingPointError(f"debug.nan_checks: NaN in {names[first]} at train step {state.step} "
+                                     f"(after {state.step} optimizer updates)")
 
     def finish(self, state: TrainState) -> TrainState:
         for _, _, opt_state in self._optimizers(state):
@@ -506,11 +543,14 @@ def build_train_step(
     accumulate_grad_batches: int = 1,
     disc: Optional[torch.nn.Module] = None,
     disc_tx: Optional[Optimizer] = None,
+    normalize: bool = True,
+    nan_checks: bool = False,
 ) -> TrainStep:
     """The standard single-optimizer train step, or with `disc` and
     `disc_tx` the GAN step; see the module docstring and `TrainStep`."""
     common = dict(ema_decay=ema_decay, accumulate_grad_batches=accumulate_grad_batches,
-                  augment=augment, max_channels=max_channels, compute_dtype=model.dtype)
+                  augment=augment, max_channels=max_channels, compute_dtype=model.dtype,
+                  normalize=normalize, nan_checks=nan_checks)
     if str(loss_cfg.get("type", "vae")) == "lpips_discriminator":
         if disc is None or disc_tx is None:
             raise ValueError("the lpips_discriminator loss trains with a discriminator and its "
@@ -546,6 +586,7 @@ def build_eval_step(
     max_channels: int = 3,
     n_modalities: int = 0,
     disc: Optional[torch.nn.Module] = None,
+    normalize: bool = True,
 ):
     """The eval step; see the module docstring. The per-modality sums are
     `max(n_modalities, 12, model.num_modalities)` wide. With the GAN loss
@@ -586,7 +627,8 @@ def build_eval_step(
         was_training = model.training
         model.eval()
         try:
-            x = preprocess(batch, None, augment=False, max_channels=max_channels, dtype=model.dtype)
+            x = preprocess(batch, None, augment=False, max_channels=max_channels, dtype=model.dtype,
+                           normalize=normalize)
             outputs = forward(x, batch, generator)
         finally:
             model.train(was_training)

@@ -23,8 +23,22 @@ and checkpoints carry it.
 
 `device: cpu` runs on the CPU; `tpu`, `cuda` and `gpu` mean the card, and
 raise without one. Not ported yet, each raising NotImplementedError: a mesh
-of more than one device, `parallel.explicit_shard_map`, `debug.profile`,
-`debug.nan_checks` and `data.normalize: false`.
+of more than one device and `parallel.explicit_shard_map`.
+
+Options (medvae_tpu/train/trainer.py:509-510, 861-936, 1021-1023,
+1058-1059):
+  * `data.normalize: false` leaves images in [0, 1] in the train and eval
+    steps (fused chunks included: their step preprocesses) and the media
+    grids;
+  * `debug.nan_checks`: every train step reads back whether its metrics or
+    gradients hold a NaN and raises FloatingPointError on the first, naming
+    the step and the tensor (train/step.py:TrainStep); a validation whose
+    metrics hold one raises too. Fused chunks are off under it, so each step
+    is checked before its update;
+  * `debug.profile`: torch.profiler (the CPU, and the card's kernels on the
+    card) over the steps [start, min(20, steps_per_epoch)), its window
+    padded PROFILE_PAD_S at each end, written as a Chrome trace to
+    `<run_dir>/profile/trace.json`; fused chunks are off under it, as in JAX.
 
 The speed paths resolve as the JAX Trainer's do, each said once:
   * `data.device_cache: auto|true|false`: a split is pinned on the device
@@ -89,6 +103,10 @@ _TRAIN_STREAM, _EVAL_STREAM, _MEDIA_STREAM, _PROBE_STREAM = 0xBEEF, 0xE7A1, 0x3E
 # fused_steps=auto fuses only when the run plans at least this many steps
 # (medvae_tpu/train/trainer.py:47); each chunk runner captures one graph
 FUSED_AUTO_MIN_STEPS = int(os.environ.get("MEDVAE_FUSED_MIN_STEPS", 200))
+# debug.profile's host sleep after the window opens and before it closes:
+# Kineto keeps a kernel only inside its window on the host's clock, and drops
+# those launched at its very edge (chip_smoke.py:TRACE_PAD_S)
+PROFILE_PAD_S = 0.025
 
 
 def resolve_device(name: Any) -> torch.device:
@@ -107,14 +125,10 @@ def resolve_device(name: Any) -> torch.device:
 
 def _reject_unported(cfg) -> None:
     """Fail at start, naming the option, on what the port does not do yet."""
-    data = cfg.get("data") or {}
-    mesh, debug = cfg.get("mesh") or {}, cfg.get("debug") or {}
+    mesh = cfg.get("mesh") or {}
     unported = {
-        "data.normalize=false": not data.get("normalize", True),
         "a mesh of more than one device": int(mesh.get("data", -1)) > 1 or int(mesh.get("model", 1)) > 1,
         "parallel.explicit_shard_map": bool((cfg.get("parallel") or {}).get("explicit_shard_map")),
-        "debug.profile": bool(debug.get("profile")),
-        "debug.nan_checks": bool(debug.get("nan_checks")),
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -145,6 +159,7 @@ class Trainer:
             data_cfg["batch_size"] = 64
         self.datamodule = instantiate(data_cfg)
         self.datamodule.setup(None)
+        self.normalize = bool(getattr(self.datamodule, "normalize", True))
 
         self.model_cfg = {k: v for k, v in dict(cfg["model"]).items() if k != "remat"}
         high_res = int(self.model_cfg.get("resolution", 28)) >= 112
@@ -201,7 +216,8 @@ class Trainer:
                                        disc_tx=disc_tx)
             step = build_train_step(self.model, self.loss_cfg, tx, augment=bool(dm.augment_train),
                                     max_channels=dm.max_channels, ema_decay=ema_decay,
-                                    accumulate_grad_batches=accumulate, disc=self.disc, disc_tx=disc_tx)
+                                    accumulate_grad_batches=accumulate, disc=self.disc, disc_tx=disc_tx,
+                                    normalize=self.normalize, nan_checks=self._debug("nan_checks"))
             return tx, state, step
 
         if self._auto_bs:
@@ -240,7 +256,7 @@ class Trainer:
         self._monitors_checked = False
 
         self.eval_step = build_eval_step(self.model, self.loss_cfg, max_channels=dm.max_channels,
-                                         disc=self.disc)
+                                         disc=self.disc, normalize=self.normalize)
         self._feeders: Dict[Any, Any] = {}
         self._eval_runners: Dict[str, Any] = {}
         self._generator = torch.Generator(device=self.device)
@@ -288,6 +304,30 @@ class Trainer:
             self._save_monitor_state()
 
     # ------------------------------------------------------------------ #
+
+    def _debug(self, name: str) -> bool:
+        """`debug.<name>` of the config (profile, nan_checks)."""
+        return bool((self.cfg.get("debug") or {}).get(name))
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        prof = profile(activities=activities)
+        prof.start()
+        time.sleep(PROFILE_PAD_S)
+        return prof
+
+    def _stop_profile(self, prof) -> str:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        time.sleep(PROFILE_PAD_S)
+        prof.stop()
+        path = os.path.join(self.logger.dir, "profile", "trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        print(f"debug.profile: trace of the first steps written to {path}")
+        return path
 
     def _validate_geometry(self) -> None:
         """Fail at start when the codec cannot give back the input size
@@ -445,6 +485,11 @@ class Trainer:
         else:
             rows = [to_host(self.eval_step(self.state, batch, gen)) for batch in feeder.epoch(0)]
             stacked = {k: np.stack([np.asarray(r[k]) for r in rows]) for k in rows[0]}
+        if self._debug("nan_checks"):
+            bad = [k for k, v in stacked.items() if np.isnan(np.asarray(v, np.float64)).any()]
+            if bad:
+                raise FloatingPointError(f"debug.nan_checks: NaN in {split} metric {bad[0]} at step "
+                                         f"{self.state.step}")
         w = np.asarray(stacked.pop("val/_weight"), np.float64)
         psnr_by_mod = np.asarray(stacked.pop("val/_psnr_by_mod"), np.float64).sum(axis=0)
         count_by_mod = np.asarray(stacked.pop("val/_count_by_mod"), np.float64).sum(axis=0)
@@ -476,6 +521,7 @@ class Trainer:
         limit_train = int(tcfg.get("limit_train_batches", 0)) or None
         media_every = int(tcfg.get("log_images_every_n_epochs", 10) or 0)
         ckpt_every = int((self.cfg.get("checkpointing") or {}).get("every_n_steps", 0) or 0)
+        profile, nan_checks = self._debug("profile"), self._debug("nan_checks")
 
         feeder = self._feeder("train", shuffle=True, drop_last=True)
         banner = self.datamodule.synthetic_banner("training")
@@ -491,11 +537,16 @@ class Trainer:
             print(f"Resuming at optimizer step {self.state.step} -> epoch {start_epoch}, "
                   f"skipping {skip_batches} consumed batches")
         # fused chunks (medvae_tpu/train/trainer.py:901-933): on a cached
-        # train split, when forced or when the run plans enough steps
+        # train split, when forced or when the run plans enough steps; never
+        # under debug.profile (as in JAX) or debug.nan_checks (each step
+        # reads its NaN flags back on the host)
         planned = eff_steps * max(0, max_epochs - start_epoch)
         mode = self._fused_mode()
         fused = None
-        if isinstance(feeder, DeviceCachedFeeder) and (
+        if (mode in ("on", "auto") and (profile or nan_checks)
+                and isinstance(feeder, DeviceCachedFeeder)):
+            print(f"fused_steps={mode}: off under " + ("debug.profile" if profile else "debug.nan_checks"))
+        elif isinstance(feeder, DeviceCachedFeeder) and (
                 mode == "on" or (mode == "auto" and planned >= FUSED_AUTO_MIN_STEPS)):
             from medvae_tpu_torch.train.multistep import build_chunk_runner, chunk_plan
 
@@ -520,6 +571,7 @@ class Trainer:
                 print(f"epoch {epoch} step {step} loss {loss:.4f} "
                       f"({host['train/images_per_sec']:.0f} img/s)")
 
+        prof = self._start_profile() if profile else None
         try:
             for epoch in range(start_epoch, max_epochs):
                 epoch_t0 = time.time()
@@ -546,6 +598,9 @@ class Trainer:
                     self.state, metrics = self.train_step(self.state, batch, gen)
                     step = g_base + i + 1
                     log_train(step, epoch, metrics, self.datamodule.batch_size)
+                    if prof is not None and step >= min(20, self.steps_per_epoch):
+                        self._stop_profile(prof)
+                        prof = None
                     if ckpt_every and step % ckpt_every == 0:
                         self.ckpt.save_step(self.state)  # refresh `last`
                     if mid_val_at and (i + 1) == mid_val_at:
@@ -573,6 +628,8 @@ class Trainer:
                         print(f"Early stopping at epoch {epoch}")
                         break
         finally:
+            if prof is not None:  # the run ended inside the window
+                self._stop_profile(prof)
             self.logger.close()
         final = self.ckpt.save_final(self.state, self.cfg.get("experiment_name", "run"))
         print(f"Final checkpoint: {final}")
@@ -591,7 +648,7 @@ class Trainer:
         self.model.eval()
         try:
             x = preprocess(batch, None, augment=False, max_channels=self.datamodule.max_channels,
-                           dtype=self.model.dtype)
+                           dtype=self.model.dtype, normalize=self.normalize)
             recon = make_forward_fn(self.model)(x, batch, gen)["reconstruction"]
             samples = prior_samples(self.model, 16, gen)
         finally:

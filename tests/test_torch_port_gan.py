@@ -391,8 +391,10 @@ def test_gan_step_options_and_refusals(jax_side):
         step(state, _torch_batch(_batches(1, 1, conditional=False)[0]))
     with pytest.raises(ValueError, match="disc="):
         tstep.build_train_step(model, LOSS, ttx)
-    with pytest.raises(NotImplementedError, match="fp32 loss towers"):
-        tstep.build_train_step(model, dict(LOSS, tower_dtype="bfloat16"), ttx, disc=disc, disc_tx=tdtx)
+    bf16 = tstep.build_train_step(model, dict(LOSS, tower_dtype="bfloat16"), ttx, disc=disc, disc_tx=tdtx)
+    assert bf16.gan_loss.perceptual_loss.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="tower_dtype"):
+        tstep.build_train_step(model, dict(LOSS, tower_dtype="float16"), ttx, disc=disc, disc_tx=tdtx)
     with pytest.raises(ValueError, match="disc_tx"):
         tstate.create_train_state(model, ttx, frozen, disc=disc)
     assert (tdtx.b1, tdtx.b2) == (0.5, 0.999) and tdtx.schedule(0) == 0.5 * ttx.schedule(0)

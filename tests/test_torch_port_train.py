@@ -274,8 +274,9 @@ def test_every_build_turns_tf32_off(build, monkeypatch):
 
 
 def test_unported_step_options_raise():
-    """The GAN and tower-only loss types build; bf16 towers still raise, on
-    every loss type; gradient accumulation takes only a batch its k divides."""
+    """The GAN and tower-only loss types build, with bf16 towers too, and an
+    unknown tower dtype or optimizer raises; gradient accumulation takes
+    only a batch its k divides."""
     from medvae_tpu_torch.nn.discriminator import build_discriminator
 
     model = _small("fp32", train=True)
@@ -292,12 +293,15 @@ def test_unported_step_options_raise():
         assert callable(tstep.build_eval_step(model, {"type": loss_type}, disc=extra.get("disc")))
         assert callable(tstep.build_train_step(model, {"type": loss_type}, tx, accumulate_grad_batches=2,
                                                **extra))
-        with pytest.raises(NotImplementedError, match="fp32 loss towers"):
-            tstep.build_train_step(model, {"type": loss_type, "tower_dtype": "bfloat16"}, tx, **extra)
-    with pytest.raises(NotImplementedError, match="fp32 loss towers"):
-        tstep.build_train_step(model, dict(LOSS, tower_dtype="bfloat16"), tx)
-    with pytest.raises(ValueError, match="not ported"):
-        toptim.build_optimizer({"type": "sgd"})
+        # bf16 towers are built (their parity: tests/test_torch_port_runs.py)
+        assert callable(tstep.build_train_step(model, {"type": loss_type, "tower_dtype": "bfloat16"}, tx,
+                                               **extra))
+        with pytest.raises(ValueError, match="tower_dtype"):
+            tstep.build_train_step(model, {"type": loss_type, "tower_dtype": "float16"}, tx, **extra)
+    assert callable(tstep.build_train_step(model, dict(LOSS, tower_dtype="bfloat16"), tx))
+    assert toptim.build_optimizer({"type": "sgd"}).kind == "sgd"
+    with pytest.raises(ValueError, match="Unknown optimizer type"):
+        toptim.build_optimizer({"type": "lamb"})
     with pytest.raises(ValueError, match="train=True"):
         tstate.create_train_state(_small("fp32", train=False), tx)
 

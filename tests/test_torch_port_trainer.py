@@ -125,6 +125,12 @@ def test_trainer_rejects_geometry_mismatch(tmp_path, config_dir):
     "debug.nan_checks=true", "mesh.data=2", "debug.profile=true", "+parallel.explicit_shard_map=true",
 ])
 def test_trainer_names_what_is_not_ported(tmp_path, config_dir, override):
+    """The multi-device options raise; the debug options are ported now and
+    the Trainer takes them (their runs: tests/test_torch_port_runs.py)."""
+    if override.startswith("debug."):
+        t = Trainer(_cfg(config_dir, tmp_path, 1, [override]))
+        assert t._debug(override.split("=")[0].split(".")[1])
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(_cfg(config_dir, tmp_path, 1, [override]))
 
