@@ -244,7 +244,45 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            FloatingPointError on chip_smoke's NaN batch), debug.profile (the
            trace's B6/B7 kernel events as derived), data.normalize=false (a
            fused epoch, finite losses) and SGD fused against per-step calls,
-           bit for bit.
+           bit for bit;
+  dp_flagship  a one-rank NCCL group (every collective an identity): the
+           train phase's flagship at bs 32 with FLAGSHIP_LOSS, 3 steps of
+           build_shard_map_train_step against 3 of build_train_step from the
+           same weights, batch and generator seed, and 3 more plain steps
+           (the card's repeat): params and metrics bit for bit both times,
+           5/5 B1/flash_bwd a step each, ms a step both ways;
+  dp2_card, tp2_card  one phase (phase_two_ranks), whose parts overlap:
+           one torchrun takes every parity run below while another takes the
+           cli runs in turn and this process the one-rank sides; each prints
+           its row.
+  dp2_card  two ranks sharing the card (torchrun, gloo), MEDVAE_FUSED_GN=1:
+           cli/train.py on multi_modal_cvae_quick with mesh.data=2 (global
+           bs 16), 2 epochs of 1 batch with validation and test, then a
+           second run resumed from the first's step-1 snapshot: the resumed
+           final params bit for bit the uninterrupted ones; each rank's
+           B6/B7 launches sites x (steps + eval batches) and sites x steps.
+           Then the parity runs (PARITY: SGD at lr 1e-2, dropout off, the
+           noise pinned per global row) of the quick CVAE (global bs 16) and
+           the quick flagship (global bs 32, its separation and contrastive
+           losses on the gathered latent), PARITY_STEPS of the Trainer's
+           own step on two ranks against one rank on the same global batch:
+           parity_gate (the same initial params, the updates' relative L2,
+           each step's loss and grad_norm, against TOLERANCE's bf16 relative
+           bar) and sites x steps B6/B7 on each rank; each rank's seconds
+           and peak memory;
+  tp2_card  experiment=chest_base_vae at 128² with mesh.model=2 on two ranks
+           sharing the card, global bs 8, MEDVAE_FUSED_GN=1: the parity run
+           of PARITY_STEPS against one rank (parity_gate), 7/7 B4/B5 and
+           sites/sites B6/B7 a step on each rank, and each rank's bytes of
+           params and moments beside the one-rank run's;
+  dryrun_card  entry.dryrun_multichip(1) on the card with the switch on:
+           its four `ok` lines (DP×TP needs 4 ranks), the fused chunk captured
+           with its collectives and bit for bit the per-step calls, B6/B7
+           launches as dryrun_sites derives them; then dryrun_multichip(4)
+           on the card (four spawned ranks sharing it under gloo): its five
+           `ok` lines;
+  serve_mesh  the flagship engine over a mesh of the one card against one
+           without: a bucket-32 reconstruct bit for bit, 5 B1 launches each.
 The repeat of train_parity, cvae28_parity and base128_parity is gated at
 0.0: the fused chunks rest on it. Then the card line from nvidia-smi, the
 kernels line, and {"ok": true, "device": {...}} last.
@@ -312,6 +350,10 @@ try:
     from medvae_tpu_torch.train.step import (build_gan_grads, build_loss_and_grads, build_train_step,
                                              make_frozen, make_gan_loss)
     from medvae_tpu_torch.train.trainer import Trainer
+    from medvae_tpu_torch.core import mesh as core_mesh
+    from medvae_tpu_torch import entry as entry_mod
+    from medvae_tpu_torch.entry import dryrun_multichip
+    from medvae_tpu_torch.parallel import shard_map_step
 except ImportError as e:
     print(f"chip_smoke: the medvae_tpu_torch package is missing here ({e})", file=sys.stderr)
     raise SystemExit(3)
@@ -3857,7 +3899,515 @@ def phase_options() -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------ multi-device --
+
+DP_STEPS = 3  # dp_flagship's steps each way
+DP2_OVERRIDES = [*QUICK28, "mesh.data=2", "training.max_epochs=2", "+training.limit_train_batches=1",
+                 "checkpointing.save_top_k=3"]
+TP2_OVERRIDES = [*BASE128_OVERRIDES, "data.batch_size=8", "+model.remat=false", "early_stopping.enabled=false",
+                 "training.log_images_every_n_epochs=0"]
+# The parity runs of dp2_card and tp2_card, two ranks against one on the same
+# global batch, each in fp32 and in bf16 compute (PARITY_PRECISIONS): SGD,
+# since Adam's first step moves a param by ±lr whatever its gradient's
+# size, so reduction-order noise that flips a small gradient's sign parts
+# the runs by 2·lr; lr 1e-2, so that an update stands well above its
+# param's fp32 spacing; dropout off, so that no draw depends on the rank;
+# the noise pinned per global row (parity_batch)
+PARITY = ["training.optimizer.type=sgd", "training.optimizer.lr=0.01", "model.dropout=0.0"]
+PARITY_STEPS = 2
+PARITY_PRECISIONS = ("fp32", "bf16")
+# fp32 (no TF32): the CPU parity tests' bars, 2e-4 on outputs (the loss) and
+# 5e-4 on gradients (grad_norm, and the SGD update, lr times the clipped
+# gradient). bf16 rounds every activation and weight gradient, and the
+# ranks round other partial sums, so its bar is bf16's own error: two ranks'
+# bf16 update may stand at most PARITY_BF16_FACTOR times as far from one
+# rank's fp32 update as one rank's bf16 update does
+PARITY_FP32_BARS = {"train/loss": 2e-4, "train/grad_norm": 5e-4, "update": 5e-4}
+PARITY_BF16_FACTOR = 2.0
+DP2_PARITY = {"cvae": [*QUICK28, *PARITY],
+              "flagship": ["experiment=disentangled_multi_modal_cvae_quick", *QUICK28[1:], *PARITY]}
+TP2_PARITY = {"base128": [*TP2_OVERRIDES, *PARITY]}
+RANK_CHILD_TIMEOUT = 300
+
+
+def one_rank_group(tag: str):
+    """A one-rank NCCL group of this process, on a file store under WORK."""
+    store = os.path.join(WORK, f"{tag}_store")
+    os.makedirs(WORK, exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    return core_mesh.init_distributed(CARD, init_method=f"file://{store}", rank=0, world_size=1)
+
+
+def phase_dp_flagship(state_dict) -> dict:
+    """The data-parallel step of the 224² flagship in a one-rank NCCL group
+    against the plain step, bit for bit (module docstring)."""
+    dist = one_rank_group("dp_flagship")
+    try:
+        mesh = core_mesh.create_mesh(core_mesh.MeshSpec(), dist)
+        batch = synthetic_batch(TRAIN_BATCH, 224, CARD)
+        want = want_launches(**PER_TRAIN_STEP)
+        out, frozen = {}, None
+        for kind in ("plain", "dp", "repeat"):
+            model, frozen = train_model(state_dict, "bf16", CARD, frozen_from=frozen)
+            tx = bench_optimizer()
+            state = create_train_state(model, tx, frozen)
+            step = (build_train_step(model, FLAGSHIP_LOSS, tx, augment=True, max_channels=3) if kind != "dp"
+                    else shard_map_step.build_shard_map_train_step(model, FLAGSHIP_LOSS, tx, mesh, augment=True,
+                                                                   max_channels=3))
+            gen = torch.Generator(device=CARD).manual_seed(0)
+            history: list = []
+            state, times, totals = run_steps(f"dp_flagship_{kind}", step, state, batch, gen, 1, DP_STEPS - 1,
+                                             want, history)
+            out[kind] = {"params": {k: v.detach().clone() for k, v in state.params.items()},
+                         "history": history, "ms": statistics.median(times), "launches": totals}
+            del model, state, step
+            torch.cuda.empty_cache()
+        diff = max(float((out["dp"]["params"][k] - out["plain"]["params"][k]).abs().max())
+                   for k in out["plain"]["params"])
+        same = differing(out["dp"]["params"], out["plain"]["params"])
+        repeat = differing(out["repeat"]["params"], out["plain"]["params"])
+        row = {"phase": "dp_flagship", "world": dist.world, "backend": dist.backend, "batch": TRAIN_BATCH,
+               "steps": DP_STEPS, "ms_per_step": out["dp"]["ms"], "plain_ms_per_step": out["plain"]["ms"],
+               # the median of DP_STEPS - 1 steps a side: does not resolve the
+               # collectives' cost at world 1 (PERF.md, PR 15)
+               "ms_per_step_minus_plain": out["dp"]["ms"] - out["plain"]["ms"],
+               "params_max_abs_diff": diff, "params_differing": len(same),
+               "metrics_equal": out["dp"]["history"] == out["plain"]["history"],
+               "card_repeat_params_differing": len(repeat),
+               "card_repeat_metrics_equal": out["repeat"]["history"] == out["plain"]["history"],
+               "launches": out["dp"]["launches"], "plain_launches": out["plain"]["launches"]}
+        emit(row)
+        if same or repeat or not row["metrics_equal"] or not row["card_repeat_metrics_equal"]:
+            raise AssertionError(f"dp_flagship: the parallel step differs from the plain step: {row}")
+        return out["dp"]["launches"]
+    finally:
+        core_mesh.shutdown()
+
+
+def rank_child(argv) -> int:
+    """A rank of a two-rank phase under torchrun (`chip_smoke.py --rank-child
+    <kind> <out_dir> ...`): `train <overrides...>` runs cli/train.py;
+    `parity <json>` runs `parity_run` for each [name, precision,
+    overrides] in turn, rank 0 saving each one's params to
+    <out_dir>/<name>_<precision>.pt. Each writes its
+    counts, seconds and peak memory to <out_dir>/rank<r>.json."""
+    kind, out_dir, rest = argv[0], argv[1], argv[2:]
+    rank = int(os.environ["RANK"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    row = {"rank": rank}
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        if kind == "train":
+            row["rc"] = cli_train.main(rest)
+        else:
+            row["parity"] = {}
+            for name, precision, overrides in json.loads(rest[0]):
+                tag = f"{name}_{precision}"
+                run = parity_run(name, overrides)
+                if rank == 0:
+                    torch.save({k: run.pop(k) for k in ("init", "final")}, os.path.join(out_dir, f"{tag}.pt"))
+                row["parity"][tag] = {k: v for k, v in run.items() if k not in ("init", "final")}
+    torch.cuda.synchronize()
+    row.update(seconds=time.perf_counter() - t0, launches=launches(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, backend=core_mesh.current().backend,
+               printed_tail=printed.getvalue().splitlines()[-3:])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    return 0 if row.get("rc", 0) == 0 else 1
+
+
+def tp2_batch() -> dict:
+    """tp2_card's global batch of 8 128² chest images."""
+    rs = np.random.RandomState(5)
+    return {"image_u8": torch.from_numpy(rs.randint(0, 255, (8, 128, 128, 1), np.uint8)),
+            "modality_idx": torch.zeros((8,), dtype=torch.int32), "channels": torch.ones((8,), dtype=torch.int32)}
+
+
+def parity_batch(trainer, fixed=None) -> dict:
+    """This rank's rows of the run's global batch on its device, with the
+    reparameterization noise pinned per global row (numpy seed 7): the
+    rows of `fixed()` when given, else the first batch of the Trainer's own
+    train feeder (which gives each rank its rows of JAX's global batch)."""
+    model = trainer.model
+    if fixed is not None:
+        batch = fixed()
+        n = int(batch["image_u8"].shape[0])
+        rows = trainer.mesh.local_rows(n)
+        batch = {k: v[rows] for k, v in batch.items()}
+    else:
+        n = int(trainer.datamodule.batch_size)
+        rows = trainer.mesh.local_rows(n)
+        batch = next(iter(trainer._feeder("train", True, True).epoch(0)))
+    r, zdim = model.encoder_out_res, getattr(model, "total_latent_dim", model.latent_dim)
+    noise = torch.from_numpy(np.random.RandomState(7).randn(n, r, r, zdim).astype(np.float32))
+    return {**{k: v.to(trainer.device) for k, v in batch.items()}, "noise": noise[rows].to(trainer.device)}
+
+
+PARITY_BATCHES = {"base128": tp2_batch}  # by run name; the others take their feeder's first batch
+
+
+def parity_run(name: str, overrides: list) -> dict:
+    """PARITY_STEPS of the Trainer's own step (`overrides` composed, the
+    step as the Trainer built it for its mesh) on `parity_batch` (the run
+    `name`'s entry of PARITY_BATCHES, if any), each step's
+    generator seeded with its index: the full params before and after (CPU,
+    gathered over the model group), each step's metrics, the kernels'
+    counts over the steps, and this rank's bytes of params and moments."""
+    t0 = time.perf_counter()
+    trainer = Trainer(compose(cli_train.default_config_dir(), "config", overrides))
+    batch = parity_batch(trainer, PARITY_BATCHES.get(name))
+    seconds = {"setup": time.perf_counter() - t0}
+
+    def full() -> dict:
+        return {k: trainer.layout.full(p, p).detach().cpu().clone() for k, p in trainer.state.params.items()}
+
+    t0 = time.perf_counter()
+    init = full()
+    seconds["gather"] = time.perf_counter() - t0
+    gen = torch.Generator(device=trainer.device)
+    reset_launches()
+    history = []
+    t0 = time.perf_counter()
+    for i in range(PARITY_STEPS):
+        gen.manual_seed(i)
+        trainer.state, metrics = trainer.train_step(trainer.state, batch, gen)
+        history.append({k: float(v) for k, v in metrics.items()})
+    counts = launches()
+    seconds["steps"] = time.perf_counter() - t0
+    params = list(trainer.state.params.values())
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    out = {"init": init, "final": full(), "seconds": seconds, "history": history, "launches": counts,
+           "param_bytes": nbytes(params),
+           "moment_bytes": nbytes(trainer.state.opt_state.mu + trainer.state.opt_state.nu),
+           "sharded_params": sum(trainer.layout.shard_of(p) is not None for p in params),
+           "rows": int(batch["image_u8"].shape[0])}
+    del trainer
+    gc.collect()
+    return out
+
+
+def parity_update(run: dict) -> torch.Tensor:
+    """A parity run's update over every leaf, final minus initial params
+    (in fp32, exact where a step moved a param by less than its size), as
+    fp64 on the card when there is one."""
+    device = CARD if torch.cuda.is_available() else "cpu"
+    return torch.cat([(run["final"][k] - run["init"][k]).reshape(-1).to(device)
+                      for k in sorted(run["init"])]).double()
+
+
+def parity_gate(two: dict, one: dict) -> dict:
+    """Two ranks' parity runs against one rank's, `two` and `one` by
+    precision (two's params are rank 0's, gathered): the same initial params
+    bit for bit; in fp32 the updates' relative L2 and each step's loss and
+    grad_norm within PARITY_FP32_BARS; in bf16 the two ranks' update within
+    PARITY_BF16_FACTOR times one rank's bf16 distance from one rank's fp32
+    update. A step that took no update, half of it or another one reads far
+    past both (PERF.md, PR 15's planted faults)."""
+    u = {(who, p): parity_update(r) for who, runs in (("two", two), ("one", one)) for p, r in runs.items()}
+
+    def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    hist = {key: [abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                  for a, b in zip(two["fp32"]["history"], one["fp32"]["history"])]
+            for key in ("train/loss", "train/grad_norm")}
+    row = {"init_differing": {p: len(differing(two[p]["init"], one[p]["init"])) for p in PARITY_PRECISIONS},
+           "update_norm": {f"{who}_{p}": float(torch.linalg.vector_norm(v)) for (who, p), v in u.items()},
+           "fp32": {"update_rel_l2": rel(u["two", "fp32"], u["one", "fp32"]),
+                    **{f"{k.split('/')[1]}_rel": v for k, v in hist.items()}, "bars": PARITY_FP32_BARS},
+           "bf16": {"two_from_fp32": rel(u["two", "bf16"], u["one", "fp32"]),
+                    "one_from_fp32": rel(u["one", "bf16"], u["one", "fp32"]),
+                    "two_from_one": rel(u["two", "bf16"], u["one", "bf16"]), "factor": PARITY_BF16_FACTOR}}
+    f, b = row["fp32"], row["bf16"]
+    row["ok"] = bool(not any(row["init_differing"].values()) and all(v > 0 for v in row["update_norm"].values())
+                     and f["update_rel_l2"] <= PARITY_FP32_BARS["update"]
+                     and all(len(r["history"]) == PARITY_STEPS for r in (*two.values(), *one.values()))
+                     and all(v <= PARITY_FP32_BARS[k] for k, vs in hist.items() for v in vs)
+                     and b["two_from_fp32"] <= PARITY_BF16_FACTOR * b["one_from_fp32"])
+    del u
+    return row
+
+
+@contextlib.contextmanager
+def ranks_started(tag: str, kind: str, args: list):
+    """Two ranks of `rank_child` on the card under torchrun, started with
+    the switch on and running while the block runs (this process goes on
+    with other work); yields a function that waits for them, within
+    RANK_CHILD_TIMEOUT of their start, and returns every rank's row. A
+    rank's non-zero exit fails the phase; ranks still running when the
+    block ends are killed with their torchrun."""
+    out_dir = os.path.join(WORK, f"{tag}_ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           os.path.abspath(__file__), "--rank-child", kind, out_dir, *args]
+    log_path = os.path.join(out_dir, "torchrun.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+                                env=dict(os.environ, MEDVAE_FUSED_GN="1"))
+
+    def rows() -> list:
+        try:
+            proc.wait(timeout=max(1.0, RANK_CHILD_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{tag}: the ranks ran past {RANK_CHILD_TIMEOUT} s") from None
+        if proc.returncode != 0:
+            with open(log_path) as f:
+                raise AssertionError(f"{tag}: torchrun exited {proc.returncode}:\n{f.read()[-9000:]}")
+        out = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+    try:
+        yield rows
+    finally:
+        if proc.poll() is None:
+            proc.terminate()  # torchrun stops its ranks on SIGTERM
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def torchrun_ranks(tag: str, kind: str, args: list) -> list:
+    """`ranks_started`, waited for at once."""
+    with ranks_started(tag, kind, args) as rows:
+        return rows()
+
+
+def one_rank_runs(work: str, runs: dict) -> dict:
+    """Each of `runs` ({name: overrides}) in each of PARITY_PRECISIONS on
+    one rank in this process, with the switch on: {name: {precision:
+    parity_run's output}}."""
+    one = {name: {} for name in runs}
+    for name, overrides in runs.items():
+        for p in PARITY_PRECISIONS:
+            with fused_gn(True), contextlib.redirect_stdout(io.StringIO()):
+                one[name][p] = parity_run(name, [*overrides, f"precision={p}", f"work_dir={work}/one_{name}_{p}"])
+            gc.collect()
+            torch.cuda.empty_cache()
+    return one
+
+
+def parity_results(ranks_dir: str, ranks: list, one: dict) -> dict:
+    """Each run of `one` against its two-rank run (rank 0's params from
+    `ranks_dir`, every rank's row from `ranks`): {name: {"ranks":
+    {precision: each rank's parity row}, "one": one[name], "gate":
+    parity_gate's row, "seconds": each side's}}."""
+    out = {}
+    for name in one:
+        two, rows = {}, {}
+        for p in PARITY_PRECISIONS:
+            two[p] = torch.load(os.path.join(ranks_dir, f"{name}_{p}.pt"), weights_only=True)
+            rows[p] = [r["parity"][f"{name}_{p}"] for r in ranks]
+            two[p]["history"] = rows[p][0]["history"]
+        out[name] = {"ranks": rows, "one": one[name], "gate": parity_gate(two, one[name]),
+                     "seconds": {p: {"two_ranks": [r["seconds"] for r in rows[p]], "one_rank": one[name][p]["seconds"]}
+                                 for p in PARITY_PRECISIONS}}
+        del two
+        gc.collect()
+    return out
+
+
+def dp2_snapshot(checkpoint_dir: str, name: str) -> dict:
+    path = os.path.join(checkpoint_dir, QUICK28_NAME, name, "checkpoint.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+
+
+def quick_flagship_sites() -> int:
+    cfg = compose(cli_train.default_config_dir(), "config", [DP2_PARITY["flagship"][0]])
+    return gn_swish_sites(build_model(dict(cfg["model"]), "bf16", "meta", train=True))
+
+
+def parity_losses(run: dict) -> dict:
+    """Each step's loss and grad_norm of a parity run, by precision: rank 0's
+    and one rank's."""
+    return {f"{key.split('/')[1]}_{p}": {"two_ranks": [h[key] for h in run["ranks"][p][0]["history"]],
+                                         "one_rank": [h[key] for h in run["one"][p]["history"]]}
+            for p in PARITY_PRECISIONS for key in ("train/loss", "train/grad_norm")}
+
+
+def phase_two_ranks() -> dict:
+    """dp2_card and tp2_card (module docstring), sharing the card's time:
+    one torchrun of two ranks takes every parity run (the quick CVAE and
+    flagship with mesh.data=2, then the 128² BaseVAE with mesh.model=2)
+    while two more ranks take the cli/train.py runs in turn and this
+    process the DP runs' one-rank side; then the TP runs' one-rank side
+    (after the ranks, whose fp32 128² steps hold ~21 GiB each). Emits both
+    rows; returns each phase's launches."""
+    work = os.path.join(WORK, "two_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    dp_common = [f"device={CARD}", quick_data()]
+    # one data dir, so that the synthetic 128² splits are made once and read back
+    tp_common = [f"device={CARD}", f"data_dir={os.path.join(WORK, 'tp2_data')}"]
+    dp_runs = {name: [*o, *dp_common] for name, o in DP2_PARITY.items()}
+    tp_runs = {name: [*o, *tp_common] for name, o in TP2_PARITY.items()}
+    spec = [[name, p, [*o, f"precision={p}", f"work_dir={work}/two_{name}_{p}", mesh]]
+            for runs, mesh in ((dp_runs, "mesh.data=2"), (tp_runs, "mesh.model=2"))
+            for name, o in runs.items() for p in PARITY_PRECISIONS]
+    ckpts = os.path.join(work, "full", "logs", "checkpoints")
+    seconds, t_phase = {}, time.perf_counter()
+    with ranks_started("parity", "parity", [json.dumps(spec)]) as parity_wait:
+        t0 = time.perf_counter()
+        with ranks_started("dp2_full", "train", [*DP2_OVERRIDES, *dp_common, f"work_dir={work}/full"]) as full_wait:
+            dp_one = one_rank_runs(work, dp_runs)
+            seconds["dp_one_rank"] = time.perf_counter() - t0
+            full = full_wait()
+        (step1,) = [n for n in os.listdir(os.path.join(ckpts, QUICK28_NAME)) if n.startswith("step_00000001")]
+        resumed = torchrun_ranks("dp2_resume", "train", [*DP2_OVERRIDES, *dp_common, f"work_dir={work}/resume",
+                                                         f"+resume_from={os.path.join(ckpts, QUICK28_NAME, step1)}"])
+        seconds["cli_runs"] = time.perf_counter() - t0
+        parity_ranks = parity_wait()
+        seconds["parity_ranks"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    tp_one = one_rank_runs(work, tp_runs)
+    seconds["tp_one_rank"] = time.perf_counter() - t0
+    ranks_dir = os.path.join(WORK, "parity_ranks")
+    dp = parity_results(ranks_dir, parity_ranks, dp_one)
+    tp = parity_results(ranks_dir, parity_ranks, tp_one)
+    seconds["total"] = time.perf_counter() - t_phase
+    resumed_final = dp2_snapshot(os.path.join(work, "resume", "logs", "checkpoints"), f"{QUICK28_NAME}_final")
+    full_final = dp2_snapshot(ckpts, f"{QUICK28_NAME}_final")
+    common_row = {"ranks": 2, "backend": full[0]["backend"], "seconds": seconds,
+                  "parity_rank_seconds": [r["seconds"] for r in parity_ranks],
+                  "parity_rank_peak_gib": [r["peak_gib"] for r in parity_ranks]}
+
+    # dp2_card
+    sites = quick_sites()["model"]
+    flag_sites = quick_flagship_sites()
+    val, test = quick_eval_batches("val"), quick_eval_batches("test")
+    want_full = {"gn_swish_fwd": sites * (2 + 2 * val + test), "gn_swish_bwd": sites * 2}
+    want_resume = {"gn_swish_fwd": sites * (1 + val + test), "gn_swish_bwd": sites}
+    want_parity = {name: {k: s * PARITY_STEPS for k in gs.launches}
+                   for name, s in (("cvae", sites), ("flagship", flag_sites))}
+    got_full = [{k: r["launches"][k] for k in gs.launches} for r in full]
+    got_resume = [{k: r["launches"][k] for k in gs.launches} for r in resumed]
+    # by run and precision, each rank's
+    got_parity = {name: {p: [{k: r["launches"][k] for k in gs.launches} for r in rows]
+                         for p, rows in run["ranks"].items()} for name, run in dp.items()}
+    parity_counts = [c for by_p in got_parity.values() for cs in by_p.values() for c in cs]
+    row = {"phase": "dp2_card", **common_row, "global_batch": 16,
+           "rank_seconds": [[r["seconds"] for r in full], [r["seconds"] for r in resumed]],
+           "rank_peak_gib": [[r["peak_gib"] for r in full], [r["peak_gib"] for r in resumed]],
+           "resume_from": step1, "resume_differing": differing(resumed_final, full_final),
+           "parity": {name: {"rows_by_rank": [r["rows"] for r in run["ranks"]["fp32"]], "gate": run["gate"],
+                             "seconds": run["seconds"], **parity_losses(run)} for name, run in dp.items()},
+           "launches_full_by_rank": got_full, "want_full": want_full,
+           "launches_resume_by_rank": got_resume, "want_resume": want_resume,
+           "launches_parity_by_rank": got_parity, "want_parity": want_parity,
+           "gn_sites": {"cvae": sites, "flagship": flag_sites}, "eval_batches": {"val": val, "test": test}}
+    emit(row)
+    if (row["resume_differing"] or not all(p["gate"]["ok"] for p in row["parity"].values())
+            or any(c != want_full for c in got_full) or any(c != want_resume for c in got_resume)
+            or any(c != want_parity[name] for name, by_p in got_parity.items() for cs in by_p.values() for c in cs)):
+        raise AssertionError(f"dp2_card: {row}")
+    dp2_counts = {k: sum(c[k] for c in got_full + got_resume + parity_counts) for k in gs.launches}
+
+    # tp2_card
+    run = tp["base128"]
+    sites = gn_swish_sites(build_model(dict(base128_config()["model"]), "bf16", "meta", train=True))
+    want = {"attention_fwd": BASE128_SITES * PARITY_STEPS, "attention_bwd": BASE128_SITES * PARITY_STEPS,
+            "gn_swish_fwd": sites * PARITY_STEPS, "gn_swish_bwd": sites * PARITY_STEPS}
+    got = {p: [{k: r["launches"][k] for k in want} for r in rows] for p, rows in run["ranks"].items()}
+    bf16 = run["ranks"]["bf16"]
+    row = {"phase": "tp2_card", **common_row, "global_batch": 8, "steps": PARITY_STEPS, "gate": run["gate"],
+           "run_seconds": run["seconds"], **parity_losses(run),
+           "param_bytes_by_rank": [r["param_bytes"] for r in bf16],
+           "param_bytes_one_rank": run["one"]["bf16"]["param_bytes"],
+           "moment_bytes_by_rank": [r["moment_bytes"] for r in bf16],
+           "moment_bytes_one_rank": run["one"]["bf16"]["moment_bytes"],
+           "sharded_params": bf16[0]["sharded_params"], "launches_by_rank": got, "want_launches": want,
+           "one_rank_launches": {p: {k: o["launches"][k] for k in want} for p, o in run["one"].items()},
+           "gn_sites": sites}
+    emit(row)
+    if not run["gate"]["ok"] or any(c != want for cs in got.values() for c in cs):
+        raise AssertionError(f"tp2_card: {row}")
+    tp2_counts = {k: sum(c.get(k, 0) for cs in got.values() for c in cs) for k in launches()}
+    for d in (work, os.path.join(WORK, "tp2_data")):
+        shutil.rmtree(d, ignore_errors=True)
+    return {"dp2_card": dp2_counts, "tp2_card": tp2_counts}
+
+
+def dryrun_sites() -> dict:
+    """B6/B7 calls of dryrun_multichip(1) with the switch on, derived from
+    its models: one step each of the 28² flagship's DP step, the GAN step
+    (its generator's sites, the decoder's again when its dropout makes the
+    adaptive weight redecode) and the full loss surface (the towers have no
+    GroupNorm), and the tiny flagship's CHUNK_STEPS steps fused and again per
+    step; a step's backward calls B7 once a site (the adaptive weight's
+    gradient stops at conv_out)."""
+    flag = gn_swish_sites(build_model(entry_mod.ENTRY_MODEL, "bf16", "meta", train=True))
+    cvae = build_model(entry_mod.GAN_CVAE, "fp32", "meta", train=True)
+    gan = gn_swish_sites(cvae)
+    redecode = gn_swish_sites(cvae.decoder) if any(m.dropout for m in cvae.decoder.modules()
+                                                    if isinstance(m, ResnetBlock)) else 0
+    tiny = gn_swish_sites(build_model(entry_mod.TINY_FLAGSHIP, "bf16", "meta", train=True))
+    per_site = flag + gan + (2 * entry_mod.CHUNK_STEPS + 1) * tiny
+    return {"gn_swish_fwd": per_site + redecode, "gn_swish_bwd": per_site}
+
+
+def phase_dryrun_card() -> dict:
+    """entry.dryrun_multichip(1) and (4) on the card with the switch on
+    (module docstring)."""
+    want = want_launches(**dryrun_sites())
+    reset_launches()
+    with fused_gn(True), contextlib.redirect_stdout(io.StringIO()):
+        lines = dryrun_multichip(1)
+    counts = launches()
+    t0 = time.perf_counter()
+    with fused_gn(True), contextlib.redirect_stdout(io.StringIO()):
+        lines4 = dryrun_multichip(4, timeout=RANK_CHILD_TIMEOUT)
+    row = {"phase": "dryrun_card", "lines": lines, "launches": counts, "want_launches": want,
+           "lines_4_ranks": lines4, "seconds_4_ranks": time.perf_counter() - t0}
+    emit(row)
+    if len(lines) != 4 or not all(": ok, " in line for line in lines) or not any("captured" in l for l in lines):
+        raise AssertionError(f"dryrun_card: {row}")
+    if counts != want:
+        raise AssertionError(f"dryrun_card: launches {counts}, want {want}")
+    if len(lines4) != 5 or not all(": ok, " in line for line in lines4):
+        raise AssertionError(f"dryrun_card: four ranks printed {lines4}")
+    return counts
+
+
+def phase_serve_mesh(state_dict) -> dict:
+    """The flagship engine over a mesh of the one card against one without:
+    a bucket-32 reconstruct bit for bit, 5 B1 launches each."""
+    model = build_model(FLAGSHIP, "bf16", CARD)
+    model.load_state_dict(state_dict)
+    plain = InferenceEngine(model, buckets=(1, 8, 32), device=CARD)
+    meshed = InferenceEngine(copy.deepcopy(model), buckets=(1, 8, 32), mesh=True)
+    rs = np.random.RandomState(3)
+    x = rs.randint(0, 255, (32, 224, 224, 3), np.uint8)
+    midx = np.arange(32) % 5
+    out, counts = {}, {}
+    for name, engine in (("plain", plain), ("mesh", meshed)):
+        engine.reconstruct(x, midx)
+        torch.cuda.synchronize()
+        reset_launches()
+        out[name] = engine.reconstruct(x, midx)
+        counts[name] = launches()
+    want = want_launches(flash_fwd=PER_CHUNK["reconstruct"])
+    row = {"phase": "serve_mesh", "devices": [str(d) for d in meshed.devices], "buckets": list(meshed.buckets),
+           "bit_for_bit": bool(np.array_equal(out["plain"], out["mesh"])),
+           "max_abs_diff": float(np.abs(out["plain"] - out["mesh"]).max()), "launches": counts["mesh"],
+           "plain_launches": counts["plain"]}
+    emit(row)
+    if not row["bit_for_bit"] or counts["mesh"] != want or counts["plain"] != want:
+        raise AssertionError(f"serve_mesh: {row}")
+    del plain, meshed, model
+    torch.cuda.empty_cache()
+    return counts["mesh"]
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank-child":
+        return rank_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 2
@@ -3956,6 +4506,14 @@ def main() -> int:
     lap("bench_modes")
     phase_options()
     lap("options")
+    multi = {"dp_flagship": phase_dp_flagship(state_dict)}
+    lap("dp_flagship")
+    multi.update(phase_two_ranks())
+    lap("dp2_card+tp2_card")
+    multi["dryrun_card"] = phase_dryrun_card()
+    lap("dryrun_card")
+    multi["serve_mesh"] = phase_serve_mesh(state_dict)
+    lap("serve_mesh")
     shutil.rmtree(WORK, ignore_errors=True)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 3)})
     print(smi, flush=True)
@@ -3982,6 +4540,8 @@ def main() -> int:
                launches_export224=export224_launches["flash_fwd"],
                launches_bench_serve=bench_serve_launches["flagship224"],
                launches_towers_bf16=towers_launches["flash_fwd"],
+               launches_dp_flagship=multi["dp_flagship"]["flash_fwd"],
+               launches_serve_mesh=multi["serve_mesh"]["flash_fwd"],
                op_ms=dispatch["flash_attention"]["op_ms"],
                dispatch_us=dispatch["flash_attention"]["dispatch_us"],
                ms_with_lse=backward["flash_fwd_lse"]["ms"],
@@ -3996,6 +4556,7 @@ def main() -> int:
     for name, err in (("flash_bwd (B2: dK, dV)", r["max_abs_err_dkv"]), ("flash_bwd (B3: dQ)", r["max_abs_err_dq"])):
         rows.append({"name": name, "launches": train_launches["flash_bwd"], "max_abs_err": err,
                      "launches_towers_bf16": towers_launches["flash_bwd"],
+                     "launches_dp_flagship": multi["dp_flagship"]["flash_bwd"],
                      "covers": "dq, dk and dv in one launch",
                      **{k: r[k] for k in ("instance", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "bound_with_planes_ms", "library_ms",
@@ -4011,6 +4572,7 @@ def main() -> int:
                      "launches_flagship_fused_train": fused_train_launches[name],
                      **{f"launches_{path}": c[name] for path, c in gan_launches.items()},
                      **{f"launches_{path}": c[name] for path, c in slice14.items()},
+                     **{f"launches_{path}": multi[path][name] for path in ("dp2_card", "tp2_card", "dryrun_card")},
                      **({"launches_eval224_fused": eval224_launches["gn_swish_fwd"],
                          "launches_export224": export224_launches["gn_swish_fwd"],
                          "launches_bench_serve": bench_serve_launches["quick28"],
@@ -4026,6 +4588,7 @@ def main() -> int:
         # trainer through cli/train.py), each counted from 0 around its run
         rows.append({"name": name, "launches": sum(c[name] for c in attn_launches.values()),
                      **{f"launches_{path}": c[name] for path, c in attn_launches.items()},
+                     "launches_tp2_card": multi["tp2_card"][name],
                      **({"op_ms": dispatch["attention_fwd"]["op_ms"],
                          "dispatch_us": dispatch["attention_fwd"]["dispatch_us"]}
                         if name == "attention_fwd" else {}),

@@ -127,13 +127,15 @@ def main(argv=None) -> int:
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--use_ema", action="store_true",
                    help="serve the EMA weight average from the checkpoint")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard request batches over all of this node's cards")
     args = p.parse_args(argv)
 
     from medvae_tpu_torch.serve.engine import InferenceEngine
 
     engine = InferenceEngine.from_checkpoint(
         args.model_path, buckets=[int(b) for b in args.buckets.split(",")],
-        device=args.device, use_ema=args.use_ema,
+        device=args.device, use_ema=args.use_ema, mesh=args.mesh,
     )
     httpd = serve(engine, args.host, args.port, warmup=not args.no_warmup)
     print(f"serving {engine.info()['model']} on http://{args.host}:{args.port}")

@@ -21,6 +21,12 @@ summary written, and the exception raised again), as the JAX CLI's does.
 Before each job the process is brought back to a fresh start
 (`fresh_process_state`), so a job's numbers do not depend on the jobs before
 it.
+
+Under torchrun (`torchrun --nproc-per-node 2 -m medvae_tpu_torch.cli.train
+device=cpu mesh.data=2 ...`) every rank runs this CLI: the default group
+starts first (core/mesh.py), rank 0 writes the run directory's files and a
+sweep's summary, and a sweep runs each job on every rank, in turn, under
+rank 0's stamp.
 """
 
 from __future__ import annotations
@@ -45,6 +51,18 @@ def default_config_dir() -> str:
         if (parent / "configs" / "config.yaml").exists():
             return str(parent / "configs")
     return "configs"
+
+
+def _start_ranks(cfg):
+    """The default group under torchrun (started before anything is
+    written), else this single process's Dist."""
+    from medvae_tpu_torch.core import mesh as core_mesh
+
+    if "WORLD_SIZE" not in os.environ:
+        return core_mesh.current()
+    from medvae_tpu_torch.train.trainer import resolve_device
+
+    return core_mesh.init_distributed(str(resolve_device(cfg.get("device", "tpu"))))
 
 
 def _capture_run_dir(cfg, overrides) -> None:
@@ -81,7 +99,8 @@ def fresh_process_state() -> None:
 def _run_one(overrides) -> tuple:
     """Compose and train once; returns (val metrics, test metrics)."""
     cfg = compose(default_config_dir(), "config", overrides)
-    _capture_run_dir(cfg, overrides)
+    if _start_ranks(cfg).rank == 0:
+        _capture_run_dir(cfg, overrides)
 
     from medvae_tpu_torch.train.trainer import Trainer
 
@@ -99,8 +118,11 @@ def run_multirun(overrides) -> int:
     (medvae_tpu/cli/train.py:70-131)."""
     from medvae_tpu_torch.config.sweep import expand_multirun, job_label
 
+    from medvae_tpu_torch.core.mesh import broadcast_object
+
     jobs, swept_keys = expand_multirun(overrides)
-    stamp = time.strftime("%Y-%m-%d_%H-%M-%S")
+    dist = _start_ranks(compose(default_config_dir(), "config", jobs[0]))
+    stamp = broadcast_object(time.strftime("%Y-%m-%d_%H-%M-%S"), dist)
     print(f"Multirun: {len(jobs)} job(s), sweeping {swept_keys or '(nothing)'}")
     # the sweep directory from job 0's log_dir, so that a swept work_dir or
     # log_dir still gives one directory; each job's log_dir goes under it
@@ -127,7 +149,8 @@ def run_multirun(overrides) -> int:
                 entry["seconds"] = round(time.time() - t0, 1)
                 gc.collect()
     finally:
-        _write_sweep_summary(sweep_dir, results)
+        if dist.rank == 0:
+            _write_sweep_summary(sweep_dir, results)
     monitor = "val/loss"
     print(f"\nMultirun summary ({len(results)} jobs) -> {sweep_dir}")
     for r in results:

@@ -19,6 +19,14 @@ shuffles from `uniform` and a stable argsort). `assemble` takes the step as
 a 0-d device tensor, so a captured train step (train/multistep.py) builds
 its own batch.
 
+Over a mesh (`mesh=`, core/mesh.py) every rank draws the same order and
+takes only its own rows of each global batch (`Mesh.local_rows`, JAX's
+per-process slice, medvae_tpu/data/pipeline.py:150-170), so the ranks'
+rows concatenated in batch-rank order are the global batch bit for bit; the
+global batch must divide by the batch extent. `DeviceCachedFeeder` works
+across the ranks of one node (each caches the split on its device) and
+raises across nodes, as JAX's does for more than one process.
+
 uint8 → float [0, 1] in the compute dtype → (augment) → Normalize(0.5, 0.5) to
 [−1, 1]. The augmentation is the JAX package's: horizontal flip p = 0.5,
 rotation by U(−10°, 10°) with bilinear sampling and zeros outside, brightness
@@ -88,6 +96,7 @@ class DeviceFeeder:
         drop_last: bool = True,
         seed: int = 0,
         stratify: bool = False,
+        mesh=None,
     ):
         self.arrays = arrays
         self.batch_size = batch_size
@@ -96,6 +105,8 @@ class DeviceFeeder:
         self.drop_last = drop_last
         self.stratify = bool(stratify) and shuffle
         self._rng = np.random.RandomState(seed)
+        # this rank's rows of every global batch (all of them on one rank)
+        self._rows = slice(0, batch_size) if mesh is None else mesh.local_rows(batch_size)
         n = len(arrays)
         if drop_last:
             self.steps_per_epoch = max(1, n // batch_size) if n >= batch_size else 1
@@ -146,7 +157,7 @@ class DeviceFeeder:
                 pad = order[np.arange(bs - len(idx)) % n]
                 valid = np.concatenate([valid, np.zeros(len(pad), bool)])
                 idx = np.concatenate([idx, pad])
-            pending.append(self._put(self._gather(idx, valid)))
+            pending.append(self._put(self._gather(idx[self._rows], valid[self._rows])))
             if len(pending) > PREFETCH:
                 yield pending.popleft()
         while pending:
@@ -168,9 +179,15 @@ class DeviceCachedFeeder:
         drop_last: bool = True,
         seed: int = 0,
         stratify: bool = False,
+        mesh=None,
     ):
+        if mesh is not None and mesh.dcn > 1:
+            raise ValueError("DeviceCachedFeeder serves the ranks of one node; use DeviceFeeder across "
+                             "nodes (each rank feeds its own rows)")
         self.arrays = arrays
         self.batch_size = int(batch_size)
+        rows = slice(0, self.batch_size) if mesh is None else mesh.local_rows(self.batch_size)
+        self._row0, self._local = rows.start, rows.stop - rows.start
         self.device = torch.device(device)
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -231,10 +248,10 @@ class DeviceCachedFeeder:
         return shuffled[slot_mod, slot_rank]
 
     def assemble(self, perm: torch.Tensor, step: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Batch `step` (a 0-d int64 tensor on the device) of the order
-        `perm`: rows past the split wrap around with `valid` 0
-        (medvae_tpu/data/pipeline.py:283-300)."""
-        pos = step * self.batch_size + torch.arange(self.batch_size, device=self.device)
+        """This rank's rows of batch `step` (a 0-d int64 tensor on the
+        device) of the order `perm`: rows past the split wrap around with
+        `valid` 0 (medvae_tpu/data/pipeline.py:283-300)."""
+        pos = step * self.batch_size + self._row0 + torch.arange(self._local, device=self.device)
         valid = (pos < self._n).to(torch.float32)
         idx = pos % self._n
         if self.shuffle:

@@ -34,9 +34,12 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d in its compute dtype, like a flax Conv with `dtype=` set:
-    input, weight and bias are cast at every call."""
+    input, weight and bias are cast at every call. Under tensor parallelism
+    `column` holds the weight's shard (parallel/tensor_parallel.py), and the
+    conv computes its rows and gathers the rest."""
 
     compute_dtype: torch.dtype | None = None  # None: the weight's storage dtype
+    column = None  # parallel/tensor_parallel.py:ColumnShard when sharded
 
     def cast_params(self) -> tuple[torch.Tensor, torch.Tensor | None]:
         dt = self.compute_dtype or self.weight.dtype
@@ -45,6 +48,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.cast_params()
+        if self.column is not None:
+            return self.column.conv(self, x.to(weight.dtype), weight, bias)
         return self._conv_forward(x.to(weight.dtype), weight, bias)
 
 
@@ -165,6 +170,9 @@ def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     """`linear` with its input, weight and bias cast to `dtype`, as a flax
     Dense with `dtype=` computes."""
     bias = None if linear.bias is None else linear.bias.to(dtype)
+    column = getattr(linear, "column", None)  # tensor parallelism's shard
+    if column is not None:
+        return column.linear(x.to(dtype), linear.weight.to(dtype), bias)
     return F.linear(x.to(dtype), linear.weight.to(dtype), bias)
 
 
@@ -240,6 +248,8 @@ class AttnBlock(nn.Module):
     @staticmethod
     def _linear(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
         w, b = conv.cast_params()
+        if conv.column is not None:
+            return conv.column.linear(x.to(w.dtype), w.view(w.shape[0], w.shape[1]), b)
         return F.linear(x.to(w.dtype), w.view(w.shape[0], w.shape[1]), b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,15 @@ in place (under no_grad); in eval mode it normalizes by the running ones.
 `use_actnorm` swaps the norm for GroupNorm(min(32, C), eps 1e-6, the same
 fast variance) and drops the convs' biases but `conv_out`'s.
 
+Sync-BN (flax `axis_name`, medvae_tpu/nn/discriminator.py:22-39):
+`NLayerDiscriminator.sync(group)`, the counterpart of
+`disc.clone(bn_axis_name=DATA_AXIS)`, sets a process group on every
+BatchNorm. In train mode the local E[x] and E[x²] are then pmean'd over it
+through the autograd all_reduce (parallel/collectives.py:pmean_autograd),
+the variance is E[x²] − E[x]² of the global moments, and the running
+statistics move by them, the same on every rank. `torch.nn.SyncBatchNorm`
+is not that: it takes no CPU tensors, and its variance differs.
+
 Module names are the flax ones (`conv0`, `norm1`, …, `conv_out`), so
 compat/jax_params.py:from_jax_disc_variables maps a JAX disc's `params` and
 `batch_stats` by name.
@@ -31,6 +40,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from medvae_tpu_torch.parallel.collectives import pmean_autograd
 
 _LECUN_TRUNC_STD = 0.87962566103423978  # std of N(0, 1) truncated to [-2, 2]
 
@@ -53,10 +64,17 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.group = None  # sync-BN's process group (NLayerDiscriminator.sync)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if train:
+        if train and self.group is not None:
+            # flax's _compute_stats with axis_name: both moments pmean'd at once
+            moments = torch.cat([x.mean(dim=(0, 2, 3)), x.square().mean(dim=(0, 2, 3))])
+            mean, mean2 = pmean_autograd(moments, self.group).view(2, 1, -1, 1, 1)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+        elif train:
             mean, var = _fast_stats(x, (0, 2, 3))
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.flatten())
@@ -111,6 +129,13 @@ class NLayerDiscriminator(nn.Module):
             h = getattr(self, f"conv{n}")(h)
             h = F.leaky_relu(getattr(self, f"norm{n}")(h, train), 0.2)
         return self.conv_out(h).permute(0, 2, 3, 1)
+
+    def sync(self, group) -> "NLayerDiscriminator":
+        """Sync-BN over `group` (None: each rank's own batch); returns self."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
+        return self
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> "NLayerDiscriminator":

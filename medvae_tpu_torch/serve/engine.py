@@ -18,10 +18,19 @@ converts for transport.
 
 The engine runs on the card (`device=None` means "cuda") and raises when
 there is none; the CPU is used only when the caller asks for it.
+
+A mesh (medvae_tpu/serve/engine.py:68-86,253-261): `mesh=True` spans every
+card of this node from one process, `devices=[...]` the devices named (the
+tests pass `["cpu", "cpu"]`). The weights are replicated on each, buckets
+round up to multiples of the device count, and a bucket splits into
+contiguous shards, each run on its device, the results concatenated. Noise
+is drawn for the whole bucket on the first device, as without a mesh, so a
+mesh's output equals `mesh=None`'s.
 """
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -119,9 +128,24 @@ class InferenceEngine:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         seed: int = 0,
         device=None,
+        mesh: bool = False,
+        devices: Optional[Sequence] = None,
     ):
+        if mesh and devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("InferenceEngine(mesh=True) spans this node's cards and there is none")
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            device = devices[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        # the model on each device of the mesh (itself on the first)
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d).eval() for d in (devices or [])[1:]]
+        self.devices = list(devices) if devices is not None else None
+        if self.devices is not None:
+            n = len(self.devices)
+            buckets = [-(-int(b) // n) * n for b in buckets]
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"invalid buckets: {buckets}")
@@ -133,15 +157,16 @@ class InferenceEngine:
     @classmethod
     def from_checkpoint(
         cls, path: str, buckets: Sequence[int] = DEFAULT_BUCKETS, device=None,
-        use_ema: bool = False,
+        use_ema: bool = False, mesh: bool = False, devices: Optional[Sequence] = None,
     ) -> "InferenceEngine":
         """Serve a port checkpoint (cli/common.py:save_checkpoint); `use_ema`
         serves the EMA weight average a trainer snapshot carries
         (training.ema_decay > 0), the usual deployment choice."""
         from medvae_tpu_torch.cli.common import load_model
 
-        dev = resolve_device(device)
-        return cls(load_model(path, dev, use_ema=use_ema), buckets=buckets, device=dev)
+        dev = resolve_device(device if devices is None else devices[0])
+        return cls(load_model(path, dev, use_ema=use_ema), buckets=buckets, device=dev, mesh=mesh,
+                   devices=devices)
 
     # ------------------------------------------------------------------ #
     # request plumbing                                                    #
@@ -202,6 +227,20 @@ class InferenceEngine:
             a = np.concatenate([a, pad], axis=0)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _sharded(self, fn, *arrays: torch.Tensor):
+        """fn(model, *arrays) on the whole bucket, or over a mesh on each
+        device's contiguous shard of it, the results concatenated on the
+        first device (a tuple of results concatenated member by member)."""
+        if self.devices is None:
+            return fn(self.model, *arrays)
+        n = len(self.devices)
+        rows = arrays[0].shape[0] // n
+        outs = [fn(model, *(a[i * rows:(i + 1) * rows].to(dev) for a in arrays))
+                for i, (model, dev) in enumerate(zip(self.replicas, self.devices))]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[j].to(self.device) for o in outs]) for j in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs])
+
     def _next_seed(self) -> int:
         with self._seed_lock:
             return int(torch.randint(0, 2**62, (1,), generator=self._seeds))
@@ -233,9 +272,9 @@ class InferenceEngine:
         midx = self._modality_indices(modality, x.shape[0])
         outs = []
         for lo, ln, b in self._chunks(x.shape[0]):
-            m = self._pad(midx[lo : lo + ln], b)
-            mean, _ = encode_batch(self.model, self._pad(x[lo : lo + ln], b), m)
-            outs.append(self._finish(decode_batch(self.model, mean, m), output, ln))
+            r = self._sharded(lambda model, xs, ms: decode_batch(model, encode_batch(model, xs, ms)[0], ms),
+                              self._pad(x[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
+            outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
     @torch.inference_mode()
@@ -245,9 +284,8 @@ class InferenceEngine:
         midx = self._modality_indices(modality, x.shape[0])
         means, logvars = [], []
         for lo, ln, b in self._chunks(x.shape[0]):
-            mean, logvar = encode_batch(
-                self.model, self._pad(x[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b)
-            )
+            mean, logvar = self._sharded(encode_batch, self._pad(x[lo : lo + ln], b),
+                                         self._pad(midx[lo : lo + ln], b))
             means.append(mean[:ln].cpu().numpy())
             logvars.append(logvar[:ln].cpu().numpy())
         return np.concatenate(means), np.concatenate(logvars)
@@ -258,7 +296,7 @@ class InferenceEngine:
         midx = self._modality_indices(modality, z.shape[0])
         outs = []
         for lo, ln, b in self._chunks(z.shape[0]):
-            r = decode_batch(self.model, self._pad(z[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
+            r = self._sharded(decode_batch, self._pad(z[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -272,8 +310,15 @@ class InferenceEngine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) if seed is not None else self._next_seed())
         outs = []
+        res = int(self.model.encoder_out_res)
         for lo, ln, b in self._chunks(n):
-            r = sample_batch(self.model, b, self._pad(midx[lo : lo + ln], b), generator=gen)
+            if self.devices is None:
+                r = sample_batch(self.model, b, self._pad(midx[lo : lo + ln], b), generator=gen)
+            else:  # the whole bucket's draw, as without a mesh, then split
+                noise = torch.randn((b, res, res, latent_dim(self.model)), generator=gen,
+                                    dtype=torch.float32, device=self.device)
+                r = self._sharded(lambda model, ms, zs: sample_batch(model, zs.shape[0], ms, noise=zs),
+                                  self._pad(midx[lo : lo + ln], b), noise)
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 

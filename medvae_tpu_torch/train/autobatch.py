@@ -137,14 +137,16 @@ def resolve_auto_batch_size(
     ballast_bytes: int = 0,
     captured: bool = False,
     log: Callable[[str], None] = print,
+    rows_cap: Optional[int] = None,
 ) -> int:
     """The largest global batch the production `step` takes on the card,
     probed on synthetic batches against `state` (module docstring); capped
-    by `max_batch` and the train split's size."""
+    by `max_batch` and the train split's size (`rows_cap` when a rank
+    probes its share of the batch: the split's size over the batch extent)."""
     from medvae_tpu_torch.train.autoremat import probe_peak_bytes
 
     device = torch.device(device)
-    cap = min(int(max_batch), max(1, len(datamodule.train_arrays)))
+    cap = min(int(max_batch), max(1, len(datamodule.train_arrays) if rows_cap is None else int(rows_cap)))
     generator = torch.Generator(device=device)
     ballast = None
     if ballast_bytes > 0:

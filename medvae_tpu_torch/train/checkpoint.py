@@ -16,6 +16,13 @@ BatchNorm buffers and its optimizer's count and moments), all on the CPU in
 fp32. `state_dict` holds the generator alone, so a GAN run's checkpoint
 serves as any other. `restore` copies them back into a TrainState in place,
 which makes a resumed run continue bit for bit.
+
+Over several ranks (`layout`, `writer`, `barrier`): tensors are saved full,
+a tensor-parallel shard gathered over the model group first
+(parallel/tensor_parallel.py:ShardLayout, a collective every rank takes),
+only the writer (rank 0) writes and prunes, and every save ends at a
+barrier. Every rank restores, taking its own rows of a sharded tensor, so
+a checkpoint resumes under any mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ class CheckpointManager:
         monitor: str = "val/loss",
         mode: str = "min",
         save_last: bool = True,
+        layout=None,
+        writer: bool = True,
+        barrier=None,
     ):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
@@ -59,6 +69,8 @@ class CheckpointManager:
         self.save_last = save_last
         self._best: List[Dict[str, Any]] = []  # [{"step", "metric", "path"}]
         self._index_path = os.path.join(self.directory, "index.json")
+        self.layout, self.writer = layout, writer
+        self._barrier = barrier or (lambda: None)
         if os.path.exists(self._index_path):
             with open(self._index_path) as f:
                 self._best = json.load(f).get("best", [])
@@ -66,33 +78,42 @@ class CheckpointManager:
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
 
+    def _full(self, param: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return _cpu(t if self.layout is None else self.layout.full(param, t))
+
+    def _local(self, param: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return t if self.layout is None else self.layout.local(param, t)
+
     def _save(self, state: TrainState, name: str) -> None:
-        path = self._path(name)
-        os.makedirs(path, exist_ok=True)
+        full = self._full
+        params, dparams = list(state.params.values()), list((state.disc_params or {}).values())
         payload = {
-            "state_dict": {k: _cpu(p) for k, p in state.params.items()},
+            "state_dict": {k: full(p, p) for k, p in state.params.items()},
             "model": self.model_cfg,
             "precision": self.precision,
             "train_state": {
                 "step": int(state.step),
                 "lr_scale": float(state.lr_scale),
                 "count": int(state.opt_state.count),
-                "mu": [_cpu(m) for m in state.opt_state.mu],
-                "nu": [_cpu(v) for v in state.opt_state.nu],
+                "mu": [full(p, m) for p, m in zip(params, state.opt_state.mu)],
+                "nu": [full(p, v) for p, v in zip(params, state.opt_state.nu)],
                 "ema": None if state.ema_params is None
-                else {k: _cpu(e) for k, e in state.ema_params.items()},
+                else {k: full(state.params[k], e) for k, e in state.ema_params.items()},
                 "disc": None if state.disc_params is None else {
-                    "params": {k: _cpu(p) for k, p in state.disc_params.items()},
+                    "params": {k: full(p, p) for k, p in state.disc_params.items()},
                     "batch_stats": {k: _cpu(b) for k, b in state.disc_batch_stats.items()},
                     "count": int(state.disc_opt_state.count),
-                    "mu": [_cpu(m) for m in state.disc_opt_state.mu],
-                    "nu": [_cpu(v) for v in state.disc_opt_state.nu],
+                    "mu": [full(p, m) for p, m in zip(dparams, state.disc_opt_state.mu)],
+                    "nu": [full(p, v) for p, v in zip(dparams, state.disc_opt_state.nu)],
                 },
             },
         }
-        tmp = os.path.join(path, f"{FILE}.tmp.{os.getpid()}")
-        torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(path, FILE))
+        if self.writer:
+            path = self._path(name)
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, f"{FILE}.tmp.{os.getpid()}")
+            torch.save(payload, tmp)
+            os.replace(tmp, os.path.join(path, FILE))
 
     def save_step(self, state: TrainState, metrics: Optional[Dict[str, float]] = None) -> None:
         """Save if the monitored metric ranks in the top k (none when
@@ -108,15 +129,19 @@ class CheckpointManager:
                 self._best.sort(key=lambda e: e["metric"], reverse=(self.mode == "max"))
                 while len(self._best) > self.save_top_k:
                     worst = self._best.pop()
-                    shutil.rmtree(worst["path"], ignore_errors=True)
-                with open(self._index_path, "w") as f:
-                    json.dump({"best": self._best, "monitor": self.monitor}, f, indent=2)
+                    if self.writer:
+                        shutil.rmtree(worst["path"], ignore_errors=True)
+                if self.writer:
+                    with open(self._index_path, "w") as f:
+                        json.dump({"best": self._best, "monitor": self.monitor}, f, indent=2)
         if self.save_last:
             self._save(state, "last")
+        self._barrier()
 
     def save_final(self, state: TrainState, experiment_name: str) -> str:
         name = f"{experiment_name}_final"
         self._save(state, name)
+        self._barrier()
         return self._path(name)
 
     def restore(self, state: TrainState, name: str = "last") -> TrainState:
@@ -124,26 +149,30 @@ class CheckpointManager:
         params, moments and EMA in place, with its step and lr_scale."""
         ckpt = load_checkpoint(name if os.path.isabs(name) else self._path(name))
         ts = ckpt["train_state"]
+        local = self._local
+        params = list(state.params.values())
         with torch.no_grad():
             for k, p in state.params.items():
-                p.copy_(ckpt["state_dict"][k])
-            for dst, src in zip(state.opt_state.mu + state.opt_state.nu, ts["mu"] + ts["nu"]):
-                dst.copy_(src)
+                p.copy_(local(p, ckpt["state_dict"][k]))
+            for dst, p, src in zip(state.opt_state.mu + state.opt_state.nu, params + params,
+                                   ts["mu"] + ts["nu"]):
+                dst.copy_(local(p, src))
             if state.ema_params is not None and ts["ema"] is not None:
                 for k, e in state.ema_params.items():
-                    e.copy_(ts["ema"][k])
+                    e.copy_(local(state.params[k], ts["ema"][k]))
             disc = ts.get("disc")
             if (state.disc_params is None) != (disc is None):
                 raise ValueError(f"{name}: the snapshot {'lacks' if disc is None else 'has'} a "
                                  "discriminator and the run does not match")
             if disc is not None:
-                for mine, saved in ((state.disc_params, disc["params"]),
-                                    (state.disc_batch_stats, disc["batch_stats"])):
-                    for k, t in mine.items():
-                        t.copy_(saved[k])
+                for k, t in state.disc_params.items():
+                    t.copy_(local(t, disc["params"][k]))
+                for k, t in state.disc_batch_stats.items():
+                    t.copy_(disc["batch_stats"][k])
                 opt = state.disc_opt_state
-                for dst, src in zip(opt.mu + opt.nu, disc["mu"] + disc["nu"]):
-                    dst.copy_(src)
+                dparams = list(state.disc_params.values())
+                for dst, p, src in zip(opt.mu + opt.nu, dparams + dparams, disc["mu"] + disc["nu"]):
+                    dst.copy_(local(p, src))
                 opt.count = int(disc["count"])
         state.opt_state.count = int(ts["count"])
         return dataclasses.replace(state, step=int(ts["step"]), lr_scale=float(ts["lr_scale"]))

@@ -22,8 +22,11 @@ a chunk equals the per-step loop bit for bit. The last step's metrics are
 read once at the chunk's end, as JAX returns `last`.
 
 The first step a runner takes runs eagerly: it is the warm-up (kernel
-builds, entry points, cuDNN plans) that happens outside the capture, and a
-real step. A failed capture or replay raises; on the card there is no
+builds, entry points, cuDNN plans, and over a process group the NCCL
+communicator, whose collectives the graph then holds) that happens outside
+the capture, and a real step. `capture=False` makes the runner the Python
+loop on the card too: the Trainer asks for it when the collectives go
+through gloo, which copies through the host and cannot be captured. A failed capture or replay raises; on the card there is no
 fallback to the Python loop. On the CPU (the tests) the runner is that loop
 over the same step with the same seeding.
 
@@ -42,7 +45,7 @@ package's, unchanged.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,14 +88,15 @@ class _Captured:
         _add_launches(self.launches, 1)
 
 
-def build_chunk_runner(step, feeder, generator: torch.Generator, seed_of: Callable[[int], int]) -> Callable:
+def build_chunk_runner(step, feeder, generator: torch.Generator, seed_of: Callable[[int], int],
+                       capture: Optional[bool] = None) -> Callable:
     """Couple a `TrainStep` with a `DeviceCachedFeeder`.
 
     Returns run(state, epoch, step0, n_steps) -> (state, metrics): steps
     step0 .. step0 + n_steps - 1 of `epoch`'s order, `generator` seeded with
     `seed_of(state.step)` before each, `metrics` the last step's."""
     device = feeder.device
-    cuda = device.type == "cuda"
+    cuda = device.type == "cuda" if capture is None else bool(capture)
     held: Dict[str, object] = {"epoch": None}
 
     def seeded(state):
@@ -132,7 +136,8 @@ def build_chunk_runner(step, feeder, generator: torch.Generator, seed_of: Callab
     return run
 
 
-def build_eval_chunk_runner(eval_step, feeder, generator: torch.Generator) -> Callable:
+def build_eval_chunk_runner(eval_step, feeder, generator: torch.Generator,
+                            capture: Optional[bool] = None) -> Callable:
     """Whole-split evaluation in replays of one captured eval step.
 
     Returns run(state, n_steps) -> {name: (n_steps, ...) numpy}: the eval
@@ -140,7 +145,7 @@ def build_eval_chunk_runner(eval_step, feeder, generator: torch.Generator) -> Ca
     in turn as the per-batch loop does (the caller seeds it), fetched in one
     device-to-host copy."""
     device = feeder.device
-    cuda = device.type == "cuda"
+    cuda = device.type == "cuda" if capture is None else bool(capture)
     perm = feeder.epoch_perm(0)
     held: Dict[str, object] = {}
 
@@ -186,7 +191,7 @@ def build_eval_chunk_runner(eval_step, feeder, generator: torch.Generator) -> Ca
             held["captured"] = _Captured(body, [generator])
         if cuda:
             return unpack(held["rows"][:n_steps].cpu().numpy())
-        return unpack(torch.stack(rows).numpy())
+        return unpack(torch.stack(rows).cpu().numpy())
 
     return run
 

@@ -101,6 +101,9 @@ class Optimizer:
     weight_decay: float = 0.0
     clip: Optional[float] = 1.0
     momentum: float = 0.9  # sgd's trace decay
+    # the clip's global norm; tensor parallelism swaps in one that sums the
+    # shards' squares over the model group (parallel/tensor_parallel.py)
+    norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         device = params[0].device if len(params) else torch.device("cpu")
@@ -132,7 +135,7 @@ class Optimizer:
         s = state.scalars
         grads = [torch.where(torch.isnan(g), 0.0, g.float()) for g in grads]
         if self.clip:
-            norm = global_norm(grads)
+            norm = self.norm(grads)
             keep = norm < self.clip
             grads = [torch.where(keep, g, (g / norm) * self.clip) for g in grads]
         if self.kind == "sgd":

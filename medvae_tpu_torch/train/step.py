@@ -70,7 +70,7 @@ from medvae_tpu_torch.losses.perceptual import BiomedCLIPLoss, LPIPSLoss
 from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
 from medvae_tpu_torch.nn.blocks import ResnetBlock
 from medvae_tpu_torch.train.metrics import kl_metrics, latent_metrics, psnr, reconstruction_metrics
-from medvae_tpu_torch.train.optim import Optimizer, global_norm
+from medvae_tpu_torch.train.optim import Optimizer
 from medvae_tpu_torch.train.state import TrainState
 
 def _tower_dtype(loss_cfg: Dict[str, Any]) -> torch.dtype:
@@ -295,9 +295,15 @@ def _loss_and_grads_of(model: torch.nn.Module, loss_cfg: Dict[str, Any]) -> Call
     return grads_of
 
 
-def _gan_grads_of(model: torch.nn.Module, disc: torch.nn.Module, loss_cfg: Dict[str, Any]) -> Callable:
+def _gan_grads_of(model: torch.nn.Module, disc: torch.nn.Module, loss_cfg: Dict[str, Any],
+                  kernel_grad_sync: Optional[Callable] = None) -> Callable:
     """(state, x, batch, generator, d_valid) -> (g_grads, d_grads, logs):
-    steps (1)-(5) of the GAN step on a preprocessed x (module docstring)."""
+    steps (1)-(5) of the GAN step on a preprocessed x (module docstring).
+    `kernel_grad_sync` (a pmean over the data group under data parallelism,
+    parallel/shard_map_step.py) is applied to the two conv_out gradients
+    before the adaptive weight, as medvae_tpu/train/step.py:293-309 does, so
+    d_weight comes from the global batch's gradients."""
+    sync = kernel_grad_sync or (lambda t: t)
     gan_loss = make_gan_loss(loss_cfg)
     forward = make_forward_fn(model)
     decode = make_decode_fn(model)
@@ -322,7 +328,7 @@ def _gan_grads_of(model: torch.nn.Module, disc: torch.nn.Module, loss_cfg: Dict[
         nll = gan_loss.rec_for_adaptive(state.frozen, x, rec_a)
         (nll_grad,) = torch.autograd.grad(nll, conv_out, retain_graph=True)
         (g_grad,) = torch.autograd.grad(-logits_a.float().mean(), conv_out, retain_graph=True)
-        d_weight = adaptive_weight([nll_grad], [g_grad])
+        d_weight = adaptive_weight([sync(nll_grad)], [sync(g_grad)])
 
         loss, g_log = gan_loss.generator_loss(state.frozen, x, recon, kl_per_sample, logits_fake,
                                               d_weight, d_valid)
@@ -492,8 +498,8 @@ class TrainStep:
                 logs = dict(zip(names, summed))
             grads = [[g / self.k for g in part] for part in grads]
             logs = {n: v / self.k for n, v in logs.items()}
-        if self.grad_norm:
-            logs["train/grad_norm"] = global_norm(grads[0])
+        if self.grad_norm:  # the first optimizer's norm (tensor parallelism's sums the shards' squares)
+            logs["train/grad_norm"] = self._optimizers(state)[0][0].norm(grads[0])
         if self.nan_checks:
             self._raise_on_nan(state, grads, logs)
         lr_scale = self._scalars["lr_scale"]
@@ -587,9 +593,13 @@ def build_eval_step(
     n_modalities: int = 0,
     disc: Optional[torch.nn.Module] = None,
     normalize: bool = True,
+    group=None,
 ):
     """The eval step; see the module docstring. The per-modality sums are
-    `max(n_modalities, 12, model.num_modalities)` wide. With the GAN loss
+    `max(n_modalities, 12, model.num_modalities)` wide. Over a process
+    group (each rank's rows of a global batch), the flagship's separation
+    and contrastive losses are taken on the gathered latent, as the train
+    step's (parallel/shard_map_step.py). With the GAN loss
     and `disc`, the loss terms are the GAN's (medvae_tpu/train/step.py:724-752):
     `val/loss` and the generator's terms with d_weight 0, and D in eval mode
     on the reconstruction and on x for `val/d_loss` and the logits."""
@@ -632,14 +642,21 @@ def build_eval_step(
             outputs = forward(x, batch, generator)
         finally:
             model.train(was_training)
+        if group is not None and isinstance(model, DisentangledConditionalVAE):
+            from medvae_tpu_torch.parallel.collectives import all_gather_rows
+
+            z_all = all_gather_rows(outputs["z"], group)
+            midx_all = all_gather_rows(batch["modality_idx"], group)
+            outputs = {**outputs, "separation_loss": model.modality_separation_loss(z_all, midx_all),
+                       "contrastive_loss": model.contrastive_loss(z_all, midx_all)}
         valid = batch.get("valid")
         terms = (gan_terms(state, outputs, x) if gan_loss is not None
                  else criterion(state.frozen, outputs, x))
         metrics = {f"val/{k}": v for k, v in terms.items()}
-        for group in (reconstruction_metrics(outputs["reconstruction"], x, valid),
-                      kl_metrics(outputs["mean"], outputs["logvar"], valid),
-                      latent_metrics(outputs["z"], valid)):
-            metrics.update({f"val/{k}": v for k, v in group.items()})
+        for part in (reconstruction_metrics(outputs["reconstruction"], x, valid),
+                     kl_metrics(outputs["mean"], outputs["logvar"], valid),
+                     latent_metrics(outputs["z"], valid)):
+            metrics.update({f"val/{k}": v for k, v in part.items()})
         v = valid.float() if valid is not None else torch.ones((x.shape[0],), device=x.device)
         metrics["val/_weight"] = v.sum()
         onehot = torch.nn.functional.one_hot(batch["modality_idx"].long(), n_mod).float() * v[:, None]

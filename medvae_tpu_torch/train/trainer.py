@@ -22,8 +22,22 @@ leaves it an empty logit map raises ValueError), its optimizer
 and checkpoints carry it.
 
 `device: cpu` runs on the CPU; `tpu`, `cuda` and `gpu` mean the card, and
-raise without one. Not ported yet, each raising NotImplementedError: a mesh
-of more than one device and `parallel.explicit_shard_map`.
+raise without one.
+
+Multi-device (medvae_tpu/train/trainer.py:112-117,272-369): under torchrun
+(or any started default group, core/mesh.py) `mesh.data`, `mesh.model` and
+`mesh.dcn` are resolved over the world, each rank feeding its own rows of
+the global `data.batch_size`. `mesh.model` > 1 shards the convs and denses
+(parallel/tensor_parallel.py). The train step is the data-parallel step of
+parallel/shard_map_step.py: `parallel.explicit_shard_map` takes
+`build_shard_map_*_step`, the default the same formulation over the (dcn,
+data) batch group (torch has no SPMD partitioner; JAX holds its two options
+equal), said once. As in JAX, the explicit step refuses gradient
+accumulation, and remat=auto takes "full" unprobed under it. Rank 0 writes
+the checkpoints (full tensors, gathered), metrics, media and
+trainer_state.json, each save followed by a barrier; every rank restores.
+Validation runs each rank on its rows and weighs every rank's batches
+together. The device cache works across the ranks of one node.
 
 Options (medvae_tpu/train/trainer.py:509-510, 861-936, 1021-1023,
 1058-1059):
@@ -84,6 +98,7 @@ import torch
 
 from medvae_tpu_torch.config.instantiate import instantiate
 from medvae_tpu_torch.config.models import build_model, init_weights
+from medvae_tpu_torch.core import mesh as core_mesh
 from medvae_tpu_torch.core.rng import fold_in, set_seed
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import DeviceCachedFeeder, DeviceFeeder, preprocess, split_cache_nbytes
@@ -95,7 +110,9 @@ from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimize
 from medvae_tpu_torch.train.state import create_train_state
 from medvae_tpu_torch.train.step import (build_eval_step, build_train_step, make_forward_fn, make_frozen,
                                          prior_samples)
-from medvae_tpu_torch.utils.logging import MetricLogger
+from medvae_tpu_torch.parallel import collectives, shard_map_step
+from medvae_tpu_torch.parallel import tensor_parallel as tp
+from medvae_tpu_torch.utils.logging import MetricLogger, NullLogger
 from medvae_tpu_torch.utils.training_utils import EarlyStopping
 
 _TRAIN_STREAM, _EVAL_STREAM, _MEDIA_STREAM, _PROBE_STREAM = 0xBEEF, 0xE7A1, 0x3ED1A, 0x9E0B
@@ -123,16 +140,16 @@ def resolve_device(name: Any) -> torch.device:
     return torch.device("cuda")
 
 
-def _reject_unported(cfg) -> None:
-    """Fail at start, naming the option, on what the port does not do yet."""
-    mesh = cfg.get("mesh") or {}
-    unported = {
-        "a mesh of more than one device": int(mesh.get("data", -1)) > 1 or int(mesh.get("model", 1)) > 1,
-        "parallel.explicit_shard_map": bool((cfg.get("parallel") or {}).get("explicit_shard_map")),
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported to the PyTorch package yet: {', '.join(asked)}")
+def resolve_mesh(cfg, device: torch.device) -> core_mesh.Mesh:
+    """The run's mesh: the default group started from torchrun's
+    environment (none at world 1), `mesh.data`, `mesh.model` and `mesh.dcn`
+    resolved over its world and nodes (a mesh larger than the world raises,
+    as JAX's does on too few devices)."""
+    dist = core_mesh.init_distributed(str(device))
+    mesh_cfg = cfg.get("mesh") or {}
+    spec = core_mesh.MeshSpec(data=int(mesh_cfg.get("data", -1)), model=int(mesh_cfg.get("model", 1)),
+                              dcn=int(mesh_cfg.get("dcn", 0) or 0))
+    return core_mesh.create_mesh(spec, dist)
 
 
 def decoded_size(size: int, n_down: int) -> int:
@@ -146,10 +163,25 @@ def decoded_size(size: int, n_down: int) -> int:
 class Trainer:
     def __init__(self, cfg):
         self.cfg = cfg
-        _reject_unported(cfg)
         self.seed = int(cfg.get("seed", 42))
         set_seed(self.seed)
-        self.device = resolve_device(cfg.get("device", "tpu"))
+        self.mesh = resolve_mesh(cfg, resolve_device(cfg.get("device", "tpu")))
+        self.device = self.mesh.dist.device
+        self.rank0 = self.mesh.rank == 0
+        tcfg = cfg["training"]
+        self._explicit_sm = bool((cfg.get("parallel") or {}).get("explicit_shard_map", False))
+        if self._explicit_sm and int(tcfg.get("accumulate_grad_batches", 1) or 1) > 1:
+            raise NotImplementedError(
+                "training.accumulate_grad_batches > 1 is only supported by the default step; drop "
+                "parallel.explicit_shard_map (the default step emits the same collectives) or set "
+                "accumulate_grad_batches=1")
+        self._parallel = self._explicit_sm or self.mesh.group("world") is not None
+        if self._parallel:
+            print(f"parallel: mesh {self.mesh.shape} over {self.mesh.dist.world} rank(s), the data-parallel "
+                  f"step over {self.mesh.batch_extent} batch rank(s)"
+                  + (f", tensor-parallel over {self.mesh.model}" if self.mesh.model > 1 else "")
+                  + ("; parallel.explicit_shard_map" if self._explicit_sm else
+                     "; the default path takes the explicit step's formulation (no SPMD partitioner)"))
 
         data_cfg = dict(cfg["data"])
         # data.batch_size=auto: probed below with the production step; the
@@ -158,7 +190,12 @@ class Trainer:
         if self._auto_bs:
             data_cfg["batch_size"] = 64
         self.datamodule = instantiate(data_cfg)
+        # rank 0 first: a synthetic split is written to its cache once
+        if not self.rank0:
+            core_mesh.barrier(self.mesh)
         self.datamodule.setup(None)
+        if self.rank0:
+            core_mesh.barrier(self.mesh)
         self.normalize = bool(getattr(self.datamodule, "normalize", True))
 
         self.model_cfg = {k: v for k, v in dict(cfg["model"]).items() if k != "remat"}
@@ -170,6 +207,8 @@ class Trainer:
         self.precision = str(cfg.get("precision", "bf16"))
         self.model = build_model(self.model_cfg, self.precision, self.device, train=True)
         init_weights(self.model, seed=self.seed)
+        core_mesh.replicate(self.mesh, self.model.parameters())
+        tp.shard_model(self.model, self.mesh)
         # remat=auto builds at the safe "full" rung until the probe below
         set_remat(self.model, "full" if self._auto_remat else remat_rung(remat_req))
         if not self._auto_remat:
@@ -178,7 +217,6 @@ class Trainer:
         print(f"Model: {type(self.model).__name__}  ({n_params:,} parameters)")
         self._validate_geometry()
 
-        tcfg = cfg["training"]
         self.loss_cfg = dict(tcfg.get("loss", {"type": "vae"}))
         if "discriminator" in tcfg:
             self.loss_cfg.setdefault("discriminator", dict(tcfg["discriminator"]))
@@ -197,6 +235,8 @@ class Trainer:
         if str(self.loss_cfg.get("type")) == "lpips_discriminator":
             self.disc = build_discriminator(self.loss_cfg.get("discriminator"), self.device,
                                             seed=self.seed + 7)
+            core_mesh.replicate(self.mesh, list(self.disc.parameters()) + list(self.disc.buffers()))
+            tp.shard_model(self.disc, self.mesh)
             side = logit_size(int(self.datamodule.size), self.disc.n_layers)
             if side <= 0:
                 raise ValueError(
@@ -206,18 +246,37 @@ class Trainer:
         dm = self.datamodule
         opt_args = (dict(tcfg.get("optimizer", {})), dict(tcfg.get("scheduler", {}) or {}))
 
-        def make_step(steps_per_epoch: int):
-            """(state, train step) at the datamodule's batch size."""
+        self.layout = tp.ShardLayout([self.model] + ([self.disc] if self.disc is not None else []))
+
+        def make_step(steps_per_epoch: int, parallel: bool = True):
+            """(state, train step) at the datamodule's batch size; the
+            data-parallel step over the mesh when the run is parallel, else
+            (and for the batch probe's local rows) the plain step."""
             opt_kwargs = dict(steps_per_epoch=steps_per_epoch,
                               gradient_clip_val=tcfg.get("gradient_clip_val", 1.0))
             tx = build_optimizer(*opt_args, **opt_kwargs)
             disc_tx = discriminator_optimizer(*opt_args, **opt_kwargs) if self.disc is not None else None
             state = create_train_state(self.model, tx, frozen, ema_decay=ema_decay, disc=self.disc,
                                        disc_tx=disc_tx)
-            step = build_train_step(self.model, self.loss_cfg, tx, augment=bool(dm.augment_train),
-                                    max_channels=dm.max_channels, ema_decay=ema_decay,
-                                    accumulate_grad_batches=accumulate, disc=self.disc, disc_tx=disc_tx,
-                                    normalize=self.normalize, nan_checks=self._debug("nan_checks"))
+            tx = tp.with_tp_norm(tx, list(state.params.values()), self.layout)
+            common = dict(augment=bool(dm.augment_train), max_channels=dm.max_channels, ema_decay=ema_decay,
+                          normalize=self.normalize, nan_checks=self._debug("nan_checks"))
+            if not (parallel and self._parallel):
+                step = build_train_step(self.model, self.loss_cfg, tx, accumulate_grad_batches=accumulate,
+                                        disc=self.disc, disc_tx=disc_tx, **common)
+            elif self.disc is not None:
+                disc_tx = tp.with_tp_norm(disc_tx, list(state.disc_params.values()), self.layout)
+                step = (shard_map_step.build_shard_map_gan_step(self.model, self.loss_cfg, tx, self.mesh,
+                                                                self.disc, disc_tx, **common)
+                        if self._explicit_sm else
+                        shard_map_step.build_dp_gan_step(self.model, self.loss_cfg, tx, self.mesh, self.disc,
+                                                         disc_tx, accumulate_grad_batches=accumulate, **common))
+            else:
+                step = (shard_map_step.build_shard_map_train_step(self.model, self.loss_cfg, tx, self.mesh,
+                                                                  **common)
+                        if self._explicit_sm else
+                        shard_map_step.build_dp_train_step(self.model, self.loss_cfg, tx, self.mesh,
+                                                           accumulate_grad_batches=accumulate, **common))
             return tx, state, step
 
         if self._auto_bs:
@@ -226,15 +285,25 @@ class Trainer:
             if self._auto_remat:
                 print("remat=auto: probing is skipped under batch_size=auto (the batch probe "
                       "maxes memory against the safe 'full' rung); effective remat='full'")
-            _, probe_state, probe_step = make_step(1)
-            dm.batch_size = resolve_auto_batch_size(
+            if self.mesh.model > 1:
+                raise NotImplementedError(
+                    "data.batch_size=auto under tensor parallelism (mesh.model > 1): a candidate that runs "
+                    "out of memory on one model rank would leave its peers waiting in a collective; set "
+                    "data.batch_size")
+            # each rank probes its own rows with the plain step (no collective
+            # a failed candidate could strand), in units of the batch extent
+            extent = self.mesh.batch_extent
+            _, probe_state, probe_step = make_step(1, parallel=False)
+            local = resolve_auto_batch_size(
                 probe_step, probe_state, dm, self.device,
-                start=int(tcfg.get("autobatch_start", 64) or 64),
-                max_batch=int(tcfg.get("autobatch_max", 65536) or 65536),
+                start=max(1, int(tcfg.get("autobatch_start", 64) or 64) // extent),
+                max_batch=max(1, int(tcfg.get("autobatch_max", 65536) or 65536) // extent),
                 max_probes=int(tcfg.get("autobatch_probes", 16) or 16),
                 ballast_bytes=self._projected_cache_bytes(),
                 captured=self.device.type == "cuda" and self._fused_wanted(),
+                rows_cap=max(1, len(dm.train_arrays) // extent),
             )
+            dm.batch_size = collectives.all_reduce_min(local, self.mesh.group("world"), self.device) * extent
             del probe_state, probe_step
             print(f"batch_size=auto: {dm.batch_size}")
         bs = int(dm.batch_size)
@@ -256,7 +325,8 @@ class Trainer:
         self._monitors_checked = False
 
         self.eval_step = build_eval_step(self.model, self.loss_cfg, max_channels=dm.max_channels,
-                                         disc=self.disc, normalize=self.normalize)
+                                         disc=self.disc, normalize=self.normalize,
+                                         group=self.mesh.group("batch"))
         self._feeders: Dict[Any, Any] = {}
         self._eval_runners: Dict[str, Any] = {}
         self._generator = torch.Generator(device=self.device)
@@ -271,22 +341,30 @@ class Trainer:
             monitor=ckpt_cfg.get("monitor", "val/loss"),
             mode=ckpt_cfg.get("mode", "min"),
             save_last=bool(ckpt_cfg.get("save_last", True)),
+            layout=self.layout, writer=self.rank0, barrier=lambda: core_mesh.barrier(self.mesh),
         )
         # the composed config beside the checkpoints, so a later tool can
         # rebuild the run without the original command line
         from medvae_tpu_torch.config.compose import save_yaml
 
-        save_yaml(cfg, os.path.join(ckpt_dir, "config.yaml"))
+        if self.rank0:
+            save_yaml(cfg, os.path.join(ckpt_dir, "config.yaml"))
         es_cfg = cfg.get("early_stopping", {}) or {}
         self.early_stopping = (
             EarlyStopping(patience=int(es_cfg.get("patience", 20)), mode=es_cfg.get("mode", "min"),
                           monitor=es_cfg.get("monitor", "val/loss"))
             if es_cfg.get("enabled", False) else None
         )
-        self.logger = MetricLogger(cfg.get("log_dir", "logs"), cfg.get("experiment_name", "run"),
-                                   config=cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg),
-                                   wandb_cfg=cfg.get("wandb"))
+        self.logger = (MetricLogger(cfg.get("log_dir", "logs"), cfg.get("experiment_name", "run"),
+                                    config=cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg),
+                                    wandb_cfg=cfg.get("wandb"))
+                       if self.rank0 else NullLogger(cfg.get("log_dir", "logs"), cfg.get("experiment_name", "run")))
 
+        if self._auto_remat and self._explicit_sm and not self._auto_bs:
+            # the probe covers the default step only (JAX's line)
+            print("remat=auto: probing is skipped on the explicit shard_map step; using the safe 'full' "
+                  "rung (set model.remat explicitly to avoid its ~12% recompute cost if HBM allows)")
+            self._auto_remat = False
         if self._auto_remat and not self._auto_bs:
             self._resolve_remat(ckpt_dir)
         resume_from = cfg.get("resume_from") or ("last" if cfg.get("resume") else None)
@@ -354,7 +432,7 @@ class Trainer:
             # reused on resume instead of probing (train/autoremat.py:recorded_remat_decision)
             blob["remat_rung"] = self._resolved_remat
             blob["device_cache_dropped"] = bool(self._drop_device_cache)
-        if blob:
+        if blob and self.rank0:
             with open(os.path.join(self.ckpt.directory, "trainer_state.json"), "w") as f:
                 json.dump(blob, f)
 
@@ -407,7 +485,7 @@ class Trainer:
         (auto: within MEDVAE_DEVICE_CACHE_BUDGET bytes, 2 GiB by default),
         unless remat=auto chose its rung without the caches."""
         mode = str((self.cfg.get("data") or {}).get("device_cache", "auto")).lower()
-        if mode not in ("auto", "true", "1", "on") or self._drop_device_cache:
+        if mode not in ("auto", "true", "1", "on") or self._drop_device_cache or self.mesh.dcn > 1:
             return False
         budget = int(os.environ.get("MEDVAE_DEVICE_CACHE_BUDGET", 2 << 30))
         return mode != "auto" or split_cache_nbytes(arrays) <= budget
@@ -437,7 +515,8 @@ class Trainer:
             arrays = self.datamodule.split(split)
             stratify = shuffle and bool((self.cfg.get("data") or {}).get("stratify_batches", False))
             args = (arrays, self.datamodule.batch_size, self.device)
-            kwargs = dict(shuffle=shuffle, drop_last=drop_last, seed=self.seed, stratify=stratify)
+            kwargs = dict(shuffle=shuffle, drop_last=drop_last, seed=self.seed, stratify=stratify,
+                          mesh=self.mesh)
             feeder = None
             if self._device_cache_wanted(arrays):
                 try:
@@ -452,8 +531,20 @@ class Trainer:
             self._feeders[key] = feeder
         return self._feeders[key]
 
+    def _seed_of(self, stream: int, step: int) -> int:
+        """A stream's seed at `step`; over a split batch each batch rank
+        folds in its rank, so ranks draw distinct noise (model ranks of one
+        batch rank alike)."""
+        seed = fold_in(self.seed, stream, step)
+        return seed if self.mesh.batch_extent == 1 else fold_in(seed, self.mesh.batch_rank)
+
     def _seeded(self, stream: int, step: int, generator: Optional[torch.Generator] = None) -> torch.Generator:
-        return (generator or self._generator).manual_seed(fold_in(self.seed, stream, step))
+        return (generator or self._generator).manual_seed(self._seed_of(stream, step))
+
+    def _captures(self) -> bool:
+        """Whether fused chunks are captured CUDA graphs: on the card, unless
+        the collectives go through gloo (host copies a graph cannot hold)."""
+        return self.device.type == "cuda" and self.mesh.dist.backend != "gloo"
 
     def _eval_runner(self, split: str, feeder):
         """The fused whole-split evaluator of a cached split when fused
@@ -467,7 +558,7 @@ class Trainer:
             mode = self._fused_mode()
             fused = mode == "on" or (mode == "auto" and feeder.steps_per_epoch * validates >= FUSED_AUTO_MIN_STEPS)
             self._eval_runners[split] = (
-                build_eval_chunk_runner(self.eval_step, feeder, self._eval_generator)
+                build_eval_chunk_runner(self.eval_step, feeder, self._eval_generator, capture=self._captures())
                 if fused and isinstance(feeder, DeviceCachedFeeder) else None)
         return self._eval_runners[split]
 
@@ -485,6 +576,10 @@ class Trainer:
         else:
             rows = [to_host(self.eval_step(self.state, batch, gen)) for batch in feeder.epoch(0)]
             stacked = {k: np.stack([np.asarray(r[k]) for r in rows]) for k in rows[0]}
+        # every batch rank's batches, weighed together below
+        group = self.mesh.group("batch")
+        if group is not None:
+            stacked = {k: collectives.gather_host_rows(v, group, self.device) for k, v in stacked.items()}
         if self._debug("nan_checks"):
             bad = [k for k, v in stacked.items() if np.isnan(np.asarray(v, np.float64)).any()]
             if bad:
@@ -551,8 +646,10 @@ class Trainer:
             from medvae_tpu_torch.train.multistep import build_chunk_runner, chunk_plan
 
             fused = build_chunk_runner(self.train_step, feeder, self._generator,
-                                       lambda step: fold_in(self.seed, _TRAIN_STREAM, step))
-        where = "replays of one captured CUDA graph" if self.device.type == "cuda" else "a loop on the CPU"
+                                       lambda step: self._seed_of(_TRAIN_STREAM, step), capture=self._captures())
+        where = ("replays of one captured CUDA graph" if self._captures() else
+                 "a loop on the CPU" if self.device.type != "cuda" else
+                 "a loop: the collectives go through gloo, which a CUDA graph cannot capture")
         print(f"fused_steps={mode}: " + (f"fused chunks of train steps ({where})" if fused else
                                          "one train step a call"))
         t_start, images_seen, first_timed = time.time(), 0, False
@@ -571,7 +668,7 @@ class Trainer:
                 print(f"epoch {epoch} step {step} loss {loss:.4f} "
                       f"({host['train/images_per_sec']:.0f} img/s)")
 
-        prof = self._start_profile() if profile else None
+        prof = self._start_profile() if profile and self.rank0 else None
         try:
             for epoch in range(start_epoch, max_epochs):
                 epoch_t0 = time.time()
@@ -657,6 +754,8 @@ class Trainer:
         sample_path = os.path.join(media_dir, f"epoch_{epoch:04d}_samples.png")
         # each array rescaled as a whole, as the JAX Trainer does
         x, recon, samples = (to_unit(t.float().cpu().numpy()) for t in (x[:8], recon[:8], samples))
+        if not self.rank0:  # every rank ran the forwards (tensor parallelism needs them all)
+            return
         plot_reconstructions(x, recon, save_path=recon_path)
         plot_samples(samples, save_path=sample_path, title=f"Prior samples — epoch {epoch}")
         self.logger.log_images({"media/reconstructions": recon_path, "media/samples": sample_path}, step)

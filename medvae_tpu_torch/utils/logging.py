@@ -4,6 +4,7 @@ Metrics go to a JSONL file and a CSV per run, and the composed config to
 `hparams.yaml` at start; `log_images` hands image files already written to
 W&B. TensorBoard (torch.utils.tensorboard) and W&B
 (`wandb.enabled`) attach only when importable; files are written either way.
+In a run over several ranks, rank 0 logs and the others hold a `NullLogger`.
 """
 
 from __future__ import annotations
@@ -98,3 +99,20 @@ class MetricLogger:
             self._tb.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """The logger of a rank that writes nothing (every rank but 0): the
+    run directory's name, and calls that do nothing."""
+
+    def __init__(self, log_dir: str, run_name: str):
+        self.dir = os.path.join(log_dir, run_name)
+
+    def log(self, metrics: Dict[str, Any], step: int) -> None:
+        pass
+
+    def log_images(self, images: Dict[str, str], step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -125,14 +125,19 @@ def test_trainer_rejects_geometry_mismatch(tmp_path, config_dir):
     "debug.nan_checks=true", "mesh.data=2", "debug.profile=true", "+parallel.explicit_shard_map=true",
 ])
 def test_trainer_names_what_is_not_ported(tmp_path, config_dir, override):
-    """The multi-device options raise; the debug options are ported now and
-    the Trainer takes them (their runs: tests/test_torch_port_runs.py)."""
-    if override.startswith("debug."):
-        t = Trainer(_cfg(config_dir, tmp_path, 1, [override]))
-        assert t._debug(override.split("=")[0].split(".")[1])
+    """Nothing of these is refused as unported any more: the debug options
+    and parallel.explicit_shard_map are taken (their runs:
+    tests/test_torch_port_runs.py, tests/test_torch_port_mesh.py), and a mesh
+    larger than the one process raises JAX's ValueError, as on one device."""
+    if override == "mesh.data=2":
+        with pytest.raises(ValueError, match="does not tile 1 devices"):
+            Trainer(_cfg(config_dir, tmp_path, 1, [override]))
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(_cfg(config_dir, tmp_path, 1, [override]))
+    t = Trainer(_cfg(config_dir, tmp_path, 1, [override]))
+    if override.startswith("debug."):
+        assert t._debug(override.split("=")[0].split(".")[1])
+    else:
+        assert t._explicit_sm and t.mesh.shape == {"data": 1, "model": 1}
 
 
 def test_trainer_asks_for_the_card_and_raises_without_one(tmp_path, config_dir, monkeypatch):
@@ -226,7 +231,7 @@ def test_trainer_takes_both_gan_experiments_and_refuses_an_empty_logit_map(tmp_p
     image leaves the default three-layer discriminator no logits."""
     for experiment in ("multi_modal_cvae", "multi_modal_cvae_gan_quick"):
         cfg = compose(config_dir, "config", [f"experiment={experiment}", "device=cpu"])
-        ttrainer._reject_unported(cfg)
+        assert ttrainer.resolve_mesh(cfg, torch.device("cpu")).shape == {"data": 1, "model": 1}
         assert cfg["training"]["loss"]["type"] == "lpips_discriminator"
     full = compose(config_dir, "config", ["experiment=multi_modal_cvae"])
     model = build_model(full["model"], "bf16", "meta", train=True)
