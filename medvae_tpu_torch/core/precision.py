@@ -7,7 +7,41 @@ float32 in both.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Params, compute and outputs' dtypes (medvae_tpu/core/precision.py:17-40):
+    the casts take every floating tensor of nested dicts, lists and tuples
+    and leave everything else as it is."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+
+    def cast_to_compute(self, tree):
+        return _cast(tree, self.compute_dtype)
+
+    def cast_to_output(self, tree):
+        return _cast(tree, self.output_dtype)
+
+
+def _cast(tree, dtype: torch.dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def default_policy(mixed: bool = True) -> Policy:
+    """bf16 compute when `mixed`, else fp32 throughout."""
+    return Policy() if mixed else Policy(compute_dtype=torch.float32)
 
 
 def compute_dtype_for(precision: str) -> torch.dtype:

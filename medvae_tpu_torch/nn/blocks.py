@@ -72,6 +72,23 @@ class GroupNorm(nn.GroupNorm):
         ).to(x.dtype)
 
 
+def group_norm(num_channels: int) -> GroupNorm:
+    """GroupNorm(min(32, C), eps=1e-6) with affine params, the reference's
+    Normalize (medvae_tpu/nn/blocks.py:30-44)."""
+    return GroupNorm(num_channels)
+
+
+class GroupNormSwish(GroupNorm):
+    """GroupNorm + affine + SiLU as one module, with nn.GroupNorm's `weight`
+    and `bias` (medvae_tpu/nn/blocks.py:65-85): through B6 (B7 under
+    autograd) where `fused_group_norm_swish_or_none` takes the call
+    (MEDVAE_FUSED_GN=1), else the plain GroupNorm -> cast -> SiLU."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = fused_group_norm_swish_or_none(x, self.weight, self.bias, self.num_groups, self.eps)
+        return swish(super().forward(x)) if out is None else out
+
+
 def norm_swish(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """GroupNorm (fp32 stats) -> cast back -> SiLU (medvae_tpu/nn/blocks.py:47-62).
     With MEDVAE_FUSED_GN=1 the whole norm + affine + SiLU runs as the fused
@@ -178,8 +195,10 @@ def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 
 class ResnetBlock(nn.Module):
     """GN -> swish -> 3x3 conv, twice, plus a 1x1 nin shortcut on a channel
-    change. Dropout at `dropout` before the second conv in train mode, where
-    medvae_tpu/nn/blocks.py:140 places it; off in eval mode. With
+    change (a 3x3 `conv_shortcut` with `conv_shortcut=True`,
+    medvae_tpu/nn/blocks.py:145-151). Dropout at `dropout` before the
+    second conv in train mode, where medvae_tpu/nn/blocks.py:140 places it;
+    off in eval mode. With
     `temb_channels` it owns `temb_proj`, and a temb given to forward adds
     Dense(swish(temb)) after conv1 (medvae_tpu/nn/blocks.py:134-137); flax
     creates that Dense only where a temb is passed, so only the encoder of
@@ -192,7 +211,7 @@ class ResnetBlock(nn.Module):
     remat: str | bool = False
 
     def __init__(self, in_channels: int, out_channels: int | None = None, dropout: float = 0.0,
-                 temb_channels: int = 0):
+                 temb_channels: int = 0, conv_shortcut: bool = False):
         super().__init__()
         out_channels = out_channels or in_channels
         self.dropout = float(dropout)
@@ -202,10 +221,11 @@ class ResnetBlock(nn.Module):
             self.temb_proj = nn.Linear(temb_channels, out_channels)
         self.norm2 = GroupNorm(out_channels)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
-        if in_channels != out_channels:
+        self.nin_shortcut = self.conv_shortcut = None
+        if in_channels != out_channels and conv_shortcut:
+            self.conv_shortcut = Conv2d(in_channels, out_channels, 3, padding=1)
+        elif in_channels != out_channels:
             self.nin_shortcut = Conv2d(in_channels, out_channels, 1)
-        else:
-            self.nin_shortcut = None
 
     def forward(
         self, x: torch.Tensor, generator: torch.Generator | None = None,
@@ -224,8 +244,9 @@ class ResnetBlock(nn.Module):
         if self.dropout and self.training:
             h = dropout(h, self.dropout, generator)
         h = self.conv2(h)
-        if self.nin_shortcut is not None:
-            x = self.nin_shortcut(x)
+        shortcut = self.nin_shortcut or self.conv_shortcut
+        if shortcut is not None:
+            x = shortcut(x)
         return x + h
 
 

@@ -156,6 +156,10 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
+    """The latent -> image decoder. `give_pre_end` returns the activation
+    before norm_out; `tanh_out` ends in tanh
+    (medvae_tpu/nn/encoder_decoder.py:186-187,264-270)."""
+
     remat_full = False  # the "full" rung: the whole forward rematerialized
 
     def __init__(
@@ -171,9 +175,12 @@ class Decoder(nn.Module):
         dropout: float = 0.0,
         use_linear_attn: bool = False,
         attn_type: str = "vanilla",
+        give_pre_end: bool = False,
+        tanh_out: bool = False,
     ):
         super().__init__()
         attn_type = "linear" if use_linear_attn else attn_type
+        self.give_pre_end, self.tanh_out = give_pre_end, tanh_out
         num_levels = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (num_levels - 1)
@@ -196,8 +203,9 @@ class Decoder(nn.Module):
             levels[i_level] = level
         # indexed by level, as the reference's `up` list is
         self.up = nn.ModuleList(levels[i] for i in range(num_levels))
-        self.norm_out = GroupNorm(block_in)
-        self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
+        if not give_pre_end:  # flax builds no norm_out / conv_out then
+            self.norm_out = GroupNorm(block_in)
+            self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
 
     def forward(self, z: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         if self.remat_full and self.training and torch.is_grad_enabled():
@@ -213,4 +221,7 @@ class Decoder(nn.Module):
                     h = level.attn[j](h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(norm_swish(self.norm_out, h))
+        if self.give_pre_end:
+            return h
+        h = self.conv_out(norm_swish(self.norm_out, h))
+        return torch.tanh(h) if self.tanh_out else h

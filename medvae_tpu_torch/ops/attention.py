@@ -318,6 +318,18 @@ class FusedAttention(torch.autograd.Function):
         return fused_attention_bwd(q, k, v, g.to(q.dtype).contiguous())
 
 
+def fused_attention_or_none(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor | None:
+    """(b, n, c) attention through a kernel, or None where no kernel takes
+    it: the JAX package's public entry (medvae_tpu/ops/attention.py:46-64).
+    None for CPU tensors (JAX's returns None off the TPU) and where neither
+    gate admits (n, c); else B4 where `uses_fused`, B1 where `uses_flash`,
+    with their backward kernels under autograd, as `attention` routes."""
+    _, n, c = q.shape
+    if _on_cpu(q, k, v) or not (uses_fused(n, c) or uses_flash(n, c)):
+        return None
+    return attention(q, k, v)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(b, n, c) single-head attention, routed like the JAX package's TPU path."""
     _, n, c = q.shape

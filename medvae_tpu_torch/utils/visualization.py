@@ -9,7 +9,8 @@ no imaging or plotting package. The pixel rule is the JAX package's,
 `(canvas * 255).astype(np.uint8)`, which truncates. `plot_reconstructions`
 and `plot_samples` draw the JAX figures' panels in the same order, without
 their titles and axes. `plot_latent_space` and `plot_loss_curves` keep
-matplotlib (and sklearn for t-SNE), imported when called.
+matplotlib (and sklearn for t-SNE), imported when called; `scatter_plot`
+draws a 2-D projection without it.
 """
 
 from __future__ import annotations
@@ -175,6 +176,32 @@ def plot_latent_space(
         fig.savefig(save_path, dpi=120, bbox_inches="tight")
         plt.close(fig)
     return None if save_path else fig
+
+
+# tab10's colors, one a label (mod 10)
+_PALETTE = np.array([[31, 119, 180], [255, 127, 14], [44, 160, 44], [214, 39, 40], [148, 103, 189],
+                     [140, 86, 75], [227, 119, 194], [127, 127, 127], [188, 189, 34], [23, 190, 207]],
+                    np.uint8)
+
+
+def scatter_plot(points: np.ndarray, labels: np.ndarray, save_path: str, size: int = 256,
+                 radius: int = 2) -> np.ndarray:
+    """(n, 2) points as dots colored by label on a white `size`² canvas,
+    scaled to fill it with a margin; writes `save_path` and returns the
+    canvas. The figure plot_latent_space draws, without matplotlib."""
+    pts = np.asarray(points, np.float64).reshape(len(points), 2)
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    margin = 2 * radius + 2
+    unit = (pts - lo) / np.where(hi > lo, hi - lo, 1.0)
+    xy = np.rint(margin + unit * (size - 1 - 2 * margin)).astype(np.int64)
+    canvas = np.full((size, size, 3), 255, np.uint8)
+    colors = _PALETTE[np.asarray(labels, np.int64).reshape(-1) % len(_PALETTE)]
+    offsets = [(dy, dx) for dy in range(-radius, radius + 1) for dx in range(-radius, radius + 1)
+               if dy * dy + dx * dx <= radius * radius]
+    for dy, dx in offsets:
+        canvas[size - 1 - (xy[:, 1] + dy), xy[:, 0] + dx] = colors
+    write_png(canvas, save_path)
+    return canvas
 
 
 def plot_loss_curves(

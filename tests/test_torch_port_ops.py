@@ -10,6 +10,8 @@ it against flash_attention_plain there.
 
 import ast
 import importlib
+import json
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -152,17 +154,40 @@ def _forbidden(module: str) -> bool:
     return root in ("jax", "jaxlib", "flax", "orbax", "optax") or root == "medvae_tpu"
 
 
+def _port_sources() -> list:
+    """(name, python source) of every program of the port: the package,
+    chip_smoke.py, the `_torch` walkthroughs and notebook builder, the
+    code cells of the `_torch` notebooks and the python heredocs of the
+    `_torch` shell scripts."""
+    files = (sorted((REPO / "medvae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "examples").glob("*_torch.py")) + [REPO / "scripts/build_notebooks_torch.py"])
+    sources = [(str(f.relative_to(REPO)), f.read_text()) for f in files]
+    for nb in sorted((REPO / "notebooks").glob("*_torch.ipynb")):
+        cells = [c for c in json.loads(nb.read_text())["cells"] if c["cell_type"] == "code"]
+        sources += [(f"notebooks/{nb.name}[{i}]", "".join(c["source"])) for i, c in enumerate(cells)]
+    for sh in sorted((REPO / "scripts").glob("*_torch.sh")):
+        for i, body in enumerate(re.findall(r"python - <<'(\w+)'\n(.*?)\n\1\n", sh.read_text(), re.S)):
+            sources.append((f"scripts/{sh.name}[heredoc {i}]", body[1]))
+    return sources
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    files = sorted((REPO / "medvae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    sources = _port_sources()
+    assert len(sources) > 10
+    assert {"examples", "notebooks", "scripts"} <= {name.split("/")[0] for name, _ in sources}
+    assert any("heredoc" in name for name, _ in sources)
     bad = []
-    for f in files:
-        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+    for name, source in sources:
+        for node in ast.walk(ast.parse(source, filename=name)):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
             else:
                 continue
-            bad += [f"{f.relative_to(REPO)}:{node.lineno} {n}" for n in names if _forbidden(n)]
+            bad += [f"{name}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    for sh in sorted((REPO / "scripts").glob("*_torch.sh")):
+        modules = re.findall(r"python -m ([\w.]+)", sh.read_text())
+        assert modules, sh.name
+        bad += [f"scripts/{sh.name} -m {m}" for m in modules if _forbidden(m)]
     assert not bad, bad
