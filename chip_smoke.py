@@ -77,8 +77,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            builder: the 28² ConditionalVAE, fp32 params, bf16 compute, bs 4096,
            adam 1e-3, with MEDVAE_FUSED_GN=1 (B6/B7 at each of the 28
            GroupNorm+SiLU sites, derived from the model): 2 warmup and 10 timed
-           steps with their losses and launches, ms, img/s, flops per step and
-           mfu, peak memory, a profile; then the same with the switch off;
+           steps with their losses and launches, ms, img/s, peak memory, a
+           profile; then the same with the switch off;
   cvae28_parity  one fp32 step of it at bs 8 with the switch on, card against
            CPU (loss relative 1e-4, gradient global relative L2 1e-3, each
            GroupNorm weight and bias gradient relative L2 1e-3 beside a repeat),
@@ -1580,7 +1580,7 @@ CVAE_PARITY_BATCH = 8
 def phase_cvae28_train(on: bool) -> dict:
     """2 warmup and 10 timed steps of the 28² CVAE at bs 4096 with
     MEDVAE_FUSED_GN `on` (B6/B7 at every GroupNorm+SiLU, counts derived from
-    the model) or off; ms, img/s, flops and mfu, peak memory, a profile."""
+    the model) or off; ms, img/s, peak memory, a profile."""
     tag = "cvae28_train" if on else "cvae28_train_off"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1593,16 +1593,13 @@ def phase_cvae28_train(on: bool) -> dict:
                                          want)
         median = statistics.median(times)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        flops, state = bench.flops_per_step(step, state, batch, gen)
         bs = int(batch["image_u8"].shape[0])
         row = {"phase": tag, "batch": bs, "resolution": int(model.resolution),
                "gn_swish_sites": {"encoder": gn_swish_sites(model.encoder),
                                   "decoder": gn_swish_sites(model.decoder)},
                "ms_per_step_median": median, "ms_per_step_min": min(times),
                "ms_per_step_max": max(times), "samples_ms": times,
-               "images_per_sec": bs / median * 1e3, "flops_per_step": flops,
-               "achieved_tflops": flops / median / 1e9,
-               "mfu": flops / (median / 1e3) / H100_BF16_FLOPS, "peak_memory_gib": peak,
+               "images_per_sec": bs / median * 1e3, "peak_memory_gib": peak,
                "params": sum(p.numel() for p in state.params.values())}
         emit(row)
         emit({"phase": tag, "profile": "one step",

@@ -33,11 +33,11 @@ anew, for BENCH_SECONDS (8); samples/s. `use_pallas` there is
 MEDVAE_FUSED_GN=1 here.
 
 Each mode prints one JSON line: `metric`, `value`, `unit`, the card's name,
-the batch; step and pipeline add `flops_per_step` (torch.utils.flop_counter
-over one step: the matmuls and convolutions of forward and backward; the
-hand-written kernels are not counted), `achieved_tflops_per_chip` and `mfu`
-against the H100's 989 TFLOP/s bf16 dense peak. bench.py's `vs_baseline` is
-left out: its target was set for a TPU. Every mode runs on the card only.
+the batch. It reports no FLOP count or share of the peak: the benchmark's
+`mfu.*` (portbench/metrics/) is the count, the frozen reference's operations
+at the cell's shapes, which sees the hand-written kernels and no
+recomputation. bench.py's `vs_baseline` is left out: its target was set for
+a TPU. Every mode runs on the card only.
 """
 
 from __future__ import annotations
@@ -57,8 +57,6 @@ from medvae_tpu_torch.data.pipeline import DeviceCachedFeeder, DeviceFeeder
 from medvae_tpu_torch.train.optim import build_optimizer
 from medvae_tpu_torch.train.state import create_train_state
 from medvae_tpu_torch.train.step import build_train_step, make_frozen
-
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 
 _FULL224 = dict(latent_dim=128, hidden_channels=128, ch_mult=[1, 2, 4, 8], num_res_blocks=2,
                 attn_resolutions=[16], resolution=224)
@@ -126,28 +124,12 @@ def build_bench(model: str = "cvae", config: str = "quick", batch_size: int | No
     return net, step, state, batch
 
 
-def flops_per_step(step, state, batch, generator) -> Tuple[float, Any]:
-    """Operations of one step, counted by torch.utils.flop_counter (matmuls
-    and convolutions, forward and backward); runs that step."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        state, _ = step(state, batch, generator)
-    return float(counter.get_total_flops()), state
-
-
 def _env_bench():
     """(model, config, batch or None, towers) from BENCH_MODEL, BENCH_CONFIG,
     BENCH_BATCH and BENCH_TOWERS."""
     batch_size = int(os.environ["BENCH_BATCH"]) if os.environ.get("BENCH_BATCH") else None
     return (os.environ.get("BENCH_MODEL", "cvae"), os.environ.get("BENCH_CONFIG", "quick"), batch_size,
             os.environ.get("BENCH_TOWERS", "1") == "1")
-
-
-def _mfu(flops: float, steps: int, elapsed: float) -> Dict[str, Any]:
-    achieved = flops * steps / elapsed
-    return {"flops_per_step": flops, "achieved_tflops_per_chip": round(achieved / 1e12, 2),
-            "mfu": round(achieved / H100_BF16_FLOPS, 4)}
 
 
 def step_bench() -> Dict[str, Any]:
@@ -158,7 +140,6 @@ def step_bench() -> Dict[str, Any]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     state, metrics = step(state, batch, gen)  # warmup: cuDNN plans, kernel builds
     float(metrics["train/loss"])
-    flops, state = flops_per_step(step, state, batch, gen)
 
     target = float(os.environ.get("BENCH_SECONDS", 8.0))
     steps = 0
@@ -179,7 +160,6 @@ def step_bench() -> Dict[str, Any]:
         "metric": f"{model_name}_train_images_per_sec_per_chip",
         "value": round(steps * bs / elapsed, 1),
         "unit": "images/sec/chip",
-        **_mfu(flops, steps, elapsed),
         "device": torch.cuda.get_device_name(0),
         "batch": bs,
         "steps": steps,
@@ -208,7 +188,6 @@ def pipeline_bench() -> Dict[str, Any]:
     for batch in feeder.epoch(0):  # warm-up epoch: cuDNN plans, kernel builds
         state, metrics = step(state, batch, gen)
     float(metrics["train/loss"])
-    flops, state = flops_per_step(step, state, batch, gen)
 
     target = float(os.environ.get("BENCH_SECONDS", 12.0))
     steps, feed_s, epoch = 0, 0.0, 1
@@ -237,7 +216,6 @@ def pipeline_bench() -> Dict[str, Any]:
         "value": round(steps * bs / elapsed, 1),
         "unit": "images/sec/chip",
         "host_feed_duty_cycle": round(feed_s / elapsed, 4),
-        **_mfu(flops, steps, elapsed),
         "feeder": type(feeder).__name__,
         "device": torch.cuda.get_device_name(0),
         "batch": bs,

@@ -7,7 +7,8 @@ numpy permutation per (seed, epoch), optionally modality-stratified
 with a `valid` mask in evaluation. Batches are assembled on the host by the
 native gather (native/, numpy where it cannot build), copied into pinned
 memory and on to the card with non_blocking copies, two batches ahead of the
-step.
+step; while core/tracing.py records, each batch's gather is a `feed.gather`
+span and its pinning and the queueing of its copies a `feed.pin` span.
 
 `DeviceCachedFeeder` pins the split's uint8 images, labels and modality
 indices on the device once and assembles every batch there (`assemble`:
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from medvae_tpu_torch import native
-from medvae_tpu_torch.core import threefry
+from medvae_tpu_torch.core import threefry, tracing
 from medvae_tpu_torch.data.medmnist import CHANNELS_BY_MODALITY_INDEX, SplitArrays
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 
@@ -157,7 +158,10 @@ class DeviceFeeder:
                 pad = order[np.arange(bs - len(idx)) % n]
                 valid = np.concatenate([valid, np.zeros(len(pad), bool)])
                 idx = np.concatenate([idx, pad])
-            pending.append(self._put(self._gather(idx[self._rows], valid[self._rows])))
+            with tracing.span("feed.gather"):
+                batch = self._gather(idx[self._rows], valid[self._rows])
+            with tracing.span("feed.pin"):
+                pending.append(self._put(batch))
             if len(pending) > PREFETCH:
                 yield pending.popleft()
         while pending:

@@ -45,12 +45,14 @@ from typing import Tuple
 
 import torch
 
+from medvae_tpu_torch.core import tracing
 from medvae_tpu_torch.ops.flash_attention import FlashAttention, flash_attention
 
 # kernel calls by kernel; chip_smoke.py resets and reads them around the main
-# path
+# path, and core/tracing.py's counters() holds them as launches.<kernel>
 launches = {"attention_fwd": 0, "attention_bwd": 0}
 _count_lock = threading.Lock()
+tracing.register("launches", launches, _count_lock)
 
 # The JAX package's routing constants (medvae_tpu/ops/attention.py:21,42-43
 # and medvae_tpu/ops/flash_attention.py:41-44).

@@ -35,10 +35,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from medvae_tpu_torch.core import tracing
+
 # kernel launches by kernel; chip_smoke.py resets and reads them around the
-# main path
+# main path, and core/tracing.py's counters() holds them as launches.<kernel>
 launches = {"flash_fwd": 0, "flash_bwd": 0}
 _count_lock = threading.Lock()
+tracing.register("launches", launches, _count_lock)
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
 # kernel -> (csrc library, C symbol prefix, number of pointer arguments)

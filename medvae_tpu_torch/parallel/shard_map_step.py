@@ -37,6 +37,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+from medvae_tpu_torch.core import tracing
 from medvae_tpu_torch.core.mesh import Mesh
 from medvae_tpu_torch.core.rng import fold_in
 from medvae_tpu_torch.models import DisentangledConditionalVAE
@@ -78,6 +79,7 @@ def build_dp_train_step(
     disentangled = isinstance(model, DisentangledConditionalVAE)
 
     def run_grads(state, x, batch, generator, d_valid):
+        tracing.section("step.forward")
         outputs = forward(x, batch, generator)
         if disentangled:
             z_all = all_gather_rows(outputs["z"], group)
@@ -86,6 +88,7 @@ def build_dp_train_step(
             outputs["separation_loss"] = model.modality_separation_loss(z_all, midx_all)
             outputs["contrastive_loss"] = model.contrastive_loss(z_all, midx_all)
         loss_dict = criterion(state.frozen, outputs, x)
+        tracing.section("step.backward")
         grads = _grads_or_zeros(loss_dict["loss"], list(state.params.values()))
         grads = pmean(grads, group)
         loss_dict = pmean_dict({k: v.detach() for k, v in loss_dict.items()}, group)

@@ -10,7 +10,10 @@
     DisentangledConditionalVAE takes modality indices and routes its heads;
     the ConditionalVAE takes a one-hot of `cond_width` and decodes and
     samples unconditionally; Base and Beta take no condition;
-  * `MicroBatcher` coalesces concurrent single-image requests.
+  * `MicroBatcher` coalesces concurrent single-image requests;
+  * while core/tracing.py records, each chunk's padding and copy to the
+    device from pageable memory is an `engine.h2d` span and its model call
+    an `engine.launch` device span (host launch ms and device ms).
 
 Images are NHWC uint8 (or float already in [-1, 1]); uint8 is normalized on
 the device in fp32 (x/255·2−1). Outputs are float32 in [-1, 1]; `to_uint8`
@@ -31,6 +34,7 @@ mesh's output equals `mesh=None`'s.
 from __future__ import annotations
 
 import copy
+import itertools
 import queue
 import threading
 import time
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from medvae_tpu_torch.core import tracing
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES, modality_index
 from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
 
@@ -227,6 +232,12 @@ class InferenceEngine:
             a = np.concatenate([a, pad], axis=0)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _put(self, bucket: int, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """A chunk's host arrays padded to `bucket` and copied to the device
+        from pageable memory: the `engine.h2d` span."""
+        with tracing.span("engine.h2d", bucket=bucket):
+            return tuple(self._pad(a, bucket) for a in arrays)
+
     def _sharded(self, fn, *arrays: torch.Tensor):
         """fn(model, *arrays) on the whole bucket, or over a mesh on each
         device's contiguous shard of it, the results concatenated on the
@@ -272,8 +283,10 @@ class InferenceEngine:
         midx = self._modality_indices(modality, x.shape[0])
         outs = []
         for lo, ln, b in self._chunks(x.shape[0]):
-            r = self._sharded(lambda model, xs, ms: decode_batch(model, encode_batch(model, xs, ms)[0], ms),
-                              self._pad(x[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
+            xs, ms = self._put(b, x[lo : lo + ln], midx[lo : lo + ln])
+            with tracing.device_span("engine.launch", bucket=b):
+                r = self._sharded(lambda model, xs, ms: decode_batch(model, encode_batch(model, xs, ms)[0], ms),
+                                  xs, ms)
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -284,8 +297,9 @@ class InferenceEngine:
         midx = self._modality_indices(modality, x.shape[0])
         means, logvars = [], []
         for lo, ln, b in self._chunks(x.shape[0]):
-            mean, logvar = self._sharded(encode_batch, self._pad(x[lo : lo + ln], b),
-                                         self._pad(midx[lo : lo + ln], b))
+            xs, ms = self._put(b, x[lo : lo + ln], midx[lo : lo + ln])
+            with tracing.device_span("engine.launch", bucket=b):
+                mean, logvar = self._sharded(encode_batch, xs, ms)
             means.append(mean[:ln].cpu().numpy())
             logvars.append(logvar[:ln].cpu().numpy())
         return np.concatenate(means), np.concatenate(logvars)
@@ -296,7 +310,9 @@ class InferenceEngine:
         midx = self._modality_indices(modality, z.shape[0])
         outs = []
         for lo, ln, b in self._chunks(z.shape[0]):
-            r = self._sharded(decode_batch, self._pad(z[lo : lo + ln], b), self._pad(midx[lo : lo + ln], b))
+            zs, ms = self._put(b, z[lo : lo + ln], midx[lo : lo + ln])
+            with tracing.device_span("engine.launch", bucket=b):
+                r = self._sharded(decode_batch, zs, ms)
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -312,13 +328,15 @@ class InferenceEngine:
         outs = []
         res = int(self.model.encoder_out_res)
         for lo, ln, b in self._chunks(n):
-            if self.devices is None:
-                r = sample_batch(self.model, b, self._pad(midx[lo : lo + ln], b), generator=gen)
-            else:  # the whole bucket's draw, as without a mesh, then split
-                noise = torch.randn((b, res, res, latent_dim(self.model)), generator=gen,
-                                    dtype=torch.float32, device=self.device)
-                r = self._sharded(lambda model, ms, zs: sample_batch(model, zs.shape[0], ms, noise=zs),
-                                  self._pad(midx[lo : lo + ln], b), noise)
+            (ms,) = self._put(b, midx[lo : lo + ln])
+            with tracing.device_span("engine.launch", bucket=b):
+                if self.devices is None:
+                    r = sample_batch(self.model, b, ms, generator=gen)
+                else:  # the whole bucket's draw, as without a mesh, then split
+                    noise = torch.randn((b, res, res, latent_dim(self.model)), generator=gen,
+                                        dtype=torch.float32, device=self.device)
+                    r = self._sharded(lambda model, ms, zs: sample_batch(model, zs.shape[0], ms, noise=zs),
+                                      ms, noise)
             outs.append(self._finish(r, output, ln))
         return np.concatenate(outs, axis=0)
 
@@ -354,7 +372,12 @@ class InferenceEngine:
 class MicroBatcher:
     """Coalesces concurrent reconstruct requests into device batches: the
     queue is flushed when `max_batch` requests wait or `max_delay_ms` has
-    passed since the first one."""
+    passed since the first one.
+
+    While core/tracing.py records, each request's wait from `submit` until a
+    batch takes it is a `batcher.queue` span (`req=`, its parent that batch),
+    and each batch, from its first dequeue to its last result set, a
+    `batcher.batch` span (`batch=`) holding the engine's spans."""
 
     def __init__(self, engine: InferenceEngine, max_batch: int = 32,
                  max_delay_ms: float = 5.0):
@@ -366,6 +389,7 @@ class MicroBatcher:
         # serializes submit's stop-check + enqueue against close's stop + drain,
         # so that no Future is enqueued after the drain and never resolved
         self._submit_lock = threading.Lock()
+        self._reqs, self._batches = itertools.count(), itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -374,7 +398,8 @@ class MicroBatcher:
             if self._stop.is_set():
                 raise RuntimeError("MicroBatcher is closed")
             fut: Future = Future()
-            self._q.put((np.asarray(image), modality, fut))
+            t = time.perf_counter_ns() if tracing.active() else 0
+            self._q.put((np.asarray(image), modality, fut, next(self._reqs), t))
             return fut
 
     def close(self):
@@ -383,7 +408,7 @@ class MicroBatcher:
         self._thread.join(timeout=5)
         while True:
             try:
-                _, _, fut = self._q.get_nowait()
+                fut = self._q.get_nowait()[2]
             except queue.Empty:
                 break
             if not fut.done():
@@ -403,24 +428,33 @@ class MicroBatcher:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:
                 continue
-            batch = [first]
-            deadline = time.monotonic() + self.max_delay
-            while len(batch) < self.max_batch:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    break
+            with tracing.span("batcher.batch", batch=next(self._batches)) as bid:
+                batch = [self._taken(first, bid)]
+                deadline = time.monotonic() + self.max_delay
+                while len(batch) < self.max_batch:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    try:
+                        batch.append(self._taken(self._q.get(timeout=left), bid))
+                    except queue.Empty:
+                        break
+                # a bad request fails its batch's futures, never the thread
                 try:
-                    batch.append(self._q.get(timeout=left))
-                except queue.Empty:
-                    break
-            # a bad request fails its batch's futures, never the thread
-            try:
-                mods = np.asarray([self._to_index(b[1]) for b in batch], np.int32)
-                imgs = np.stack([b[0] for b in batch])
-                out = self.engine.reconstruct(imgs, modality=mods)
-                for i, (_, _, fut) in enumerate(batch):
-                    fut.set_result(out[i])
-            except Exception as e:
-                for _, _, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(e)
+                    mods = np.asarray([self._to_index(b[1]) for b in batch], np.int32)
+                    imgs = np.stack([b[0] for b in batch])
+                    out = self.engine.reconstruct(imgs, modality=mods)
+                    for i, b in enumerate(batch):
+                        b[2].set_result(out[i])
+                except Exception as e:
+                    for b in batch:
+                        if not b[2].done():
+                            b[2].set_exception(e)
+
+    @staticmethod
+    def _taken(item: tuple, batch_id: Optional[int]) -> tuple:
+        """A queued request as a batch takes it, its `batcher.queue` span
+        ended (when `submit` stamped it)."""
+        if item[4]:
+            tracing.record("batcher.queue", item[4], time.perf_counter_ns(), parent=batch_id, req=item[3])
+        return item

@@ -45,6 +45,16 @@ still decays its params, as in the JAX package. Metrics are the loss's log
 which splits a batch into `accumulate_grad_batches` microbatches, on the GAN
 path too (see `TrainStep`).
 
+While core/tracing.py records, `TrainStep.run` is a `step` device span cut
+into sections, in stream order: on the GAN path `step.g_forward`
+(preprocess, the model's forward, D on the reconstruction for G),
+`step.adaptive_weight` (`rec_for_adaptive`, the two gradients on `conv_out`,
+the weight), `step.g_backward` (the generator loss and G's gradients),
+`step.disc` (D on x and on the detached reconstruction, its loss and
+gradients) and `step.optimizer` (both updates, the EMA); on the plain path
+`step.forward`, `step.backward`, `step.optimizer`. On the card it also
+counts the caching allocator's retries in `alloc.retries`.
+
 Options of the JAX steps: `normalize=False` (`data.normalize: false`) leaves
 the images in [0, 1] (medvae_tpu/train/step.py:124-132); `loss.tower_dtype`
 sets the towers' compute dtype (`_tower_dtype`); `nan_checks=True`
@@ -60,6 +70,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from medvae_tpu_torch.core import tracing
 from medvae_tpu_torch.core.rng import fold_in
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import preprocess
@@ -287,8 +298,10 @@ def _loss_and_grads_of(model: torch.nn.Module, loss_cfg: Dict[str, Any]) -> Call
     forward = make_forward_fn(model)
 
     def grads_of(state: TrainState, x: torch.Tensor, batch, generator):
+        tracing.section("step.forward")
         outputs = forward(x, batch, generator)
         loss_dict = criterion(state.frozen, outputs, x)
+        tracing.section("step.backward")
         grads = _grads_or_zeros(loss_dict["loss"], list(state.params.values()))
         return {k: v.detach() for k, v in loss_dict.items()}, grads
 
@@ -311,12 +324,14 @@ def _gan_grads_of(model: torch.nn.Module, disc: torch.nn.Module, loss_cfg: Dict[
     redecode = any(m.dropout for m in model.decoder.modules() if isinstance(m, ResnetBlock))
 
     def gan_grads(state: TrainState, x: torch.Tensor, batch, generator, d_valid: torch.Tensor):
+        tracing.section("step.g_forward")
         outputs = forward(x, batch, generator)
         recon = outputs["reconstruction"]
         kl = gaussian_kl(outputs["mean"], outputs["logvar"])
         kl_per_sample = kl.reshape(kl.shape[0], -1).sum(dim=1)
         logits_fake = disc(discriminator_input(recon), train=False)
 
+        tracing.section("step.adaptive_weight")
         rec_a, logits_a = recon, logits_fake
         if redecode:  # a decoder pass on the detached z without dropout
             model.decoder.eval()
@@ -330,10 +345,12 @@ def _gan_grads_of(model: torch.nn.Module, disc: torch.nn.Module, loss_cfg: Dict[
         (g_grad,) = torch.autograd.grad(-logits_a.float().mean(), conv_out, retain_graph=True)
         d_weight = adaptive_weight([sync(nll_grad)], [sync(g_grad)])
 
+        tracing.section("step.g_backward")
         loss, g_log = gan_loss.generator_loss(state.frozen, x, recon, kl_per_sample, logits_fake,
                                               d_weight, d_valid)
         g_grads = _grads_or_zeros(loss, list(state.params.values()))
 
+        tracing.section("step.disc")
         recon = recon.detach()
         logits_real = disc(discriminator_input(x), train=True)
         logits_fake = disc(discriminator_input(recon), train=True)
@@ -375,6 +392,16 @@ def build_gan_grads(
         return grads_of(state, x, batch, generator, d_valid)
 
     return gan_grads
+
+
+def _alloc_retries(state: TrainState) -> Optional[int]:
+    """The caching allocator's retries so far on the params' device (each
+    freed its cache and synchronized the card); None off the card and inside
+    a capture."""
+    device = next(iter(state.params.values())).device
+    if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return None
+    return int(torch.cuda.memory_stats(device).get("num_alloc_retries", 0))
 
 
 def _apply(params, updates, lr_scale: torch.Tensor) -> None:
@@ -481,6 +508,16 @@ class TrainStep:
     def run(self, state: TrainState, batch: Dict[str, torch.Tensor],
             generator: Optional[torch.Generator] = None,
             draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        with tracing.device_span("step") as traced:  # the span's id while tracing records
+            retries = None if traced is None else _alloc_retries(state)
+            logs = self._run(state, batch, generator, draws)
+            if retries is not None:
+                tracing.count("alloc.retries", _alloc_retries(state) - retries)
+        return logs
+
+    def _run(self, state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator], draws: Optional[Dict[str, torch.Tensor]]):
+        tracing.section("step.forward" if self.gan_loss is None else "step.g_forward")
         x = preprocess(batch, generator, augment=self.augment, max_channels=self.max_channels,
                        dtype=self.compute_dtype, draws=draws, normalize=self.normalize)
         d_valid = self._scalars.get("d_valid")
@@ -498,6 +535,7 @@ class TrainStep:
                 logs = dict(zip(names, summed))
             grads = [[g / self.k for g in part] for part in grads]
             logs = {n: v / self.k for n, v in logs.items()}
+        tracing.section("step.optimizer")
         if self.grad_norm:  # the first optimizer's norm (tensor parallelism's sums the shards' squares)
             logs["train/grad_norm"] = self._optimizers(state)[0][0].norm(grads[0])
         if self.nan_checks:

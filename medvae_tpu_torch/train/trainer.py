@@ -52,7 +52,10 @@ Options (medvae_tpu/train/trainer.py:509-510, 861-936, 1021-1023,
   * `debug.profile`: torch.profiler (the CPU, and the card's kernels on the
     card) over the steps [start, min(20, steps_per_epoch)), its window
     padded PROFILE_PAD_S at each end, written as a Chrome trace to
-    `<run_dir>/profile/trace.json`; fused chunks are off under it, as in JAX.
+    `<run_dir>/profile/trace.json`, and the port's spans and counters of
+    those steps (core/tracing.py, which records while the profiler does;
+    host ns on the trace's clock, each step's sections in device ms) to
+    `<run_dir>/profile/spans.json`; fused chunks are off under it, as in JAX.
 
 The speed paths resolve as the JAX Trainer's do, each said once:
   * `data.device_cache: auto|true|false`: a split is pinned on the device
@@ -99,6 +102,7 @@ import torch
 from medvae_tpu_torch.config.instantiate import instantiate
 from medvae_tpu_torch.config.models import build_model, init_weights
 from medvae_tpu_torch.core import mesh as core_mesh
+from medvae_tpu_torch.core import tracing
 from medvae_tpu_torch.core.rng import fold_in, set_seed
 from medvae_tpu_torch.data.modalities import MODALITY_NAMES
 from medvae_tpu_torch.data.pipeline import DeviceCachedFeeder, DeviceFeeder, preprocess, split_cache_nbytes
@@ -392,6 +396,7 @@ class Trainer:
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
         prof = profile(activities=activities)
+        tracing.reset()
         prof.start()
         time.sleep(PROFILE_PAD_S)
         return prof
@@ -404,7 +409,8 @@ class Trainer:
         path = os.path.join(self.logger.dir, "profile", "trace.json")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         prof.export_chrome_trace(path)
-        print(f"debug.profile: trace of the first steps written to {path}")
+        tracing.export(os.path.join(os.path.dirname(path), "spans.json"))
+        print(f"debug.profile: trace of the first steps written to {path}, their spans beside it")
         return path
 
     def _validate_geometry(self) -> None:

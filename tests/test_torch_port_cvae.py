@@ -348,8 +348,8 @@ def test_entry_matches_the_graft_entry():
 def test_bench_builder_steps_on_the_cpu(model):
     net, step, state, batch = bench.build_bench(model, "quick", batch_size=8, device="cpu")
     gen = torch.Generator().manual_seed(0)
-    flops, state = bench.flops_per_step(step, state, batch, gen)
+    state, _ = step(state, batch, gen)
     state, metrics = step(state, batch, gen)
-    assert flops > 0 and state.step == 2
+    assert state.step == 2
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert batch["image_u8"].shape == (8, 28, 28, 3) and net.dtype == torch.bfloat16

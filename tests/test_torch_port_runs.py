@@ -406,6 +406,11 @@ def test_profile_writes_a_trace_of_the_first_steps(tmp_path, capsys):
     names = {e.get("name") for e in trace["traceEvents"]}
     assert any("conv" in str(n) for n in names)
     assert "fused_steps=on: off under debug.profile" in capsys.readouterr().out
+    with open(os.path.join(t.logger.dir, "profile", "spans.json")) as f:
+        spans = json.load(f)["spans"]  # the port's spans of the profiled steps, beside the trace
+    steps = [s for s in spans if s["name"] == "step"]
+    assert steps and all(s["end_ns"] >= s["start_ns"] for s in steps)
+    assert {s["name"] for s in spans if s["parent"] == steps[0]["id"]} >= {"step.forward", "step.optimizer"}
 
 
 def test_unnormalized_run_trains_with_finite_losses(tmp_path, capsys):
