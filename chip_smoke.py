@@ -433,7 +433,8 @@ def want_launches(**counts) -> dict:
 @contextlib.contextmanager
 def fused_gn(on: bool = True):
     """MEDVAE_FUSED_GN set for the block (the gate reads it at every call);
-    every other phase runs with it off, as the port's default is."""
+    every other phase runs with it set to 0, the plain route (the port's
+    default on the card is B6/B7)."""
     before = os.environ.get("MEDVAE_FUSED_GN")
     os.environ["MEDVAE_FUSED_GN"] = "1" if on else "0"
     try:
@@ -4805,7 +4806,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
         return 2
-    os.environ["MEDVAE_FUSED_GN"] = "0"  # the port's default; fused phases turn it on
+    os.environ["MEDVAE_FUSED_GN"] = "0"  # the plain route; fused phases turn B6/B7 on
     seconds, t_lap = {}, [time.perf_counter()]
 
     def lap(name: str) -> None:  # command seconds by phase, printed before the card line

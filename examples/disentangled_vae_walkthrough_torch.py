@@ -11,8 +11,8 @@ experiment through the port's Trainer, then:
 
 Run:  python examples/disentangled_vae_walkthrough_torch.py [--device cpu]
       [--epochs 1] [--limit_batches 40]
-On the card by default (`--device cuda`); set MEDVAE_FUSED_GN=1 to run the
-GroupNorm+SiLU sites through the fused kernels. Figures are PNGs written
+On the card by default (`--device cuda`), where the GroupNorm+SiLU sites run
+the fused kernels unless MEDVAE_FUSED_GN=0. Figures are PNGs written
 without matplotlib and land in ./examples_out/disentangled_torch/.
 """
 

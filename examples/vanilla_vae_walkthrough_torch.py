@@ -10,8 +10,8 @@ experiment) through the port's Trainer, then:
   * projects the latent space to 2-D (PCA)
 
 Run:  python examples/vanilla_vae_walkthrough_torch.py [--device cpu] [--epochs 2]
-On the card by default (`--device cuda`); set MEDVAE_FUSED_GN=1 to run the
-GroupNorm+SiLU sites through the fused kernels. Figures are PNGs written
+On the card by default (`--device cuda`), where the GroupNorm+SiLU sites run
+the fused kernels unless MEDVAE_FUSED_GN=0. Figures are PNGs written
 without matplotlib and land in ./examples_out/vanilla_torch/.
 """
 

@@ -16,7 +16,8 @@ BENCH_CONFIG=full224 that is the full-scale experiment's step at bs 32 (attentio
 at 28² and 56², fp32 LPIPS and CLIP-ViT towers unless BENCH_TOWERS=0, adamw
 lr 1e-4, augment on). BENCH_CONFIG=full224 alone is the 224² ConditionalVAE
 at bs 32. BENCH_BATCH overrides the batch, BENCH_SECONDS (8) the timed window.
-MEDVAE_FUSED_GN=1 routes every GroupNorm+SiLU through kernels B6/B7.
+Every GroupNorm+SiLU runs kernels B6/B7, as on the card by default;
+MEDVAE_FUSED_GN=0 runs the plain route.
 
 *pipeline*: the same step fed by the Trainer's input path over a synthetic
 split of BENCH_EPOCH_STEPS (8) batches: the split pinned on the card
@@ -29,8 +30,8 @@ time spent in the feeder's `next`.
 *generate*: `sample_conditional` of bench.py's 28² DisentangledConditionalVAE
 (`GENERATE_MODEL`, bf16, random weights from seed 0) for BENCH_BATCH (4096)
 samples, modalities round robin, each call's noise from a generator seeded
-anew, for BENCH_SECONDS (8); samples/s. `use_pallas` there is
-MEDVAE_FUSED_GN=1 here.
+anew, for BENCH_SECONDS (8); samples/s. `use_pallas` there is the card's
+default route here (MEDVAE_FUSED_GN unset or 1).
 
 Each mode prints one JSON line: `metric`, `value`, `unit`, the card's name,
 the batch. It reports no FLOP count or share of the peak: the benchmark's
@@ -54,6 +55,7 @@ from medvae_tpu_torch.config.models import CVAE_BENCH, build_model, init_weights
 from medvae_tpu_torch.core.rng import fold_in
 from medvae_tpu_torch.data.medmnist import SplitArrays
 from medvae_tpu_torch.data.pipeline import DeviceCachedFeeder, DeviceFeeder
+from medvae_tpu_torch.ops import groupnorm_swish
 from medvae_tpu_torch.train.optim import build_optimizer
 from medvae_tpu_torch.train.state import create_train_state
 from medvae_tpu_torch.train.step import build_train_step, make_frozen
@@ -164,7 +166,7 @@ def step_bench() -> Dict[str, Any]:
         "batch": bs,
         "steps": steps,
         "seconds": round(elapsed, 3),
-        "fused_gn": os.environ.get("MEDVAE_FUSED_GN") == "1",
+        "fused_gn": groupnorm_swish.fused_gn_on("cuda"),
     }
 
 
@@ -222,7 +224,7 @@ def pipeline_bench() -> Dict[str, Any]:
         "steps": steps,
         "epochs": epoch - 1,
         "seconds": round(elapsed, 3),
-        "fused_gn": os.environ.get("MEDVAE_FUSED_GN") == "1",
+        "fused_gn": groupnorm_swish.fused_gn_on("cuda"),
     }
 
 
@@ -257,7 +259,7 @@ def generation_bench() -> Dict[str, Any]:
         "batch": n,
         "calls": steps,
         "seconds": round(elapsed, 3),
-        "fused_gn": os.environ.get("MEDVAE_FUSED_GN") == "1",
+        "fused_gn": groupnorm_swish.fused_gn_on("cuda"),
     }
 
 

@@ -81,8 +81,8 @@ def group_norm(num_channels: int) -> GroupNorm:
 class GroupNormSwish(GroupNorm):
     """GroupNorm + affine + SiLU as one module, with nn.GroupNorm's `weight`
     and `bias` (medvae_tpu/nn/blocks.py:65-85): through B6 (B7 under
-    autograd) where `fused_group_norm_swish_or_none` takes the call
-    (MEDVAE_FUSED_GN=1), else the plain GroupNorm -> cast -> SiLU."""
+    autograd) where `fused_group_norm_swish_or_none` takes the call (on
+    the card by default), else the plain GroupNorm -> cast -> SiLU."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = fused_group_norm_swish_or_none(x, self.weight, self.bias, self.num_groups, self.eps)
@@ -91,10 +91,11 @@ class GroupNormSwish(GroupNorm):
 
 def norm_swish(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """GroupNorm (fp32 stats) -> cast back -> SiLU (medvae_tpu/nn/blocks.py:47-62).
-    With MEDVAE_FUSED_GN=1 the whole norm + affine + SiLU runs as the fused
-    kernels B6/B7 (ops/groupnorm_swish.py), with SiLU in fp32 before the one
-    cast, as the JAX package's fused kernel has it. `norm`'s weight and bias
-    are the params either way, so state_dicts are the same."""
+    Where the gate takes the call (on the card by default, everywhere with
+    MEDVAE_FUSED_GN=1, nowhere with 0) the whole norm + affine + SiLU runs
+    as the fused kernels B6/B7 (ops/groupnorm_swish.py), with SiLU in fp32
+    before the one cast, as the JAX package's fused kernel has it. `norm`'s
+    weight and bias are the params either way, so state_dicts are the same."""
     out = fused_group_norm_swish_or_none(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
     if out is not None:
         return out

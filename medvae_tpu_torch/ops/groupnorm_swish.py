@@ -10,8 +10,9 @@ Counterparts of medvae_tpu/ops/groupnorm_swish.py:
     over batch and space in a fixed order (no atomics), so a step is
     repeatable bit for bit;
   * the `jax.custom_vjp` -> `GroupNormSwish` (saves x, γ, β and the stats);
-  * `fused_group_norm_swish_or_none` -> the same name, the gate; without
-    autograd it calls B6 as the torch.library op `medvae::gn_swish_fwd`
+  * `fused_group_norm_swish_or_none` -> the same name, the gate, which
+    `fused_route` decides; without autograd, while a graph is traced, it
+    calls B6 as the torch.library op `medvae::gn_swish_fwd`
     (`gn_swish_fwd`), which torch.export keeps as one node.
 The kernels are built by ops/_build.py at first use. `gn_swish_plan` picks
 how they run at a shape (the instance: a group resident in one block's shared
@@ -24,6 +25,11 @@ the JAX package takes NHWC. On CUDA tensors a wrapper launches its kernel
 (bf16 or fp32 x; fp32 (c,) γ, β) or raises; it uses the plain PyTorch version
 only for tensors on the CPU. Each wrapper call adds one to that kernel's
 count in `launches` where it launches the kernel.
+
+While core/tracing.py records, the store counts `gn.fused` and `gn.plain`,
+one a gate call by the route it took, and `gn.fwd_bytes` / `gn.bwd_bytes`,
+`min_bytes` of each B6 / B7 launch. Like every count taken in Python they
+count a CUDA-graph capture once and its replays not at all.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ _count_lock = threading.Lock()
 tracing.register("launches", launches, _count_lock)
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
+_MAX_ELEMENTS = 2**31  # the kernels index elements with 32-bit integers
 # kernel -> (C symbol prefix, number of pointer arguments, takes eps)
 _KERNELS = {
     "gn_swish_fwd": ("medvae_gn_swish_fwd", 7, True),
@@ -239,6 +246,21 @@ def _launch(name: str, tensors, x: torch.Tensor, num_groups: int, plan: GnPlan, 
         raise RuntimeError(f"{name} kernel launch failed ({plan.instance}): CUDA error {err}")
     with _count_lock:
         launches[name] += 1
+    if tracing.active():
+        tracing.count("gn.fwd_bytes" if name == "gn_swish_fwd" else "gn.bwd_bytes",
+                      min_bytes(name, x.shape, x.element_size(), num_groups))
+
+
+def min_bytes(name: str, shape, elem_bytes: int, num_groups: int) -> int:
+    """The least bytes one launch of B6 (`gn_swish_fwd`) or B7
+    (`gn_swish_bwd`) moves at NCHW `shape`, each input read once and each
+    output written once (chip_smoke.py's roofline arithmetic): B6 reads x,
+    γ and β and writes y and the (b, G) fp32 mean and rstd; B7 reads x, the
+    incoming gradient, γ, β, mean and rstd and writes dx, dγ and dβ."""
+    b, c = int(shape[0]), int(shape[1])
+    n = math.prod(int(d) for d in shape)
+    activations, params = (2, 2) if name == "gn_swish_fwd" else (3, 4)
+    return activations * n * elem_bytes + params * c * 4 + 2 * b * num_groups * 4
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -265,7 +287,7 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups
     c = x.shape[1]
     if num_groups < 1 or c % num_groups:
         raise ValueError(f"group_norm_swish: {c} channels do not split into {num_groups} groups")
-    if x.numel() >= 2**31:
+    if x.numel() >= _MAX_ELEMENTS:
         raise ValueError(f"group_norm_swish: {x.numel()} elements, the kernels take < 2^31")
     for name, t in (("weight", weight), ("bias", bias)):
         if t.shape != (c,) or t.dtype != torch.float32 or t.device != x.device:
@@ -461,20 +483,61 @@ class GroupNormSwish(torch.autograd.Function):
         return dx, dgamma.to(weight.dtype), dbeta.to(bias.dtype), None, None
 
 
+def fused_route(switch: Optional[str], device_type: str, dtype: torch.dtype, shape,
+                num_groups: int, param_dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the gate takes B6/B7 for an x of `dtype` and `shape` on a
+    `device_type` device, whose γ and β are `param_dtype`, under
+    MEDVAE_FUSED_GN=`switch` (None where unset):
+      * channels that do not split into the groups: plain;
+      * "0", or any value but "1" and empty: plain everywhere (the A/B
+        setting);
+      * on the card, what the kernels take (bf16 or fp32 (b, c, h, w) x of
+        fewer than 2^31 elements, fp32 γ and β): fused, set or unset;
+        anything else plain, rather than a wrapper that raises;
+      * "1" off the card: fused (the plain version of B6/B7, as the JAX
+        package's switch on);
+      * unset off the card: plain, the JAX package's default route."""
+    channels = int(shape[1]) if len(shape) > 1 else 0
+    if num_groups < 1 or channels % num_groups:
+        return False
+    if switch not in (None, "", "1"):
+        return False
+    if device_type == "cuda":
+        return (dtype in _SUPPORTED and len(shape) == 4 and param_dtype == torch.float32
+                and math.prod(int(d) for d in shape) < _MAX_ELEMENTS)
+    return switch == "1"
+
+
 def fused_group_norm_swish_or_none(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float
 ) -> Optional[torch.Tensor]:
-    """(b, c, h, w) → silu(group_norm(x)·γ + β) through B6 (the op, or the
-    Function with B7 under autograd), or None, the caller's cue to take the plain GroupNorm → cast →
-    SiLU path. Opt-in, as in the JAX package: only with MEDVAE_FUSED_GN=1, read
-    at every call as the JAX gate reads it, and only where c splits into the
-    groups. The TPU gate's h·w·c cap (medvae_tpu/ops/groupnorm_swish.py:81-83)
-    is a VMEM limit and is not kept: the kernels take every trunk shape."""
-    if os.environ.get("MEDVAE_FUSED_GN") != "1":
-        return None
-    if x.shape[1] % num_groups:
+    """(b, c, h, w) → silu(group_norm(x)·γ + β) through B6 (the op while
+    torch.export or torch.compile traces, its kernel's wrapper in eager
+    calls, the Function with B7 under autograd), or None, the caller's cue
+    to take the plain GroupNorm → cast → SiLU path. `fused_route` decides,
+    from MEDVAE_FUSED_GN (read at every call, as the JAX gate reads it) and
+    what x is: by default B6/B7 on the card and the plain path elsewhere.
+    The TPU gate's h·w·c cap (medvae_tpu/ops/groupnorm_swish.py:81-83) is a
+    VMEM limit and is not kept: the kernels take every trunk shape."""
+    fused = fused_route(os.environ.get("MEDVAE_FUSED_GN"), x.device.type, x.dtype, x.shape, num_groups,
+                        weight.dtype)
+    if tracing.active():
+        tracing.count("gn.fused" if fused else "gn.plain")
+    if not fused:
         return None
     x = x.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
         return GroupNormSwish.apply(x, weight, bias, num_groups, eps)
-    return gn_swish_fwd(x, weight, bias, num_groups, eps)
+    if torch.compiler.is_compiling() or type(x) is not torch.Tensor:
+        return gn_swish_fwd(x, weight, bias, num_groups, eps)  # one node of a traced graph
+    # eager: the op's kernel without the op, whose first call imports
+    # torch._dynamo (its backend runs under torch._disable_dynamo), seconds
+    # a process that launches no other op would pay
+    return group_norm_swish_fwd(x, weight, bias, num_groups, eps)[0]
+
+
+def fused_gn_on(device, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether GroupNorm+SiLU sites of `dtype` activations on `device` take
+    B6/B7 under the current MEDVAE_FUSED_GN: the route a record names."""
+    return fused_route(os.environ.get("MEDVAE_FUSED_GN"), torch.device(device).type, dtype,
+                       (1, 32, 1, 1), 32)

@@ -5,16 +5,19 @@ The deterministic reconstruction graph and the sampling graph are traced at
 a fixed batch size, with the weights inside, and saved by torch.export; an
 artifact runs without the model's Python classes. The kernels of the serving
 path stay in the graph as the torch.library ops `medvae::flash_attention`
-(B1), `medvae::attention_fwd` (B4) and, with MEDVAE_FUSED_GN=1 at export
-time, `medvae::gn_swish_fwd` (B6): the switch is read while tracing, so the
-graph keeps the choice, and `meta.json` records it. Loading needs only this
-package's ops registered (`load_exported` imports them).
+(B1), `medvae::attention_fwd` (B4) and, where the GroupNorm+SiLU gate
+takes B6 at export time (on the card by default; MEDVAE_FUSED_GN=0 keeps
+the plain route), `medvae::gn_swish_fwd` (B6): the gate is read while
+tracing, so the graph keeps the choice, and `meta.json` records it.
+Loading needs only this package's ops registered (`load_exported` imports
+them).
 
 Artifact layout (directory):
   reconstruct.pt2   reconstruct(x_u8, modality_idx), with the whole model's weights
   sample.pt2        sample(noise, modality_idx), with the weights decoding reads
   meta.json         family, resolution, channels, batch sizes, latent shape,
-                    device, MEDVAE_FUSED_GN, the medvae:: ops of each graph
+                    device, whether the graphs hold B6 (`fused_gn`), the
+                    medvae:: ops of each graph
 
 The I/O is the JAX package's: uint8 NHWC images and int32 modality indices
 in, float32 NHWC out (the engine's output, serve/engine.py:encode_batch and
@@ -121,7 +124,7 @@ def export_model(model, out_dir: str, batch_size: int = 8,
         "sample_batch_size": n_sample,
         "latent_shape": [r, r, zdim],
         "device": dev.type,
-        "fused_gn": os.environ.get("MEDVAE_FUSED_GN") == "1",
+        "fused_gn": any("medvae.gn_swish_fwd" in graph_ops for graph_ops in ops.values()),
         "ops": ops,
     }
     with open(os.path.join(out_dir, "meta.json"), "w") as f:

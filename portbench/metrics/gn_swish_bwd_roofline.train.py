@@ -1,0 +1,10 @@
+"""B7 (`gn_swish_bwd`) in the training window: the least bytes of its
+launches (the program's counter `gn.bwd_bytes`, portbench/roofline/gn_swish.py's
+arithmetic) over the peak bandwidth, over the trace's device ms of its
+kernels, in %."""
+
+from portbench.roofline import gn_swish
+
+
+def read(run):
+    return gn_swish.roofline(run, "gn.bwd_bytes", gn_swish.BWD_FRAGMENTS)

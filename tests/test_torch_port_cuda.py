@@ -905,6 +905,60 @@ def test_export_round_trip_on_the_card(gen, tmp_path, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
+def test_default_route_on_the_card_is_b6_at_every_site(gen, monkeypatch):
+    """With MEDVAE_FUSED_GN unset, a small bf16 flagship's reconstruct on the
+    card launches B6 once per GroupNorm+SiLU site: the launch count, the
+    trace's B6 kernels and the store's `gn.fused` agree, and the output
+    equals MEDVAE_FUSED_GN=1's bit for bit. With 0 every site takes the
+    plain route and no B6 runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from medvae_tpu_torch.config.models import build_model, init_weights
+    from medvae_tpu_torch.core import tracing
+    from medvae_tpu_torch.nn.blocks import ResnetBlock
+    from medvae_tpu_torch.serve import InferenceEngine
+
+    cfg = {"_target_": "DisentangledConditionalVAE", "num_modalities": 5, "shared_latent_dim": 4,
+           "modality_latent_dim": 4, "hidden_channels": 64, "ch_mult": [1, 2], "num_res_blocks": 1,
+           "attn_resolutions": [16], "resolution": 16}
+    model = build_model(cfg, "bf16", "cuda")
+    model.load_state_dict(init_weights(build_model(cfg, "fp32", "cpu"), seed=0).state_dict())
+    engine = InferenceEngine(model, buckets=(4,), device="cuda")
+    sites = 2 * sum(isinstance(m, ResnetBlock) for m in model.modules()) + 2
+    x = torch.randint(0, 256, (4, 16, 16, 3), generator=gen, device="cuda", dtype=torch.uint8).cpu().numpy()
+    m = torch.arange(4).int().numpy()
+    b6 = ("gn_fwd_", "gn_row_stats", "gn_group_stats", "gn_swish_apply")
+
+    def traced(switch):
+        if switch is None:
+            monkeypatch.delenv("MEDVAE_FUSED_GN", raising=False)
+        else:
+            monkeypatch.setenv("MEDVAE_FUSED_GN", switch)
+        engine.reconstruct(x, modality=m)  # warm: kernels built, plans made
+        torch.cuda.synchronize()
+        tracing.reset()
+        before = gs.launches["gn_swish_fwd"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = engine.reconstruct(x, modality=m)
+            torch.cuda.synchronize()
+        kernels = sum(any(f in e.name for f in b6) for e in prof.events() if e.device_type == DeviceType.CUDA)
+        counts = {k: v for k, v in tracing.counters().items() if k.startswith("gn.")}
+        tracing.reset()
+        return out, gs.launches["gn_swish_fwd"] - before, kernels, counts
+
+    try:
+        out, launched, kernels, counts = traced(None)
+        assert launched == kernels == counts["gn.fused"] == sites and "gn.plain" not in counts
+        assert counts["gn.fwd_bytes"] > 0 and "gn.bwd_bytes" not in counts
+        assert np.array_equal(out, traced("1")[0])
+        out0, launched, kernels, counts = traced("0")
+        assert launched == kernels == 0 and counts == {"gn.plain": sites}
+        assert not np.array_equal(out0, out)  # the plain route rounds twice: another result
+    finally:
+        tracing.reset()
+
+
 # --------------------------- B5's first launch on a thread (ROADMAP §C) ---- #
 
 

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 from medvae_tpu.ops import groupnorm_swish as jgn
 from medvae_tpu_torch.config.models import init_weights
+from medvae_tpu_torch.core import tracing
 from medvae_tpu_torch.nn.blocks import ResnetBlock
 from medvae_tpu_torch.ops import groupnorm_swish as gs
 
@@ -168,6 +169,87 @@ def test_gate_is_opt_in_and_needs_whole_groups(monkeypatch):
     # no h·w·c cap: the TPU gate refuses this shape, the port's takes it
     big = torch.zeros(1, 128, 64, 64)
     assert gs.fused_group_norm_swish_or_none(big, torch.ones(128), torch.zeros(128), 32, EPS) is not None
+
+
+@pytest.mark.parametrize("switch", [None, "0", "1"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("groups", [32, 12])
+def test_route_by_switch_device_dtype_and_groups(switch, device, dtype, groups):
+    """Unset: B6/B7 on the card for the dtypes they take, plain elsewhere;
+    "1": fused everywhere the card's dtypes allow (any dtype on the CPU's
+    plain version); "0": plain everywhere; partial groups: plain."""
+    want = (groups == 32 and switch != "0"
+            and (dtype != torch.float16 if device == "cuda" else switch == "1"))
+    assert gs.fused_route(switch, device, dtype, (2, 64, 8, 8), groups) is want
+
+
+def test_card_route_leaves_what_the_kernels_cannot_take_to_the_plain_path():
+    shape = (2, 64, 8, 8)
+    assert gs.fused_route(None, "cuda", torch.bfloat16, shape, 32)
+    assert not gs.fused_route(None, "cuda", torch.bfloat16, shape, 32, torch.bfloat16)  # γ, β not fp32
+    assert not gs.fused_route(None, "cuda", torch.float64, shape, 32)
+    assert not gs.fused_route("1", "cuda", torch.float64, shape, 32)
+    assert not gs.fused_route(None, "cuda", torch.bfloat16, (64, 64, 8), 32)  # not (b, c, h, w)
+    assert not gs.fused_route(None, "cuda", torch.bfloat16, (2**16, 64, 32, 16), 32)  # 2^31 elements
+    assert gs.fused_route(None, "cuda", torch.bfloat16, (2**16 - 1, 64, 32, 16), 32)
+    assert not gs.fused_route("true", "cuda", torch.bfloat16, shape, 32)  # only "1" turns it on
+    assert gs.fused_route("", "cuda", torch.bfloat16, shape, 32)  # empty reads as unset
+
+
+def test_records_name_the_route_the_gate_takes(monkeypatch):
+    monkeypatch.delenv("MEDVAE_FUSED_GN", raising=False)
+    assert gs.fused_gn_on("cuda") and gs.fused_gn_on("cuda:0", torch.float32)
+    assert not gs.fused_gn_on("cpu") and not gs.fused_gn_on("cuda", torch.float16)
+    monkeypatch.setenv("MEDVAE_FUSED_GN", "0")
+    assert not gs.fused_gn_on("cuda")
+    monkeypatch.setenv("MEDVAE_FUSED_GN", "1")
+    assert gs.fused_gn_on("cpu")
+
+
+def test_gate_calls_the_op_only_while_a_graph_is_traced(monkeypatch):
+    """Eager calls without autograd run B6's wrapper (the op's first call
+    imports torch._dynamo, seconds of set-up); a traced graph gets the op,
+    its one node."""
+    x = torch.randn(2, 32, 4, 4)
+    w, b = torch.ones(32), torch.zeros(32)
+    calls = []
+    op = gs.gn_swish_fwd
+    monkeypatch.setattr(gs, "gn_swish_fwd", lambda *a: calls.append(a) or op(*a))
+    monkeypatch.setenv("MEDVAE_FUSED_GN", "1")
+    with torch.no_grad():
+        eager = gs.fused_group_norm_swish_or_none(x, w, b, 32, EPS)
+        assert calls == []
+        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+        traced = gs.fused_group_norm_swish_or_none(x, w, b, 32, EPS)
+    assert len(calls) == 1 and torch.equal(eager, traced)
+
+
+@pytest.fixture
+def store():
+    tracing.reset()
+    tracing.enable(None)
+    yield
+    tracing.reset()
+    tracing.enable(None)
+
+
+@pytest.mark.parametrize("switch", ["1", "0"])
+def test_gate_counts_each_site_by_route_only_while_tracing(block_pair, monkeypatch, store, switch):
+    """A ResnetBlock's two GroupNorm+SiLU sites a forward, each counted once
+    by the route it took while the store records and not otherwise; the
+    CPU's route launches nothing, so no bytes are counted."""
+    block, x = block_pair
+    monkeypatch.setenv("MEDVAE_FUSED_GN", switch)
+    with torch.no_grad():
+        block(x)
+    assert not [k for k in tracing.counters() if k.startswith("gn.")]
+    tracing.enable(True)
+    with torch.no_grad():
+        block(x)
+    block(x.clone().requires_grad_(True)).sum().backward()
+    counts = {k: v for k, v in tracing.counters().items() if k.startswith("gn.")}
+    assert counts == {"gn.fused" if switch == "1" else "gn.plain": 4}
 
 
 @pytest.mark.parametrize("rows, hw, want", [(32 * 128, 224 * 224, 3), (128, 224 * 224, 49),
