@@ -3,6 +3,8 @@
 `FLAGSHIP` equals configs/model/disentangled_conditional_vae.yaml as a Python
 dict, so that nothing on the serving path needs PyYAML. `CVAE_BENCH` is the
 28² ConditionalVAE of bench.py's default step (bench.py:118-129,205-211).
+`KL_F8_C16` is the 16-channel KL-f8 autoencoder of Stable Diffusion 3 and
+FLUX.1 as a `BaseVAE`.
 """
 
 from __future__ import annotations
@@ -45,6 +47,32 @@ CVAE_BENCH: Dict[str, Any] = {
     "resolution": 28,
     "condition_method": "concat",
     "dropout": 0.0,
+}
+
+# The 16-channel KL-f8 autoencoder that latent-diffusion models encode and
+# decode 1024² images through: arXiv 2403.03206 (Stable Diffusion 3, the
+# improved autoencoder with d = 16 latent channels) and FLUX.1's published
+# vae/config.json (https://huggingface.co/black-forest-labs/FLUX.1-dev), a
+# diffusers AutoencoderKL with block_out_channels [128, 256, 512, 512],
+# layers_per_block 2, norm_num_groups 32, SiLU, latent_channels 16, the
+# single-head mid-block attention, sample_size 1024 and no quant convs. In
+# the LDM codec: hidden 128, ch_mult 1-2-4-4, no attention but the mid
+# block's (at C = 512, over (1024/8)² = 16,384 tokens), double_z for mean
+# and logvar, GroupNorm(32, eps 1e-6). 83.82 M params. Its published weights
+# load through compat/diffusers_import.py.
+KL_F8_C16: Dict[str, Any] = {
+    "_target_": "medvae_tpu.models.BaseVAE",
+    "input_channels": 3,
+    "latent_dim": 16,
+    "hidden_channels": 128,
+    "ch_mult": [1, 2, 4, 4],
+    "num_res_blocks": 2,
+    "attn_resolutions": [],
+    "dropout": 0.0,
+    "resolution": 1024,
+    "use_linear_attn": False,
+    "attn_type": "vanilla",
+    "double_z": True,
 }
 
 _CODEC_KEYS = (

@@ -17,6 +17,9 @@ on a TPU:
     serving launch);
   * everything else: `reference_attention`, which differentiates through
     autograd.
+While core/tracing.py records, `attention` counts `attn.fused`, `attn.flash`
+or `attn.plain`, one a call by the route it took, so a shape that falls off
+the kernels shows in a traced run.
 The gates are kept for routing parity (the same blocks take the same path in
 both packages) until an H100 measurement in PERF.md sets the port's own.
 
@@ -336,8 +339,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """(b, n, c) single-head attention, routed like the JAX package's TPU path."""
     _, n, c = q.shape
     training = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if uses_fused(n, c):
+    route = "fused" if uses_fused(n, c) else "flash" if uses_flash(n, c) else "plain"
+    if tracing.active():
+        tracing.count(f"attn.{route}")
+    if route == "fused":
         return FusedAttention.apply(q, k, v) if training else attention_fwd(q, k, v)
-    if uses_flash(n, c):
+    if route == "flash":
         return FlashAttention.apply(q, k, v) if training else flash_attention(q, k, v)
     return reference_attention(q, k, v)

@@ -23,11 +23,17 @@ the streamed instance's three kernels each way).
 The port's activations are NCHW, so the wrappers take (b, c, h, w) x, where
 the JAX package takes NHWC. On CUDA tensors a wrapper launches its kernel
 (bf16 or fp32 x; fp32 (c,) γ, β) or raises; it uses the plain PyTorch version
-only for tensors on the CPU. Each wrapper call adds one to that kernel's
-count in `launches` where it launches the kernel.
+only for tensors on the CPU. The kernels index elements with 32-bit
+integers, so a wrapper launches them over consecutive batch slices of fewer
+than 2^31 elements each (`batch_slices`): one slice, the whole batch, below
+that, as every 224² shape is; two at the 1024² autoencoder's (8, 256, 1024,
+1024). A group's statistics are one image's, so the slices' outputs are the
+whole batch's; B7 adds the slices' dγ and dβ in slice order. Each launch
+adds one to that kernel's count in `launches`.
 
 While core/tracing.py records, the store counts `gn.fused` and `gn.plain`,
-one a gate call by the route it took, and `gn.fwd_bytes` / `gn.bwd_bytes`,
+one a gate call by the route it took, `gn.sliced`, one a fused gate call
+launched in more than one slice, and `gn.fwd_bytes` / `gn.bwd_bytes`,
 `min_bytes` of each B6 / B7 launch. Like every count taken in Python they
 count a CUDA-graph capture once and its replays not at all.
 """
@@ -40,7 +46,7 @@ import math
 import os
 import threading
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -53,7 +59,7 @@ _count_lock = threading.Lock()
 tracing.register("launches", launches, _count_lock)
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
-_MAX_ELEMENTS = 2**31  # the kernels index elements with 32-bit integers
+_MAX_ELEMENTS = 2**31  # the kernels index elements with 32-bit integers: a launch takes fewer
 # kernel -> (C symbol prefix, number of pointer arguments, takes eps)
 _KERNELS = {
     "gn_swish_fwd": ("medvae_gn_swish_fwd", 7, True),
@@ -120,6 +126,25 @@ def splits_for(rows: int, hw: int, sms: int) -> int:
     multiprocessors."""
     want = -(-(sms * _WARPS_PER_SM) // rows)
     return max(1, min(want, hw // _MIN_PIECE))
+
+
+def batch_slices(shape, elem_bytes: int) -> Optional[List[Tuple[int, int]]]:
+    """The consecutive batch slices [lo, hi) that B6 and B7 launch over at
+    NCHW `shape` of `elem_bytes`-byte elements, each of fewer than 2^31
+    elements: [(0, b)] below that; else the fewest slices that hold that
+    few, cut as evenly as whole images allow ((8, 256, 1024, 1024): two of
+    four images). None where no launch can take the shape: one image alone
+    has 2^31 elements or more, or a slice would start off the 16-byte
+    alignment the kernels need."""
+    b = int(shape[0])
+    per_image = math.prod(int(d) for d in shape[1:])
+    if b * per_image < _MAX_ELEMENTS:
+        return [(0, b)]
+    if per_image >= _MAX_ELEMENTS or per_image * elem_bytes % 16:
+        return None
+    n = -(-b // ((_MAX_ELEMENTS - 1) // per_image))
+    size = -(-b // n)
+    return [(lo, min(lo + size, b)) for lo in range(0, b, size)]
 
 
 def _slice_len(length: int, n: int) -> int:
@@ -287,8 +312,9 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups
     c = x.shape[1]
     if num_groups < 1 or c % num_groups:
         raise ValueError(f"group_norm_swish: {c} channels do not split into {num_groups} groups")
-    if x.numel() >= _MAX_ELEMENTS:
-        raise ValueError(f"group_norm_swish: {x.numel()} elements, the kernels take < 2^31")
+    if batch_slices(x.shape, x.element_size()) is None:
+        raise ValueError(f"group_norm_swish: one image of {tuple(x.shape)} has 2^31 elements or more "
+                         f"(the kernels take < 2^31 a launch), or its bytes are not a multiple of 16")
     for name, t in (("weight", weight), ("bias", bias)):
         if t.shape != (c,) or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(
@@ -369,18 +395,22 @@ def group_norm_swish_fwd(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, num_groups: int, eps: float,
     plan: Optional[GnPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(y, mean, rstd) through kernel B6, on `plan` (`plan_for`'s by
+    """(y, mean, rstd) through kernel B6, one launch a batch slice
+    (`batch_slices`), each on `plan` (`plan_for`'s of the slice by
     default)."""
     if _on_cpu(x, weight, bias):
         return group_norm_swish_fwd_plain(x, weight, bias, num_groups, eps)
     _check(x, weight, bias, num_groups)
     b = x.shape[0]
-    plan = plan or plan_for(x, num_groups)
     y = torch.empty_like(x)
     mean = torch.empty((b, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    ws = _workspace(plan, x, num_groups, False)
-    _launch("gn_swish_fwd", (x, weight, bias, y, mean, rstd, ws), x, num_groups, plan, float(eps))
+    for lo, hi in batch_slices(x.shape, x.element_size()):
+        xs = x[lo:hi]
+        plan_s = plan or plan_for(xs, num_groups)
+        ws = _workspace(plan_s, xs, num_groups, False)
+        _launch("gn_swish_fwd", (xs, weight, bias, y[lo:hi], mean[lo:hi], rstd[lo:hi], ws), xs, num_groups, plan_s,
+                float(eps))
     return y, mean, rstd
 
 
@@ -418,8 +448,11 @@ def group_norm_swish_bwd(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
     mean: torch.Tensor, rstd: torch.Tensor, plan: Optional[GnPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dγ, dβ) through kernel B7, on `plan` (`plan_for`'s by default);
-    mean and rstd are B6's (b, G) outputs."""
+    """(dx, dγ, dβ) through kernel B7, one launch a batch slice
+    (`batch_slices`), each on `plan` (`plan_for`'s of the slice by default);
+    mean and rstd are B6's (b, G) outputs. Over several slices dγ and dβ
+    are the slices' own summed in slice order: no atomics, the same bits on
+    every run."""
     if _on_cpu(x, weight, bias, g, mean, rstd):
         return group_norm_swish_bwd_plain(x, weight, bias, g, mean, rstd)
     b, c, h, w = x.shape
@@ -432,13 +465,20 @@ def group_norm_swish_bwd(
                 f"group_norm_swish backward: {name} must be contiguous fp32 ({b}, {groups}) "
                 f"on {x.device}; got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
-    plan = plan or plan_for(x, groups, backward=True)
     dx = torch.empty_like(x)
-    dgamma = torch.empty((c,), dtype=torch.float32, device=x.device)
-    dbeta = torch.empty_like(dgamma)
-    ws = _workspace(plan, x, groups, True)
-    _launch("gn_swish_bwd", (x, g, weight, bias, mean, rstd, dx, dgamma, dbeta, ws), x,
-            groups, plan)
+    sums = []
+    for lo, hi in batch_slices(x.shape, x.element_size()):
+        xs = x[lo:hi]
+        plan_s = plan or plan_for(xs, groups, backward=True)
+        dgamma = torch.empty((c,), dtype=torch.float32, device=x.device)
+        dbeta = torch.empty_like(dgamma)
+        ws = _workspace(plan_s, xs, groups, True)
+        _launch("gn_swish_bwd", (xs, g[lo:hi], weight, bias, mean[lo:hi], rstd[lo:hi], dx[lo:hi], dgamma, dbeta, ws),
+                xs, groups, plan_s)
+        sums.append((dgamma, dbeta))
+    dgamma, dbeta = sums[0]
+    for dg, db in sums[1:]:
+        dgamma, dbeta = dgamma + dg, dbeta + db
     return dx, dgamma, dbeta
 
 
@@ -491,9 +531,10 @@ def fused_route(switch: Optional[str], device_type: str, dtype: torch.dtype, sha
       * channels that do not split into the groups: plain;
       * "0", or any value but "1" and empty: plain everywhere (the A/B
         setting);
-      * on the card, what the kernels take (bf16 or fp32 (b, c, h, w) x of
-        fewer than 2^31 elements, fp32 γ and β): fused, set or unset;
-        anything else plain, rather than a wrapper that raises;
+      * on the card, what the kernels take (bf16 or fp32 (b, c, h, w) x
+        whose batch `batch_slices` cuts into launches of fewer than 2^31
+        elements, fp32 γ and β): fused, set or unset; anything else plain,
+        rather than a wrapper that raises;
       * "1" off the card: fused (the plain version of B6/B7, as the JAX
         package's switch on);
       * unset off the card: plain, the JAX package's default route."""
@@ -504,7 +545,7 @@ def fused_route(switch: Optional[str], device_type: str, dtype: torch.dtype, sha
         return False
     if device_type == "cuda":
         return (dtype in _SUPPORTED and len(shape) == 4 and param_dtype == torch.float32
-                and math.prod(int(d) for d in shape) < _MAX_ELEMENTS)
+                and batch_slices(shape, dtype.itemsize) is not None)
     return switch == "1"
 
 
@@ -523,6 +564,8 @@ def fused_group_norm_swish_or_none(
                         weight.dtype)
     if tracing.active():
         tracing.count("gn.fused" if fused else "gn.plain")
+        if fused and x.device.type != "cpu" and len(batch_slices(x.shape, x.element_size())) > 1:
+            tracing.count("gn.sliced")
     if not fused:
         return None
     x = x.contiguous()

@@ -1203,3 +1203,74 @@ def test_fused_chunk_of_the_loss_steps_equals_per_step_calls_bit_for_bit(gen, mo
     assert all(loop_launches[k] > 0 for k in kernels), loop_launches
     if case == "gan":  # the gate opened inside the chunks: the adversarial terms moved
         assert float(metrics["train/d_weight"]) > 0 and float(metrics["train/d_loss"]) > 0
+
+
+# ------------------------- the 1024² KL-f8 autoencoder's largest sites ---- #
+
+
+def test_gn_swish_past_2_31_elements_launches_in_slices(gen):
+    """The 1024² decoder's first block at bs 8 (8, 256, 1024, 1024), 2^31
+    elements: B6 and B7 launch once a batch slice (two of four images),
+    each slice's outputs equal B6/B7 run on that slice alone bit for bit,
+    dγ and dβ are the slices' summed in order, and the whole is within the
+    bars of `test_gn_swish_kernels_match_plain_versions` of the plain fp32
+    version (computed a slice at a time: a group's statistics are one
+    image's), but for y's elementwise floor: 2e-6 where those bars have
+    1e-6. A group here is 8.4 M elements, and the streamed instance's fp32
+    statistics over a launch of four images are 1.2e-6 off in the mean
+    (against 2e-8 at one image, and 4e-8 for the plain version's; H100,
+    against fp64), which moves outputs near zero by up to 1.2e-6: 420 of
+    the slice's 2^30 outputs, all under 5e-6 in magnitude."""
+    shape, dtype = (8, 256, 1024, 1024), torch.bfloat16
+    slices = gs.batch_slices(shape, 2)
+    assert slices == [(0, 4), (4, 8)]
+    x, w, b, g, groups = _gn_inputs(gen, shape, dtype)
+    before = dict(gs.launches)
+    y, mean, rstd = gs.group_norm_swish_fwd(x, w, b, groups, 1e-6)
+    dx, dw, db = gs.group_norm_swish_bwd(x, w, b, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert gs.launches == {k: v + len(slices) for k, v in before.items()}
+    dw_sum = db_sum = dw_ref = db_ref = None
+    for lo, hi in slices:
+        ys, ms, rs = gs.group_norm_swish_fwd(x[lo:hi], w, b, groups, 1e-6)
+        dxs, dws, dbs = gs.group_norm_swish_bwd(x[lo:hi], w, b, g[lo:hi], ms, rs)
+        assert torch.equal(y[lo:hi], ys) and torch.equal(mean[lo:hi], ms) and torch.equal(rstd[lo:hi], rs)
+        assert torch.equal(dx[lo:hi], dxs)
+        dw_sum, db_sum = (dws, dbs) if dw_sum is None else (dw_sum + dws, db_sum + dbs)
+        del ys, dxs
+        y_ref, mean_ref, rstd_ref = gs.group_norm_swish_fwd_plain(x[lo:hi], w, b, groups, 1e-6)
+        got, want = y[lo:hi].double(), y_ref.double()
+        assert torch.isfinite(got).all() and _rel(got, want) <= 2e-3
+        assert bool(((got - want).abs() <= 2.0**-7 * want.abs() + 2e-6).all())
+        del got, want
+        assert _rel(mean[lo:hi], mean_ref) <= 1e-5 and _rel(rstd[lo:hi], rstd_ref) <= 1e-5
+        del y_ref
+        dx_ref, dws_ref, dbs_ref = gs.group_norm_swish_bwd_plain(x[lo:hi], w, b, g[lo:hi], ms, rs)
+        _assert_grad_close(dx[lo:hi], dx_ref, dtype, f"dx[{lo}:{hi}]")
+        del dx_ref
+        dw_ref, db_ref = (dws_ref, dbs_ref) if dw_ref is None else (dw_ref + dws_ref, db_ref + dbs_ref)
+    assert torch.equal(dw, dw_sum) and torch.equal(db, db_sum)
+    assert _rel(dw, dw_ref) <= 1e-3 and _rel(db, db_ref) <= 1e-3
+    again = gs.group_norm_swish_bwd(x, w, b, g, mean, rstd)
+    assert all(torch.equal(a, b_) for a, b_ in zip((dx, dw, db), again))
+
+
+def test_flash_at_16384_tokens_matches_per_image_fp32_attention(gen):
+    """The 1024² autoencoder's mid-block attention at bs 8: (8, 16384, 512)
+    bf16 routes to B1 (one launch) and agrees, image by image, with a plain
+    attention of the same operands in fp32 under B1's bf16 bars."""
+    shape = (8, 16384, 512)
+    assert at.uses_flash(16384, 512) and not at.uses_fused(16384, 512)
+    q, k, v = _qkv(gen, shape, torch.bfloat16)
+    before = fa.launches["flash_fwd"]
+    with torch.no_grad():
+        got = at.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == before + 1 and got.dtype == torch.bfloat16
+    tol_abs, tol_rel = TOLERANCE[torch.bfloat16]
+    for i in range(shape[0]):
+        logits = torch.matmul(q[i].float(), k[i].float().T) * shape[2] ** -0.5
+        want = torch.matmul(torch.softmax(logits, dim=-1), v[i].float())
+        del logits
+        err = (got[i].double() - want.double()).abs().max().item()
+        assert torch.isfinite(got[i]).all() and err <= tol_abs and _rel(got[i], want) <= tol_rel, (i, err)

@@ -191,8 +191,8 @@ def test_card_route_leaves_what_the_kernels_cannot_take_to_the_plain_path():
     assert not gs.fused_route(None, "cuda", torch.float64, shape, 32)
     assert not gs.fused_route("1", "cuda", torch.float64, shape, 32)
     assert not gs.fused_route(None, "cuda", torch.bfloat16, (64, 64, 8), 32)  # not (b, c, h, w)
-    assert not gs.fused_route(None, "cuda", torch.bfloat16, (2**16, 64, 32, 16), 32)  # 2^31 elements
-    assert gs.fused_route(None, "cuda", torch.bfloat16, (2**16 - 1, 64, 32, 16), 32)
+    assert not gs.fused_route(None, "cuda", torch.bfloat16, (1, 2**11, 2**10, 2**10), 32)  # 2^31 an image
+    assert gs.fused_route(None, "cuda", torch.bfloat16, (2**16, 64, 32, 16), 32)  # 2^31 in two launches
     assert not gs.fused_route("true", "cuda", torch.bfloat16, shape, 32)  # only "1" turns it on
     assert gs.fused_route("", "cuda", torch.bfloat16, shape, 32)  # empty reads as unset
 
