@@ -164,6 +164,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            memory of each CLI, analyze's PCA alone, and eval_batch (bs 32)
            and a bs-8 conditional sample alone (host clock, synchronized),
            switch off and on. It runs after train_parity.
+  adamw    the fused AdamW route (ops/adamw.py: adamw_sumsq, adamw_norm,
+           adamw_update) at the 224² GAN's parameter sets (G's 250 tensors,
+           D's 16): the kernels' norm within ADAMW_NORM_REL of global_norm and
+           a repeat the same bits, m, v and p bit for bit the plain chain's
+           (Optimizer.apply, then add_updates) given its norm, the launches
+           of one update of each as derived (`adamw_updates`), and the times
+           of G's largest tensor and the GAN step's two updates, fused, by
+           pass and plain, beside the bound (32 B a param over 3.35 TB/s).
+           Every training phase holds its adamw launches to the count its
+           optimizers derive (`adamw_per_step`, `adamw_of_config`): each
+           update an adamw_update a run of at most 64 tensors, and with the
+           clip as many adamw_sumsq and one adamw_norm; none for SGD;
   dispatch  what binding B1, B4 and B6 as torch.library ops (the serving
            forwards `medvae::flash_attention`, `medvae::attention_fwd`,
            `medvae::gn_swish_fwd`) costs: host µs a call of each op against
@@ -311,7 +323,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            without: a bucket-32 reconstruct bit for bit, 5 B1 launches each.
 The repeat of train_parity, cvae28_parity and base128_parity is gated at
 0.0: the fused chunks rest on it. Then the card line from nvidia-smi, the
-kernels line, and {"ok": true, "device": {...}} last.
+kernels line (B1-B7, then the fused AdamW route's three kernels with their
+launches by path), and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -364,6 +377,7 @@ try:
     from medvae_tpu_torch.nn.discriminator import build_discriminator
     from medvae_tpu_torch.nn.encoder_decoder import Decoder, Encoder, set_remat
     from medvae_tpu_torch.ops import _build
+    from medvae_tpu_torch.ops import adamw as aw
     from medvae_tpu_torch.ops import attention as at
     from medvae_tpu_torch.ops import flash_attention as fa
     from medvae_tpu_torch.ops import groupnorm_swish as gs
@@ -371,7 +385,7 @@ try:
     from medvae_tpu_torch.serve.engine import InferenceEngine, sample_batch
     from medvae_tpu_torch.serve.export import GRAPHS, export_model, load_exported, medvae_ops
     from medvae_tpu_torch.utils.visualization import read_png_size
-    from medvae_tpu_torch.train.optim import build_optimizer, discriminator_optimizer
+    from medvae_tpu_torch.train.optim import add_updates, build_optimizer, discriminator_optimizer, global_norm
     from medvae_tpu_torch.train.state import create_train_state
     from medvae_tpu_torch.train.multistep import build_chunk_runner
     from medvae_tpu_torch.train.step import (build_gan_grads, build_loss_and_grads, build_train_step,
@@ -404,7 +418,7 @@ TOLERANCE = {torch.bfloat16: (4e-3, 1e-2), torch.float32: (1e-4, 1e-4)}
 GRAD_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 GRAD_ABS_OF_STD = {torch.bfloat16: 0.15, torch.float32: None}
 LSE_TOLERANCE = 1e-4
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "groupnorm_swish", "attention")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "groupnorm_swish", "attention", "adamw")
 CHECK_SHAPES = [((32, 3136, 512), torch.bfloat16), ((2, 784, 1024), torch.bfloat16),
                 ((2, 1000, 512), torch.bfloat16), ((3, 1000, 256), torch.bfloat16),
                 ((2, 3136, 512), torch.float32)]
@@ -418,16 +432,62 @@ def reset_launches() -> None:
     fa.reset_launches()
     gs.reset_launches()
     at.reset_launches()
+    aw.reset_launches()
 
 
 def launches() -> dict:
-    """Every kernel's count: B1-B3, B6 and B7, then B4 and B5."""
-    return {**fa.launches, **gs.launches, **at.launches}
+    """Every kernel's count: B1-B3, B6 and B7, B4 and B5, then the fused
+    AdamW route's three."""
+    return {**fa.launches, **gs.launches, **at.launches, **aw.launches}
 
 
 def want_launches(**counts) -> dict:
     """Every kernel's count zero, but for `counts`."""
     return {**dict.fromkeys(launches(), 0), **counts}
+
+
+def adamw_updates(*sets) -> dict:
+    """The fused AdamW route's launches (ops/adamw.py) for one update of each
+    of `sets`, (optimizer, params) pairs: where the route takes it (Adam or
+    AdamW with the plain global norm), one adamw_update a run of at most
+    MAX_TENSORS non-empty tensors, and with the clip as many adamw_sumsq and
+    one adamw_norm; none for SGD or tensor parallelism's norm."""
+    out = dict.fromkeys(aw.launches, 0)
+    for tx, params in sets:
+        if tx.kind in aw.KINDS and tx.norm is global_norm:
+            runs = -(-sum(1 for p in params if p.numel()) // aw.MAX_TENSORS)
+            clip = int(bool(tx.clip))
+            out["adamw_sumsq"] += runs * clip
+            out["adamw_norm"] += clip
+            out["adamw_update"] += runs
+    return out
+
+
+def adamw_per_step(step, state) -> dict:
+    """`adamw_updates` of one call of a TrainStep on `state`: each of its
+    optimizers (the GAN's G and D) updates its params once."""
+    return adamw_updates(*((tx, params) for tx, params, _ in step._optimizers(state)))
+
+
+def adamw_of_config(cfg) -> dict:
+    """`adamw_per_step` of the Trainer that composed config `cfg` builds,
+    without building it: its model's trainable params (and the GAN's
+    discriminator's) on the meta device, its optimizers from
+    `training.optimizer` and the clip."""
+    tcfg = cfg["training"]
+    kw = dict(gradient_clip_val=tcfg.get("gradient_clip_val", 1.0))
+    opt = (dict(tcfg.get("optimizer", {})), dict(tcfg.get("scheduler", {}) or {}))
+    model = build_model({k: v for k, v in dict(cfg["model"]).items() if k != "remat"}, "bf16", "meta", train=True)
+    sets = [(build_optimizer(*opt, **kw), [p for p in model.parameters() if p.requires_grad])]
+    if str(tcfg["loss"].get("type")) == "lpips_discriminator":
+        disc = build_discriminator(tcfg["loss"].get("discriminator") or tcfg.get("discriminator"), "cpu", seed=0)
+        sets.append((discriminator_optimizer(*opt, **kw), list(disc.parameters())))
+    return adamw_updates(*sets)
+
+
+def scaled(counts: dict, n: int) -> dict:
+    """`counts` of one step, over `n` steps."""
+    return {k: v * n for k, v in counts.items()}
 
 
 @contextlib.contextmanager
@@ -1419,7 +1479,7 @@ def phase_train(state_dict) -> dict:
     step = build_train_step(model, FLAGSHIP_LOSS, tx, augment=True, max_channels=3)
     batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
     gen = torch.Generator(device=CARD).manual_seed(0)
-    want = want_launches(**PER_TRAIN_STEP)
+    want = want_launches(**PER_TRAIN_STEP, **adamw_per_step(step, state))
     state, times, totals = run_steps("train", step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
                                      want)
     median = statistics.median(times)
@@ -1488,7 +1548,8 @@ def phase_flagship_fused_train(state_dict) -> dict:
         batch = synthetic_batch(TRAIN_BATCH, int(model.resolution), CARD)
         gen = torch.Generator(device=CARD).manual_seed(0)
         sites = gn_swish_sites(model)
-        want = want_launches(**PER_TRAIN_STEP, gn_swish_fwd=sites, gn_swish_bwd=sites)
+        want = want_launches(**PER_TRAIN_STEP, gn_swish_fwd=sites, gn_swish_bwd=sites,
+                             **adamw_per_step(step, state))
         state, times, totals = run_steps("flagship_fused_gn", step, state, batch, gen, WARMUP_STEPS,
                                          FUSED_FLAGSHIP_TIMED, want)
         median = statistics.median(times)
@@ -1588,7 +1649,8 @@ def phase_cvae28_train(on: bool) -> dict:
     with fused_gn(on):
         model, step, state, batch = bench.build_bench("cvae", "quick", device=CARD)
         sites = gn_swish_sites(model)
-        want = want_launches(gn_swish_fwd=sites if on else 0, gn_swish_bwd=sites if on else 0)
+        want = want_launches(gn_swish_fwd=sites if on else 0, gn_swish_bwd=sites if on else 0,
+                             **adamw_per_step(step, state))
         gen = torch.Generator(device=CARD).manual_seed(0)
         state, times, totals = run_steps(tag, step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
                                          want)
@@ -1789,6 +1851,118 @@ def fma_instance_calls(q, k, v, g) -> dict:
 
     return {"attention_fwd": lambda: call("fwd", (q, k, v, outs[0])),
             "attention_bwd": lambda: call("bwd", (q, k, v, g, *outs[1:], stats))}
+
+
+ADAMW_REPS = 10
+ADAMW_NORM_REL = 2e-6  # the kernels' norm against global_norm: fp64 partials against fp32 sums
+
+
+def adamw_set(tx, shapes, gen):
+    """(tx, params, state, grads) of one update on the card: params and
+    moments random, the state prepared for its sixth update, grads of unit
+    scale (the clip at 1.0 engaged)."""
+    params = [torch.randn(s, generator=gen, device=CARD) * 0.05 for s in shapes]
+    state = tx.init(params)
+    state.mu = [torch.randn(s, generator=gen, device=CARD) * 0.01 for s in shapes]
+    state.nu = [torch.rand(s, generator=gen, device=CARD) * 1e-4 for s in shapes]
+    state.count = 5
+    tx.prepare(state)
+    return tx, params, state, [torch.randn(s, generator=gen, device=CARD) for s in shapes]
+
+
+def phase_adamw() -> dict:
+    """The fused AdamW route (ops/adamw.py: adamw_sumsq, adamw_norm,
+    adamw_update) against the plain chain (Optimizer.apply, then
+    optim.add_updates) at the 224² GAN's parameter sets on the card (the
+    generator's 250 tensors and D's 16, fp32, GAN224's optimizers and
+    clip): the kernels' norm within ADAMW_NORM_REL of global_norm and a
+    repeat the same bits; given the plain chain's norm, m, v and p bit for
+    bit; one `Optimizer.apply_` of each set takes the route with the
+    launches `adamw_updates` derives. Times (CUDA events, median of
+    ADAMW_REPS): G's largest tensor alone and the GAN step's two updates,
+    fused (the norm and the update), the norm pass, the update pass and the
+    plain chain, beside the bound (`adamw.least_bytes` over
+    H100_BYTES_PER_S); ptxas's registers and spills."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gan224_config()
+    tcfg = cfg["training"]
+    opt = (dict(tcfg["optimizer"]), dict(tcfg["scheduler"]))
+    kw = dict(steps_per_epoch=GAN224_STEPS_PER_EPOCH, gradient_clip_val=tcfg["gradient_clip_val"])
+    g_shapes = [p.shape for p in build_model(cfg["model"], "bf16", "meta", train=True).parameters() if p.requires_grad]
+    d_shapes = [p.shape for p in build_discriminator(tcfg["discriminator"], "cpu", seed=0).parameters()]
+    largest = max(g_shapes, key=lambda s: s.numel())
+    gen = torch.Generator(device=CARD).manual_seed(22)
+    lr_scale = torch.tensor(1.0, device=CARD)
+    rows = {}
+    for tag, sets in (("largest", [(build_optimizer(*opt, **kw), [largest])]),
+                      ("gan_step", [(build_optimizer(*opt, **kw), g_shapes),
+                                    (discriminator_optimizer(*opt, **kw), d_shapes)])):
+        sets = [adamw_set(tx, shapes, gen) for tx, shapes in sets]
+        numel = sum(p.numel() for _, ps, _, _ in sets for p in ps)
+        row = {"tensors": sum(len(ps) for _, ps, _, _ in sets), "params": numel}
+        # correctness, from the prepared state: the plain chain on clones
+        plain_norms, same, norm_rel, repeat_same = [], True, 0.0, True
+        for tx, ps, st, gs_ in sets:
+            want_p = [p.clone() for p in ps]
+            want = dataclasses.replace(st, mu=[m.clone() for m in st.mu], nu=[v.clone() for v in st.nu])
+            add_updates(want_p, tx.apply(gs_, want, want_p), lr_scale)
+            norm = global_norm([torch.where(torch.isnan(g), 0.0, g) for g in gs_])
+            ws = aw.Workspace.of(ps)
+            own = aw.global_norm_(gs_, ws).clone()
+            again = aw.global_norm_(gs_, ws).clone()
+            got_p, got_m, got_v = [p.clone() for p in ps], [m.clone() for m in st.mu], [v.clone() for v in st.nu]
+            aw.update_(gs_, got_m, got_v, got_p, ws, tx.hyper(st, lr_scale), norm)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(got_p + got_m + got_v,
+                                                                  want_p + want.mu + want.nu))
+            norm_rel = max(norm_rel, abs(own.item() - norm.item()) / norm.item())
+            repeat_same = repeat_same and torch.equal(own, again)
+            plain_norms.append(norm.item())
+            del want_p, want, got_p, got_m, got_v
+            torch.cuda.empty_cache()
+        reset_launches()
+        for tx, ps, st, gs_ in sets:
+            tx.apply_(gs_, st, ps, lr_scale)
+        torch.cuda.synchronize()
+        counts = dict(aw.launches)
+        want_counts = adamw_updates(*((tx, ps) for tx, ps, _, _ in sets))
+        row.update(m_v_p_bit_for_bit=same, norm_rel=norm_rel, norm_bar=ADAMW_NORM_REL, norm_repeat_same=repeat_same,
+                   plain_norms=plain_norms, launches=counts, want_launches=want_counts)
+        emit({"phase": "adamw", "set": tag, **row})
+        if not same or not norm_rel <= ADAMW_NORM_REL or not repeat_same or counts != want_counts:
+            raise AssertionError(f"adamw ({tag}): {row}")
+
+        def fused():
+            for tx, ps, st, gs_ in sets:
+                tx.apply_(gs_, st, ps, lr_scale)
+
+        def norm_pass():
+            for _, ps, st, gs_ in sets:
+                aw.global_norm_(gs_, st.workspace)
+
+        def update_pass():
+            for tx, ps, st, gs_ in sets:
+                aw.update_(gs_, st.mu, st.nu, ps, st.workspace, tx.hyper(st, lr_scale), st.workspace.norm)
+
+        def plain():
+            for tx, ps, st, gs_ in sets:
+                add_updates(ps, tx.apply(gs_, st, ps), lr_scale)
+
+        row.update({f"{name}_ms": cuda_ms(fn, reps=ADAMW_REPS)
+                    for name, fn in (("fused", fused), ("norm", norm_pass), ("update", update_pass), ("plain", plain))})
+        row.update(bound_ms=aw.least_bytes(numel, True) / H100_BYTES_PER_S * 1e3,
+                   update_bound_ms=aw.least_bytes(numel, False) / H100_BYTES_PER_S * 1e3,
+                   norm_bound_ms=4 * numel / H100_BYTES_PER_S * 1e3)
+        row["fused_roofline_pct"] = 100 * row["bound_ms"] / row["fused_ms"]
+        emit({"phase": "adamw", "set": tag, "shape": list(largest) if tag == "largest" else None,
+              **{k: v for k, v in row.items() if k.endswith(("_ms", "_pct"))}})
+        rows[tag] = row
+        del sets
+        torch.cuda.empty_cache()
+    ptxas = _build.ptxas_stats("adamw")
+    emit({"phase": "adamw", "ptxas": ptxas})
+    return {**rows, "ptxas": ptxas}
 
 
 def phase_attn_kernel() -> dict:
@@ -2029,7 +2203,7 @@ def phase_base128_train(cfg, state_dict) -> dict:
     step = build_train_step(model, dict(cfg["training"]["loss"]), tx, augment=True, max_channels=1)
     batch = base128_batch(cfg, CARD, BASE128_BATCH)
     gen = torch.Generator(device=CARD).manual_seed(0)
-    want = want_launches(attention_fwd=BASE128_SITES, attention_bwd=BASE128_SITES)
+    want = want_launches(attention_fwd=BASE128_SITES, attention_bwd=BASE128_SITES, **adamw_per_step(step, state))
     state, times, totals = run_steps("base128_train", step, state, batch, gen, WARMUP_STEPS, TIMED_STEPS,
                                      want)
     median = statistics.median(times)
@@ -2042,7 +2216,7 @@ def phase_base128_train(cfg, state_dict) -> dict:
           **device_breakdown(lambda: step(state, batch, gen), median)})
     del model, state, step, batch
     torch.cuda.empty_cache()
-    return {k: totals[k] for k in at.launches}
+    return {k: totals[k] for k in (*at.launches, *aw.launches)}
 
 
 def phase_base128_parity(cfg, state_dict) -> None:
@@ -2126,7 +2300,7 @@ def train_cli(work: str, epochs: int, *extra) -> tuple:
     with contextlib.redirect_stdout(out):
         rc = cli_train.main(args)
     seconds = time.perf_counter() - t0
-    counts = {k: launches()[k] for k in at.launches}
+    counts = {k: launches()[k] for k in (*at.launches, *aw.launches)}
     if rc != 0:
         raise AssertionError(f"cli.train returned {rc}")
     with open(os.path.join(work, "logs", "chest_base_vae", "metrics.jsonl")) as f:
@@ -2170,14 +2344,15 @@ def phase_trainer128() -> dict:
         shutil.rmtree(d, ignore_errors=True)
     # the synthetic 128² split is cached on disk: the runs share it
     data = f"data_dir={os.path.join(WORK, 'data')}"
-    totals = dict.fromkeys(at.launches, 0)
+    totals = dict.fromkeys((*at.launches, *aw.launches), 0)
     eval_batches = 2 * (256 // BASE128_BATCH)  # one validation and the test, 4 batches each
+    adamw_step = adamw_of_config(compose(cli_train.default_config_dir(), "config", BASE128_OVERRIDES))
 
     def check(tag, text, rows, seconds, counts, epochs_run, media_epochs):
         steps = epochs_run * TRAINER_BATCHES
         media = media_epochs * (BASE128_SITES + BASE128_PER_CHUNK["decode"])
         want = {"attention_fwd": BASE128_SITES * (steps + epochs_run * eval_batches // 2 + eval_batches // 2)
-                + media, "attention_bwd": BASE128_SITES * steps}
+                + media, "attention_bwd": BASE128_SITES * steps, **scaled(adamw_step, steps)}
         val = [{k: r[k] for k in ("step", "val/loss", "val/psnr", "val/ssim", "val/kl_total",
                                   "epoch_time_sec")} for r in rows if "val/loss" in r]
         speed = [{"step": r["step"], "train/loss": r["train/loss"],
@@ -2235,7 +2410,7 @@ def phase_trainer128() -> dict:
             and serve_counts == {"attention_fwd": BASE128_SITES, "attention_bwd": 0}
             and media == want_media(res)):
         raise AssertionError(f"trainer128: {row}")
-    for k in totals:
+    for k in serve_counts:
         totals[k] += serve_counts[k]
     return totals
 
@@ -2334,7 +2509,7 @@ def _gan224_run(cfg, batch_size: int, why) -> dict:
     batch = bench.synthetic_batch(batch_size, int(model.resolution), CARD)
     gen = torch.Generator(device=CARD).manual_seed(0)
     sites = gn_swish_sites(model)
-    want = want_launches(gn_swish_fwd=sites, gn_swish_bwd=sites)
+    want = want_launches(gn_swish_fwd=sites, gn_swish_bwd=sites, **adamw_per_step(step, state))
     history = []
     state, times, totals = run_steps("gan224_train", step, state, batch, gen, WARMUP_STEPS, GAN224_TIMED,
                                      want, history)
@@ -2445,7 +2620,7 @@ def gan_cli(work: str, epochs: int, *extra) -> tuple:
     with fused_gn(True), contextlib.redirect_stdout(out):
         rc = cli_train.main(args)
     seconds = time.perf_counter() - t0
-    counts = {k: launches()[k] for k in gs.launches}
+    counts = {k: launches()[k] for k in (*gs.launches, *aw.launches)}
     if rc != 0:
         raise AssertionError(f"cli.train (GAN) returned {rc}")
     with open(os.path.join(work, "logs", "multi_modal_cvae_gan_quick", "metrics.jsonl")) as f:
@@ -2488,14 +2663,15 @@ def phase_gan_trainer() -> dict:
     split, whole = os.path.join(WORK, "gan_split"), os.path.join(WORK, "gan_whole")
     for d in (split, whole):
         shutil.rmtree(d, ignore_errors=True)
-    totals = dict.fromkeys(gs.launches, 0)
+    totals = dict.fromkeys((*gs.launches, *aw.launches), 0)
+    adamw_step = adamw_of_config(cfg)  # G's update and D's
 
     def check(tag, text, rows, seconds, counts, epochs_run, media_epochs):
         steps = epochs_run * GAN_TRAINER_BATCHES
         evals = epochs_run * val_batches + test_batches
         # epoch 0's media: a validation batch reconstructed, 16 prior samples decoded
         want = {"gn_swish_fwd": (steps + media_epochs) * (sites + dec_sites) + evals * sites,
-                "gn_swish_bwd": steps * sites}
+                "gn_swish_bwd": steps * sites, **scaled(adamw_step, steps)}
         train = [{k: r[k] for k in ("step", "train/total_loss", "train/d_weight", "train/d_loss",
                                     "train/images_per_sec")} for r in rows if "train/d_weight" in r]
         val = [{k: r[k] for k in ("step", "val/loss", "val/psnr", "val/d_loss", "epoch_time_sec")}
@@ -2559,7 +2735,7 @@ def phase_gan_trainer() -> dict:
     if not (ok and np.isfinite(rec).all() and rec.shape == (8, res, res, c)
             and serve_counts == {"gn_swish_fwd": sites, "gn_swish_bwd": 0} and media == want_media(res)):
         raise AssertionError(f"gan_trainer: {row}")
-    for k in totals:
+    for k in serve_counts:
         totals[k] += serve_counts[k]
     return totals
 
@@ -3225,7 +3401,8 @@ def phase_fast28() -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = launches()
-            want = want_launches(gn_swish_fwd=sites * steps, gn_swish_bwd=sites * steps)
+            want = want_launches(gn_swish_fwd=sites * steps, gn_swish_bwd=sites * steps,
+                                 **scaled(adamw_per_step(t.train_step, t.state), steps))
             if counts != want or t.state.step != steps:
                 raise AssertionError(f"fast28 ({tag}): {t.state.step} steps, launches {counts}, want {want}")
             row = {"phase": "fast28", "run": tag, "options": extra, "steps": steps, "batch": t.datamodule.batch_size,
@@ -3304,7 +3481,7 @@ def phase_fast28() -> dict:
     if same or not same_val:
         raise AssertionError(f"fast28: fused (cpre) differs from per-step (b): {same[:5]}, validation {same_val}")
     shutil.rmtree(work, ignore_errors=True)
-    return out["c"]["window_traced_launches"]
+    return {**out["c"]["window_traced_launches"], **{k: out["c"]["launches"][k] for k in aw.launches}}
 
 
 FAST128 = [*["experiment=chest_base_vae", "model.resolution=128", "data.size=128"],
@@ -3413,7 +3590,8 @@ def phase_fast128() -> dict:
     torch.cuda.synchronize()
     fused_counts, fused_end = launches(), state_snapshot(t.state)
     differ = [k for k in loop_end if not torch.equal(loop_end[k], fused_end[k])]
-    want = want_launches(attention_fwd=BASE128_SITES * FAST128_CHUNK, attention_bwd=BASE128_SITES * FAST128_CHUNK)
+    want = want_launches(attention_fwd=BASE128_SITES * FAST128_CHUNK, attention_bwd=BASE128_SITES * FAST128_CHUNK,
+                         **scaled(adamw_per_step(t.train_step, t.state), FAST128_CHUNK))
     row = {"phase": "fast128", "chunk": FAST128_CHUNK, "fused_equals_per_step_bitwise": not differ,
            "differing": differ[:5], "launches_per_step_calls": loop_counts, "launches_fused": fused_counts}
     if differ or fused_counts != want or loop_counts != want:
@@ -3457,7 +3635,7 @@ def phase_fast128() -> dict:
     gc.collect()
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return timing["fused"]["traced_launches"]
+    return {**timing["fused"]["traced_launches"], **{k: fused_counts[k] for k in aw.launches}}
 
 
 # ------------------------------------------------ slice 14: run surface ---- #
@@ -3494,6 +3672,11 @@ def quick_sites() -> dict:
             "per_call": {name: gn_kernels_per_call(name, shapes) for name in ("gn_swish_fwd", "gn_swish_bwd")}}
 
 
+def quick_adamw() -> dict:
+    """`adamw_of_config` of the quick CVAE: a train step's fused AdamW launches."""
+    return adamw_of_config(compose(cli_train.default_config_dir(), "config", [QUICK28[0]]))
+
+
 def quick_eval_batches(split: str) -> int:
     """Batches (bs 16) of the quick experiment's `split`, its whole split."""
     cfg = compose(cli_train.default_config_dir(), "config", [QUICK28[0], quick_data()])
@@ -3528,7 +3711,7 @@ def phase_sweep() -> dict:
     def counted(overrides):
         out = run_one(overrides)
         torch.cuda.synchronize()
-        per_job.append({k: launches()[k] for k in gs.launches})
+        per_job.append({k: launches()[k] for k in (*gs.launches, *aw.launches)})
         return out
 
     t0 = time.perf_counter()
@@ -3542,7 +3725,8 @@ def phase_sweep() -> dict:
         summary = json.load(f)
     sites = quick_sites()["model"]
     evals = quick_eval_batches("val") + quick_eval_batches("test")
-    want = {"gn_swish_fwd": sites * (SWEEP_BATCHES + evals), "gn_swish_bwd": sites * SWEEP_BATCHES}
+    want = {"gn_swish_fwd": sites * (SWEEP_BATCHES + evals), "gn_swish_bwd": sites * SWEEP_BATCHES,
+            **scaled(quick_adamw(), SWEEP_BATCHES)}
     drop = "epoch_time_sec"
     same_val = ({k: v for k, v in summary[0]["val"].items() if k != drop}
                 == {k: v for k, v in summary[2]["val"].items() if k != drop}) and summary[0]["test"] == summary[2]["test"]
@@ -3560,7 +3744,7 @@ def phase_sweep() -> dict:
             or any(c != want for c in per_job) or not same_val or diff):
         raise AssertionError(f"sweep: {row}")
     shutil.rmtree(work, ignore_errors=True)
-    return {k: sum(c[k] for c in per_job) for k in gs.launches}
+    return {k: sum(c[k] for c in per_job) for k in per_job[0]}
 
 
 # a training child of the supervised run: the train CLI, then (on a normal
@@ -3568,11 +3752,12 @@ def phase_sweep() -> dict:
 RESILIENT_CHILD = """
 import json, sys
 from medvae_tpu_torch.cli import train
-from medvae_tpu_torch.ops import attention, flash_attention, groupnorm_swish
+from medvae_tpu_torch.ops import adamw, attention, flash_attention, groupnorm_swish
 code = train.main(sys.argv[2:])
 if code == 0:
     with open(sys.argv[1], "w") as f:
-        json.dump({**flash_attention.launches, **groupnorm_swish.launches, **attention.launches}, f)
+        json.dump({**flash_attention.launches, **groupnorm_swish.launches, **attention.launches,
+                   **adamw.launches}, f)
 raise SystemExit(code)
 """
 
@@ -3626,18 +3811,19 @@ def phase_resilient() -> dict:
     with fused_gn(True), contextlib.redirect_stdout(io.StringIO()):
         rc = cli_train.main([*common, f"work_dir={ref}"])
     ref_seconds = time.perf_counter() - t1
-    counts = {k: launches()[k] for k in gs.launches}
+    counts = {k: launches()[k] for k in (*gs.launches, *aw.launches)}
     with open(log_path) as f:
         resumed_line = [line.strip() for line in f if line.startswith("Resuming at optimizer step")]
     diff = differing(final_snapshot(os.path.join(work, "logs", "checkpoints")),
                      final_snapshot(os.path.join(ref, "logs", "checkpoints")))
-    sites = quick_sites()["model"]
+    sites, adamw_step = quick_sites()["model"], quick_adamw()
     steps, tests = 2 * RESILIENT_BATCHES, quick_eval_batches("test")
-    want = {"gn_swish_fwd": sites * (steps + tests), "gn_swish_bwd": sites * steps}
+    want = {"gn_swish_fwd": sites * (steps + tests), "gn_swish_bwd": sites * steps, **scaled(adamw_step, steps)}
     found = re.match(r"Resuming at optimizer step (\d+)", resumed_line[0]) if resumed_line else None
     resumed_at = int(found.group(1)) if found else None
     left = steps - resumed_at if resumed_at is not None else None
-    want_child = (want_launches(gn_swish_fwd=sites * (left + tests), gn_swish_bwd=sites * left)
+    want_child = (want_launches(gn_swish_fwd=sites * (left + tests), gn_swish_bwd=sites * left,
+                                **scaled(adamw_step, left))
                   if left is not None else None)
     row = {"phase": "resilient", "exit_code": code, "launches_of_the_cli": len(launched),
            "restarts": len(launched) - 1, "killed_after_s": killed_at, "resume_appended": launched[-1][-1],
@@ -3651,7 +3837,7 @@ def phase_resilient() -> dict:
         raise AssertionError(f"resilient: {row}")
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(ref, ignore_errors=True)
-    return {"resilient": {k: child[-1][k] for k in gs.launches}, "resilient_reference": counts}
+    return {"resilient": {k: child[-1][k] for k in counts}, "resilient_reference": counts}
 
 
 @contextlib.contextmanager
@@ -3673,11 +3859,15 @@ def phase_bench_modes() -> dict:
     and BENCH_CACHE=0) with MEDVAE_FUSED_GN=1 and BENCH_SECONDS=2: their
     JSON lines, and B6/B7 launches as derived (generate: the decoder's sites
     x calls, the warm-up's included; pipeline: sites x steps, the warm-up
-    epoch's and the flop count's included)."""
-    sites = gn_swish_sites(build_model(CVAE_BENCH, "bf16", "meta", train=True))
+    epoch's included; the fused AdamW launches of a step x steps)."""
+    model_cfg, _, opt_cfg, _, _ = bench.bench_config("cvae", "quick", True)
+    meta_model = build_model(model_cfg, "bf16", "meta", train=True)
+    sites = gn_swish_sites(meta_model)
+    adamw_step = adamw_updates((build_optimizer(opt_cfg, {"type": "constant"}, gradient_clip_val=1.0),
+                                [p for p in meta_model.parameters() if p.requires_grad]))
     dec_sites = gn_swish_sites(build_model(bench.GENERATE_MODEL, "bf16", "meta").decoder)
     epoch_steps = 8
-    out, totals = {}, dict.fromkeys(gs.launches, 0)
+    out, totals = {}, dict.fromkeys((*gs.launches, *aw.launches), 0)
     with fused_gn(True), bench_env(BENCH_SECONDS=2, BENCH_EPOCH_STEPS=epoch_steps):
         for tag, mode, cache in (("generate", bench.generation_bench, None),
                                  ("pipeline_cached", bench.pipeline_bench, "1"),
@@ -3692,8 +3882,8 @@ def phase_bench_modes() -> dict:
             if tag == "generate":
                 want = want_launches(gn_swish_fwd=dec_sites * (r["calls"] + 1))
             else:
-                n = epoch_steps + 1 + r["steps"]  # warm-up epoch, the counted step, the timed ones
-                want = want_launches(gn_swish_fwd=sites * n, gn_swish_bwd=sites * n)
+                n = epoch_steps + r["steps"]  # the warm-up epoch, then the timed steps
+                want = want_launches(gn_swish_fwd=sites * n, gn_swish_bwd=sites * n, **scaled(adamw_step, n))
             emit({"phase": "bench_modes", "mode": tag, "result": r, "launches": counts, "seconds": seconds})
             if counts != want:
                 raise AssertionError(f"bench_modes {tag}: launches {counts}, want {want}")
@@ -3805,7 +3995,7 @@ def phase_towers_bf16(state_dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, times, totals = run_steps("towers_bf16", step, state, batch, gen.manual_seed(0), WARMUP_STEPS,
-                                     TOWERS_TIMED, want_launches(**PER_TRAIN_STEP))
+                                     TOWERS_TIMED, want_launches(**PER_TRAIN_STEP, **adamw_per_step(step, state)))
     peak = torch.cuda.max_memory_allocated() / 2**30
     del state, step, tx
     g = torch.Generator(device=CARD).manual_seed(13)
@@ -3913,7 +4103,7 @@ def phase_options() -> None:
                                                                 f"+training.fused_steps={tag}"])
             reset_launches()
             t.fit()
-            sgd[tag] = (state_snapshot(t.state), {k: launches()[k] for k in gs.launches})
+            sgd[tag] = (state_snapshot(t.state), {k: launches()[k] for k in (*gs.launches, *aw.launches)})
         out["sgd"] = {"fused_equals_per_step": not differing(sgd["on"][0], sgd["off"][0]),
                       "launches": {k: v[1] for k, v in sgd.items()}, "moments": len(t.state.opt_state.mu),
                       "second_moments": len(t.state.opt_state.nu)}
@@ -3927,7 +4117,9 @@ def phase_options() -> None:
     if not (n["steps"] > 0 and n["train_losses"] and np.isfinite(n["train_losses"]).all()
             and np.isfinite(n["val_loss"])):
         raise AssertionError(f"options normalize=false: {n}")
-    want = {"gn_swish_fwd": sites * OPTIONS_BATCHES, "gn_swish_bwd": sites * OPTIONS_BATCHES}
+    # SGD takes the plain chain: no fused AdamW launch
+    want = {"gn_swish_fwd": sites * OPTIONS_BATCHES, "gn_swish_bwd": sites * OPTIONS_BATCHES,
+            **dict.fromkeys(aw.launches, 0)}
     if not out["sgd"]["fused_equals_per_step"] or any(v != want for v in out["sgd"]["launches"].values()):
         raise AssertionError(f"options sgd: {out['sgd']}, want {want}")
     shutil.rmtree(work, ignore_errors=True)
@@ -3980,7 +4172,6 @@ def phase_dp_flagship(state_dict) -> dict:
     try:
         mesh = core_mesh.create_mesh(core_mesh.MeshSpec(), dist)
         batch = synthetic_batch(TRAIN_BATCH, 224, CARD)
-        want = want_launches(**PER_TRAIN_STEP)
         out, frozen = {}, None
         for kind in ("plain", "dp", "repeat"):
             model, frozen = train_model(state_dict, "bf16", CARD, frozen_from=frozen)
@@ -3991,6 +4182,7 @@ def phase_dp_flagship(state_dict) -> dict:
                                                                    max_channels=3))
             gen = torch.Generator(device=CARD).manual_seed(0)
             history: list = []
+            want = want_launches(**PER_TRAIN_STEP, **adamw_per_step(step, state))
             state, times, totals = run_steps(f"dp_flagship_{kind}", step, state, batch, gen, 1, DP_STEPS - 1,
                                              want, history)
             out[kind] = {"params": {k: v.detach().clone() for k, v in state.params.items()},
@@ -4316,12 +4508,13 @@ def phase_two_ranks() -> dict:
     sites = quick_sites()["model"]
     flag_sites = quick_flagship_sites()
     val, test = quick_eval_batches("val"), quick_eval_batches("test")
-    want_full = {"gn_swish_fwd": sites * (2 + 2 * val + test), "gn_swish_bwd": sites * 2}
-    want_resume = {"gn_swish_fwd": sites * (1 + val + test), "gn_swish_bwd": sites}
+    adamw_step = quick_adamw()  # SGD in the parity runs: none there
+    want_full = {"gn_swish_fwd": sites * (2 + 2 * val + test), "gn_swish_bwd": sites * 2, **scaled(adamw_step, 2)}
+    want_resume = {"gn_swish_fwd": sites * (1 + val + test), "gn_swish_bwd": sites, **adamw_step}
     want_parity = {name: {k: s * PARITY_STEPS for k in gs.launches}
                    for name, s in (("cvae", sites), ("flagship", flag_sites))}
-    got_full = [{k: r["launches"][k] for k in gs.launches} for r in full]
-    got_resume = [{k: r["launches"][k] for k in gs.launches} for r in resumed]
+    got_full = [{k: r["launches"][k] for k in want_full} for r in full]
+    got_resume = [{k: r["launches"][k] for k in want_resume} for r in resumed]
     # by run and precision, each rank's
     got_parity = {name: {p: [{k: r["launches"][k] for k in gs.launches} for r in rows]
                          for p, rows in run["ranks"].items()} for name, run in dp.items()}
@@ -4341,7 +4534,7 @@ def phase_two_ranks() -> dict:
             or any(c != want_full for c in got_full) or any(c != want_resume for c in got_resume)
             or any(c != want_parity[name] for name, by_p in got_parity.items() for cs in by_p.values() for c in cs)):
         raise AssertionError(f"dp2_card: {row}")
-    dp2_counts = {k: sum(c[k] for c in got_full + got_resume + parity_counts) for k in gs.launches}
+    dp2_counts = {k: sum(c.get(k, 0) for c in got_full + got_resume + parity_counts) for k in want_full}
 
     # tp2_card
     run = tp["base128"]
@@ -4381,15 +4574,34 @@ def dryrun_sites() -> dict:
     gan = gn_swish_sites(cvae)
     redecode = gn_swish_sites(cvae.decoder) if any(m.dropout for m in cvae.decoder.modules()
                                                     if isinstance(m, ResnetBlock)) else 0
-    tiny = gn_swish_sites(build_model(entry_mod.TINY_FLAGSHIP, "bf16", "meta", train=True))
+    tiny_model = build_model(entry_mod.TINY_FLAGSHIP, "bf16", "meta", train=True)
+    tiny = gn_swish_sites(tiny_model)
     per_site = flag + gan + (2 * entry_mod.CHUNK_STEPS + 1) * tiny
     return {"gn_swish_fwd": per_site + redecode, "gn_swish_bwd": per_site}
+
+
+def dryrun_adamw() -> dict:
+    """The fused AdamW launches of dryrun_multichip(1): its one optimizer
+    (adam, the clip at 1.0) updates the 28² flagship once, the GAN's
+    generator and discriminator once each, and the tiny flagship
+    2 CHUNK_STEPS + 1 times (the chunk fused and per step, the loss
+    surface)."""
+    tx = build_optimizer({"type": "adam", "lr": 1e-3}, {"type": "constant"})
+
+    def trainable(model):
+        return [p for p in model.parameters() if p.requires_grad]
+
+    tiny = (tx, trainable(build_model(entry_mod.TINY_FLAGSHIP, "bf16", "meta", train=True)))
+    disc = build_discriminator(entry_mod.GAN_DISC, "cpu", seed=1)
+    return adamw_updates((tx, trainable(build_model(entry_mod.ENTRY_MODEL, "bf16", "meta", train=True))),
+                         (tx, trainable(build_model(entry_mod.GAN_CVAE, "fp32", "meta", train=True))),
+                         (tx, list(disc.parameters())), *[tiny] * (2 * entry_mod.CHUNK_STEPS + 1))
 
 
 def phase_dryrun_card() -> dict:
     """entry.dryrun_multichip(1) and (4) on the card with the switch on
     (module docstring)."""
-    want = want_launches(**dryrun_sites())
+    want = want_launches(**dryrun_sites(), **dryrun_adamw())
     reset_launches()
     with fused_gn(True), contextlib.redirect_stdout(io.StringIO()):
         lines = dryrun_multichip(1)
@@ -4826,6 +5038,8 @@ def main() -> int:
     lap("gn_kernel")
     attn_kernel = phase_attn_kernel()
     lap("attn_kernel")
+    adamw_kernel = phase_adamw()
+    lap("adamw")
     dispatch = phase_dispatch()
     lap("dispatch")
     bf16_engine, fp32_engine, cpu_engine = build_engines()
@@ -4920,14 +5134,17 @@ def main() -> int:
               "gn_swish_fwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu",
               "gn_swish_bwd": "medvae_tpu_torch/ops/csrc/groupnorm_swish.cu",
               "attention_fwd": "medvae_tpu_torch/ops/csrc/attention.cu",
-              "attention_bwd": "medvae_tpu_torch/ops/csrc/attention.cu"}
+              "attention_bwd": "medvae_tpu_torch/ops/csrc/attention.cu",
+              **dict.fromkeys(aw.launches, "medvae_tpu_torch/ops/csrc/adamw.cu")}
     replaces = {"flash_fwd": "medvae_tpu/ops/flash_attention.py:208",
                 "flash_bwd (B2: dK, dV)": "medvae_tpu/ops/flash_attention.py:279",
                 "flash_bwd (B3: dQ)": "medvae_tpu/ops/flash_attention.py:341",
                 "gn_swish_fwd": "medvae_tpu/ops/groupnorm_swish.py:106",
                 "gn_swish_bwd": "medvae_tpu/ops/groupnorm_swish.py:154",
                 "attention_fwd": "medvae_tpu/ops/attention.py:94",
-                "attention_bwd": "medvae_tpu/ops/attention.py:129"}
+                "attention_bwd": "medvae_tpu/ops/attention.py:129",
+                # no TPU kernel: optax's chain there, which XLA fuses
+                **dict.fromkeys(aw.launches, "none (medvae_tpu/train/optim.py:100, optax's chain)")}
     fwd = {k: kernel[k] for k in ("instance", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")}
     fwd.update(launches=serve_launches + train_launches["flash_fwd"],
@@ -4996,6 +5213,31 @@ def main() -> int:
                      **{k: r[k] for k in ("instance", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "bound_fp32_products_ms", "fma_instance_ms", "library_ms",
                                           "library", "shape")}})
+    # the fused AdamW route: launches on the main path (gan224_train, the
+    # benchmark's training cell), then every path that trained with Adam or
+    # AdamW, each counted from 0 around its run; times at the GAN step's two
+    # updates (the norm pass for adamw_sumsq and adamw_norm, which it
+    # launches together) beside the whole route and the plain chain
+    adamw_paths = {"train": train_launches, "flagship_fused_train": fused_train_launches,
+                   "towers_bf16": towers_launches, "cvae28_train": cvae_launches, "fast28": fast28_launches,
+                   **attn_launches, **gan_launches, **slice14,
+                   **{path: multi[path] for path in ("dp_flagship", "dp2_card", "dryrun_card")}}
+    step_row, largest_row = adamw_kernel["gan_step"], adamw_kernel["largest"]
+    for name in aw.launches:
+        norm = name != "adamw_update"
+        ptxas = next((v for k, v in adamw_kernel["ptxas"].items() if f"{name}_kernel" in k), None)
+        rows.append({"name": name, "launches": gan_launches["gan224_train"][name],
+                     **{f"launches_{path}": c[name] for path, c in adamw_paths.items()
+                        if name in c and path != "gan224_train"},
+                     "instance": "multi-tensor (<= 64 tensors a launch, a block a 64 K-element chunk)",
+                     "ms": step_row["norm_ms" if norm else "update_ms"],
+                     "bound_ms": step_row["norm_bound_ms" if norm else "update_bound_ms"], "bound_by": "bytes",
+                     "route_ms": step_row["fused_ms"], "route_bound_ms": step_row["bound_ms"],
+                     "plain_ms": step_row["plain_ms"], "params": step_row["params"],
+                     "largest_route_ms": largest_row["fused_ms"], "largest_plain_ms": largest_row["plain_ms"],
+                     "largest_bound_ms": largest_row["bound_ms"], "ptxas": ptxas,
+                     **({"covers": "the clip's global norm, adamw_sumsq then adamw_norm, timed together"}
+                        if norm else {})})
     emit({"kernels": [{"name": r["name"], "route": "cuda", "source": source[r["name"]],
                        "replaces": replaces[r["name"]], **{k: v for k, v in r.items() if k != "name"}}
                       for r in rows]})

@@ -83,13 +83,13 @@ def fresh_process_state() -> None:
 
     from medvae_tpu_torch import native
     from medvae_tpu_torch.core.precision import configure_backends
-    from medvae_tpu_torch.ops import attention, flash_attention, groupnorm_swish
+    from medvae_tpu_torch.ops import adamw, attention, flash_attention, groupnorm_swish
 
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    for mod in (attention, flash_attention, groupnorm_swish):
+    for mod in (attention, flash_attention, groupnorm_swish, adamw):
         mod.reset_launches()
     native.calls = 0
     configure_backends()

@@ -78,6 +78,7 @@ TINY_16 = dict(hidden_channels=8, ch_mult=[1, 2], num_res_blocks=1, attn_resolut
 # fused chunk and the full loss surface
 GAN_CVAE: Dict[str, Any] = dict(TINY_16, _target_="medvae_tpu.models.ConditionalVAE", input_channels=3,
                                 latent_dim=4, condition_method="concat")
+GAN_DISC: Dict[str, Any] = {"input_nc": 3, "ndf": 8, "n_layers": 2}
 TINY_FLAGSHIP: Dict[str, Any] = dict(TINY_16, _target_="medvae_tpu.models.DisentangledConditionalVAE",
                                      num_modalities=5, shared_latent_dim=4, modality_latent_dim=4, dropout=0.0)
 CHUNK_STEPS = 3  # the fused chunk's steps, run fused and then per step
@@ -159,7 +160,7 @@ def _dryrun_rank(rank: int, n: int) -> List[str]:
 
     # the GAN step: dual optimizers, sync-BN discriminator, global d_weight
     cvae = init_weights(build_model(GAN_CVAE, "fp32", device, train=True), seed=0)
-    disc = build_discriminator({"input_nc": 3, "ndf": 8, "n_layers": 2}, device, seed=1)
+    disc = build_discriminator(GAN_DISC, device, seed=1)
     gan_state = create_train_state(cvae, tx, make_frozen(GAN_LOSS, device, seed=0), disc=disc, disc_tx=tx)
     gan_step = sms.build_shard_map_gan_step(cvae, GAN_LOSS, tx, mesh, disc, tx, max_channels=3)
     gan_batch = _host_batch(b, 16, 1, False)

@@ -50,9 +50,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from medvae_tpu_torch.ops import attention, flash_attention, groupnorm_swish
+from medvae_tpu_torch.ops import adamw, attention, flash_attention, groupnorm_swish
 
-_COUNTED = (attention, flash_attention, groupnorm_swish)
+_COUNTED = (attention, flash_attention, groupnorm_swish, adamw)
 
 
 def _launch_counts() -> Dict[Tuple[int, str], int]:

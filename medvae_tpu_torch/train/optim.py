@@ -26,8 +26,18 @@ An update reads nothing from the host while it runs, so a CUDA graph can
 capture it (train/multistep.py): `prepare` computes the step's learning rate
 and bias corrections on the host (float32, as before) and fills them into
 0-d tensors on the params' device (`OptState.scalars`); `apply` is the
-device arithmetic over them. `update` is the two in turn, and the captured
-path runs the same `apply`.
+device arithmetic over them. `update` is the two in turn.
+
+`apply_` is the train step's entry: it advances params, moments and all in
+place, the update scaled by the step's `lr_scale`. On the card, Adam and
+AdamW with the plain global norm take the fused kernels of ops/adamw.py
+(the clip's norm in one reduction pass, then one pass that reads g, m, v, p
+and writes m, v, p), whose m, v and p equal this module's chain bit for bit
+given the same norm; everything else (SGD, the CPU, tensor parallelism's
+norm, bf16 tensors, strided params or moments) runs the plain chain, `apply` and then
+`add_updates`. While core/tracing.py records, each call counts
+`optim.fused` or `optim.plain` by its route, and `optim.least_bytes` the
+least bytes its update moves (`least_bytes`), on either route.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from medvae_tpu_torch.core import tracing
+from medvae_tpu_torch.ops import adamw
 
 Schedule = Callable[[int], float]
 
@@ -89,6 +102,9 @@ class OptState:
     # the next update's −lr and bias corrections: 0-d fp32 on the params'
     # device, filled by Optimizer.prepare
     scalars: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # the fused route's scratch (ops/adamw.py:Workspace), made by apply_ at
+    # its first fused update
+    workspace: Optional[adamw.Workspace] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +168,44 @@ class Optimizer:
             updates.append(u * s["neg_lr"])
         return updates
 
+    def least_bytes(self, params: Sequence[torch.Tensor]) -> int:
+        """The least bytes an update of `params` moves: Adam's and AdamW's
+        `adamw.least_bytes`; SGD reads g, t and p and writes t and p (20 B an
+        element); the clip reads g once more (4 B)."""
+        numel = sum(p.numel() for p in params)
+        if self.kind == "sgd":
+            return numel * (24 if self.clip else 20)
+        return adamw.least_bytes(numel, bool(self.clip))
+
+    @torch.no_grad()
+    def apply_(
+        self, grads: Sequence[torch.Tensor], state: OptState, params: Sequence[torch.Tensor],
+        lr_scale: torch.Tensor, add: Optional[Callable] = None,
+    ) -> None:
+        """Advance `params` and the moments in place by the update for
+        `grads` from the prepared scalars, scaled by `lr_scale` (a 0-d fp32
+        tensor on the params' device); device work only (capturable). The
+        route is the fused kernels' where `adamw.fused_route` takes the call,
+        else `apply` and then `add(params, updates, lr_scale)` (by default
+        `add_updates`; the train step passes its own)."""
+        fused = adamw.fused_route(self.kind, self.norm is global_norm, grads, state.mu, state.nu, params)
+        if tracing.active():
+            tracing.count("optim.fused" if fused else "optim.plain")
+            tracing.count("optim.least_bytes", self.least_bytes(params))
+        if not fused:
+            (add or add_updates)(params, self.apply(grads, state, params), lr_scale)
+            return
+        if state.workspace is None or not state.workspace.fits(params):
+            state.workspace = adamw.Workspace.of(params)
+        adamw.adam_(grads, state.mu, state.nu, params, state.workspace, self.hyper(state, lr_scale))
+
+    def hyper(self, state: OptState, lr_scale: torch.Tensor) -> adamw.Hyper:
+        """The fused kernels' constants and device scalars for the prepared
+        update of `state`."""
+        s = state.scalars
+        return adamw.Hyper(self.b1, self.b2, self.eps, self.weight_decay, self.kind == "adamw",
+                           s["neg_lr"], s["bc1"], s["bc2"], lr_scale, self.clip)
+
     def update(
         self, grads: Sequence[torch.Tensor], state: OptState, params: Sequence[torch.Tensor]
     ) -> Tuple[List[torch.Tensor], OptState]:
@@ -161,6 +215,13 @@ class Optimizer:
         updates = self.apply(grads, state, params)
         state.count += 1
         return updates, state
+
+
+def add_updates(params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor], lr_scale: torch.Tensor) -> None:
+    """p += u · lr_scale, param by param: the plain chain's last step."""
+    with torch.no_grad():
+        for p, u in zip(params, updates):
+            p.add_(u * lr_scale)
 
 
 def build_optimizer(

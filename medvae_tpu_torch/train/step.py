@@ -34,7 +34,8 @@ detached z without dropout, as JAX does. (4) The generator's gradients,
 taken with respect to its own params only, so none land on D. (5) D in
 train mode on x, then on the detached x̂, its BatchNorm statistics updated
 after each call, and the hinge loss × d_valid's gradients. (6) Both updates,
-each with its own optimizer and clip and both scaled by `lr_scale`; the EMA
+each with its own optimizer and clip and both scaled by `lr_scale`
+(`Optimizer.apply_`: the fused AdamW kernels on the card); the EMA
 follows the generator. Before `discriminator_iter_start` every adversarial
 term is multiplied by 0, so D still runs and moves its statistics, and adamw
 still decays its params, as in the JAX package. Metrics are the loss's log
@@ -81,7 +82,7 @@ from medvae_tpu_torch.losses.perceptual import BiomedCLIPLoss, LPIPSLoss
 from medvae_tpu_torch.models import ConditionalVAE, DisentangledConditionalVAE
 from medvae_tpu_torch.nn.blocks import ResnetBlock
 from medvae_tpu_torch.train.metrics import kl_metrics, latent_metrics, psnr, reconstruction_metrics
-from medvae_tpu_torch.train.optim import Optimizer
+from medvae_tpu_torch.train.optim import Optimizer, add_updates
 from medvae_tpu_torch.train.state import TrainState
 
 def _tower_dtype(loss_cfg: Dict[str, Any]) -> torch.dtype:
@@ -404,10 +405,9 @@ def _alloc_retries(state: TrainState) -> Optional[int]:
     return int(torch.cuda.memory_stats(device).get("num_alloc_retries", 0))
 
 
-def _apply(params, updates, lr_scale: torch.Tensor) -> None:
-    with torch.no_grad():
-        for p, u in zip(params, updates):
-            p.add_(u * lr_scale)
+# the plain route's p += u · lr_scale, which TrainStep hands to
+# Optimizer.apply_ by this name at every step
+_apply = add_updates
 
 
 def _ema(state: TrainState, ema_decay: float) -> None:
@@ -541,10 +541,8 @@ class TrainStep:
         if self.nan_checks:
             self._raise_on_nan(state, grads, logs)
         lr_scale = self._scalars["lr_scale"]
-        updates = [tx.apply(g, opt_state, params)
-                   for (tx, params, opt_state), g in zip(self._optimizers(state), grads)]
-        for (_, params, _), u in zip(self._optimizers(state), updates):
-            _apply(params, u, lr_scale)
+        for (tx, params, opt_state), g in zip(self._optimizers(state), grads):
+            tx.apply_(g, opt_state, params, lr_scale, add=_apply)
         _ema(state, self.ema_decay)
         return logs
 

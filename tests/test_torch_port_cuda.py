@@ -1274,3 +1274,259 @@ def test_flash_at_16384_tokens_matches_per_image_fp32_attention(gen):
         del logits
         err = (got[i].double() - want.double()).abs().max().item()
         assert torch.isfinite(got[i]).all() and err <= tol_abs and _rel(got[i], want) <= tol_rel, (i, err)
+
+
+# ------------------------------------------- the fused AdamW route (ops/adamw.py) ---- #
+
+# the 224² GAN's generator (portbench/configs/gan224.json): 250 params, 906.3 M
+GAN_G = {"_target_": "ConditionalVAE", "input_channels": 3, "latent_dim": 256, "hidden_channels": 256,
+         "ch_mult": [1, 2, 4, 8], "num_res_blocks": 2, "attn_resolutions": [16], "dropout": 0.0,
+         "resolution": 224, "condition_method": "concat", "double_z": True,
+         "modalities": ["m%d" % i for i in range(12)]}
+# odd lengths, single elements, chunk edges and more tensors than a launch takes
+ADAMW_SMALL = [(1,), (3,), (5, 7), (4099,), (65536,), (65537,), (2, 3, 3, 3), (131075,)] + [(33,)] * 70
+
+
+def _adamw_shapes(which):
+    if which == "small":
+        return ADAMW_SMALL
+    from medvae_tpu_torch.config.models import build_model
+
+    model = build_model(GAN_G, "bf16", "meta", train=True)
+    return [tuple(p.shape) for p in model.parameters() if p.requires_grad]
+
+
+def _adamw_case(gen, shapes, kind, clip, engaged=True, lr=1e-4, unaligned=False):
+    """(tx, params, state, grads, lr_scale): moments and params random, the
+    state prepared for its sixth update; grads scaled so that the clip is
+    engaged or not. `unaligned` puts every tensor 4 bytes past an
+    allocation."""
+    from medvae_tpu_torch.train import optim
+
+    tx = optim.build_optimizer({"type": kind, "lr": lr, "weight_decay": 1e-5, "betas": (0.5, 0.999)},
+                               {"type": "cosine", "T_max": 150, "eta_min": 1e-7}, steps_per_epoch=85,
+                               gradient_clip_val=clip)
+
+    def make(shape, scale, positive=False):
+        n = int(np.prod(shape))
+        t = torch.randn(n + int(unaligned), generator=gen, device="cuda")
+        t = (t.abs() if positive else t) * scale
+        return t[int(unaligned):].view(shape)
+
+    params = [make(s, 0.05) for s in shapes]
+    state = tx.init(params)
+    state.mu = [make(s, 0.01) for s in shapes]
+    state.nu = [make(s, 1e-4, positive=True) for s in shapes]
+    state.count = 5
+    tx.prepare(state)
+    numel = sum(int(np.prod(s)) for s in shapes)
+    scale = 1.0 if engaged else 0.5 / float(np.sqrt(numel))
+    grads = [make(s, scale) for s in shapes]
+    return tx, params, state, grads, torch.tensor(0.75, device="cuda")
+
+
+def _plain_adamw(tx, params, state, grads, lr_scale):
+    """The plain chain on clones: (params, mu, nu, its norm)."""
+    from medvae_tpu_torch.train import optim
+
+    ps, st = [p.clone() for p in params], dataclasses.replace(state, mu=[m.clone() for m in state.mu],
+                                                              nu=[v.clone() for v in state.nu])
+    optim.add_updates(ps, tx.apply(grads, st, ps), lr_scale)
+    norm = optim.global_norm([torch.where(torch.isnan(g), 0.0, g) for g in grads])
+    return ps, st.mu, st.nu, norm
+
+
+def _fused_adamw(tx, params, state, grads, lr_scale, norm=None):
+    """The kernels on clones, clipped by `norm` (the kernels' own by
+    default): (params, mu, nu, the norm used)."""
+    from medvae_tpu_torch.ops import adamw
+
+    ps, mu, nu = [p.clone() for p in params], [m.clone() for m in state.mu], [v.clone() for v in state.nu]
+    ws = adamw.Workspace.of(ps)
+    if tx.clip and norm is None:
+        norm = adamw.global_norm_(grads, ws).clone()
+    adamw.update_(grads, mu, nu, ps, ws, tx.hyper(state, lr_scale), norm if tx.clip else None)
+    return ps, mu, nu, norm
+
+
+def _same_bits(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{what}[{i}]: {m}")
+
+
+@pytest.mark.parametrize("case, want", [
+    ("adam", True), ("adamw", True), ("strided grad", True), ("sgd", False), ("swapped norm", False),
+    ("strided param", False), ("bf16 grad", False), ("grad of another shape", False), ("a grad missing", False),
+    ("a grad on the cpu", False),
+])
+def test_adamw_route_gate(gen, case, want):
+    """Adam and AdamW with the plain norm over fp32 card tensors of one shape
+    take the kernels, a strided gradient too (copied); SGD, tensor
+    parallelism's norm, a strided param, a bf16 gradient, a shape that
+    differs, a missing gradient or one on another device take the plain
+    chain."""
+    from medvae_tpu_torch.ops import adamw
+    from medvae_tpu_torch.train import optim
+
+    kind = case if case in ("adam", "sgd") else "adamw"
+    tx, params, state, grads, _ = _adamw_case(gen, ADAMW_SMALL[:4], kind, 1.0)
+    nu = state.nu or [torch.zeros_like(p) for p in params]
+    if case == "swapped norm":
+        tx = dataclasses.replace(tx, norm=lambda ts: optim.global_norm(ts) * 1.0)
+    if case == "strided grad":
+        grads[2] = torch.randn(7, 5, generator=gen, device="cuda").t()
+    if case == "strided param":
+        params[2] = torch.randn(7, 5, generator=gen, device="cuda").t()
+    if case == "bf16 grad":
+        grads[1] = grads[1].bfloat16()
+    if case == "grad of another shape":
+        grads[2] = grads[2].reshape(7, 5)
+    if case == "a grad missing":
+        grads = grads[:-1]
+    if case == "a grad on the cpu":
+        grads[0] = grads[0].cpu()
+    assert adamw.fused_route(tx.kind, tx.norm is optim.global_norm, grads, state.mu, nu, params) is want
+
+
+@pytest.mark.parametrize("which", ["gan_g", "small"])
+@pytest.mark.parametrize("kind, clip, engaged",[("adamw", 1.0, True), ("adamw", 1.0, False), ("adam", 1.0, True),
+                                                 ("adam", None, True)])
+def test_adamw_update_equals_the_plain_chain_bit_for_bit(gen, which, kind, clip, engaged):
+    """Given the plain chain's norm, the update kernels leave m, v and p bit
+    for bit where optim.Optimizer.apply and the step's add leave them, at
+    the GAN generator's 250 shapes and at odd, single-element and
+    chunk-edge sizes over two launches; the kernels' own norm is within
+    2e-6 of the plain `global_norm`."""
+    tx, params, state, grads, lr_scale = _adamw_case(gen, _adamw_shapes(which), kind, clip, engaged)
+    want_p, want_m, want_v, norm = _plain_adamw(tx, params, state, grads, lr_scale)
+    got_p, got_m, got_v, _ = _fused_adamw(tx, params, state, grads, lr_scale, norm)
+    torch.cuda.synchronize()
+    _same_bits(got_m, want_m, "m")
+    _same_bits(got_v, want_v, "v")
+    _same_bits(got_p, want_p, "p")
+    assert any(not torch.equal(a, b) for a, b in zip(got_p, params))
+    if clip:
+        from medvae_tpu_torch.ops import adamw
+
+        own = adamw.global_norm_(grads, adamw.Workspace.of(params)).item()
+        assert abs(own - norm.item()) <= 2e-6 * norm.item(), (own, norm.item())
+        assert (norm.item() >= clip) is engaged
+
+
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+def test_adamw_strided_grads_as_the_plain_chain(gen, kind):
+    """Channels-last conv weight gradients (as the flagship's encoders give)
+    take the route through `Optimizer.apply_`, copied to contiguous memory:
+    with the clip not engaged, where the norm's rounding cannot show, m, v
+    and p equal the plain chain's bit for bit."""
+    from medvae_tpu_torch.core import tracing
+    from medvae_tpu_torch.ops import adamw
+
+    shapes = [(32, 3, 3, 3), (64, 32, 3, 3), (7,), (256, 128, 3, 3)]
+    tx, params, state, grads, lr_scale = _adamw_case(gen, shapes, kind, 1.0, engaged=False)
+    grads = [g.contiguous(memory_format=torch.channels_last) if g.dim() == 4 else g for g in grads]
+    assert not grads[1].is_contiguous()
+    want_p, want_m, want_v, norm = _plain_adamw(tx, params, state, grads, lr_scale)
+    assert norm.item() < 1.0
+    adamw.reset_launches()
+    tracing.enable(True)
+    try:
+        tx.apply_(grads, state, params, lr_scale)
+        counted = tracing.counters()
+    finally:
+        tracing.enable(None)
+        tracing.reset()
+    torch.cuda.synchronize()
+    assert counted["optim.fused"] == 1 and adamw.launches["adamw_update"] == 1
+    _same_bits(state.mu, want_m, "m")
+    _same_bits(state.nu, want_v, "v")
+    _same_bits(params, want_p, "p")
+
+
+@pytest.mark.parametrize("case", ["nan", "+inf", "-inf"])
+def test_adamw_nan_and_inf_as_the_plain_chain(gen, case):
+    """A NaN gradient element counts as 0 in the norm and the update; ±inf
+    stays (the norm is inf, the clip sends finite elements to 0 and the
+    infinite ones to NaN), as in the plain chain; the misaligned tensors
+    take the element path."""
+    from medvae_tpu_torch.ops import adamw
+
+    tx, params, state, grads, lr_scale = _adamw_case(gen, ADAMW_SMALL, "adamw", 1.0, unaligned=True)
+    value = {"nan": float("nan"), "+inf": float("inf"), "-inf": float("-inf")}[case]
+    grads[2].view(-1)[7] = value
+    grads[5].view(-1)[-1] = value
+    want_p, want_m, want_v, norm = _plain_adamw(tx, params, state, grads, lr_scale)
+    own = adamw.global_norm_(grads, adamw.Workspace.of(params)).item()
+    if case == "nan":
+        assert abs(own - norm.item()) <= 2e-6 * norm.item()
+    else:
+        assert own == norm.item() == float("inf")
+    got_p, got_m, got_v, _ = _fused_adamw(tx, params, state, grads, lr_scale, norm)
+    _same_bits(got_m, want_m, "m")
+    _same_bits(got_v, want_v, "v")
+    _same_bits(got_p, want_p, "p")
+
+
+def test_adamw_runs_twice_to_the_same_bits(gen):
+    """The norm (no atomics) and the update, twice, at the generator's shapes."""
+    tx, params, state, grads, lr_scale = _adamw_case(gen, _adamw_shapes("gan_g"), "adamw", 1.0)
+    first, second = (_fused_adamw(tx, params, state, grads, lr_scale) for _ in range(2))
+    assert torch.equal(first[3], second[3])
+    for a, b in zip(first[:3], second[:3]):
+        _same_bits(a, b, "second run")
+
+
+def test_adamw_route_through_apply_and_a_captured_two_optimizer_update(gen):
+    """`Optimizer.apply_` takes the kernels on the card (`optim.fused`), and a
+    CUDA-graph capture of two optimizers' updates (the GAN step's G and D),
+    replayed, leaves params and moments bit for bit where eager calls leave
+    them, with the kernels' launches counted under replay as eager."""
+    from medvae_tpu_torch.core import tracing
+    from medvae_tpu_torch.ops import adamw
+    from medvae_tpu_torch.train import optim
+    from medvae_tpu_torch.train.multistep import _Captured
+
+    def two(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        cases = [_adamw_case(g, ADAMW_SMALL, "adamw", 1.0), _adamw_case(g, ADAMW_SMALL[:9], "adamw", 1.0, lr=5e-5)]
+        return [(tx, [p.clone() for p in ps], st, gs) for tx, ps, st, gs, _ in cases]
+
+    lr_scale = torch.tensor(0.75, device="cuda")
+
+    def steps(opts, n, capture):
+        captured = None
+        for i in range(n):
+            for tx, _, st, _ in opts:
+                st.count = 5 + i
+                tx.prepare(st)
+            if captured is not None:
+                captured.replay()
+                continue
+            run = lambda: [tx.apply_(gs, st, ps, lr_scale) for tx, ps, st, gs in opts]  # noqa: E731
+            run()
+            if capture:
+                torch.cuda.synchronize()
+                captured = _Captured(run, [])
+        torch.cuda.synchronize()
+        return [t.clone() for _, ps, st, _ in opts for t in ps + st.mu + st.nu]
+
+    adamw.reset_launches()
+    tracing.enable(True)
+    try:
+        want = steps(two(3), 4, capture=False)
+        counted = tracing.counters()
+    finally:
+        tracing.enable(None)
+        tracing.reset()
+    assert counted["optim.fused"] == 8 and "optim.plain" not in counted
+    assert counted["optim.least_bytes"] == 4 * 32 * sum(int(np.prod(s)) for s in ADAMW_SMALL + ADAMW_SMALL[:9])
+    eager = dict(adamw.launches)
+    assert eager == {"adamw_sumsq": 4 * 3, "adamw_norm": 4 * 2, "adamw_update": 4 * 3}
+    adamw.reset_launches()
+    got = steps(two(3), 4, capture=True)
+    assert adamw.launches == eager
+    _same_bits(got, want, "captured")
+    ref = steps([(dataclasses.replace(tx, norm=lambda ts: optim.global_norm(ts)), ps, st, gs)
+                 for tx, ps, st, gs in two(3)], 4, capture=False)
+    for a, b in zip(got, ref):  # the plain chain (a swapped norm), to the norm's rounding
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-9)
